@@ -1,0 +1,8 @@
+from gaussianimage_tpu_torch.ops.rasterize_sum import (
+    RasterizeConfig,
+    rasterize_gaussians_sum,
+    rasterize_gaussians_sum_chw,
+)
+
+__all__ = ["RasterizeConfig", "rasterize_gaussians_sum",
+           "rasterize_gaussians_sum_chw"]

@@ -1,0 +1,116 @@
+"""Build and load the port's CUDA kernels: plain ``nvcc`` into a shared
+library with a C interface, loaded with ``ctypes``.
+
+No source includes PyTorch's headers and nothing goes through
+``torch.utils.cpp_extension``: a file with a plain C interface compiles in
+seconds, where one that includes ``torch/extension.h`` takes minutes.
+
+Each library is built on first use into ``gaussianimage_tpu_torch/_build/``
+under a name keyed by a hash of its source and the compiler flags, so an
+unchanged source is not rebuilt. ``build`` starts one ``nvcc`` per missing
+library, all at once, and waits for them all. A failed build raises with
+the compiler's output; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_p = ctypes.c_void_p
+_i = ctypes.c_int
+_f = ctypes.c_float
+
+# library name -> (source under csrc/, {C function: (argtypes, restype)})
+KERNELS = {
+    "rasterize_sum_fwd": (
+        "rasterize_sum_fwd.cu",
+        # feat, n_rows, gids, starts, out, H, W, tiles_x, tiles_y, q_cut,
+        # stream
+        {"rasterize_sum_fwd": ([_p, _i, _p, _p, _p, _i, _i, _i, _i, _f, _p],
+                               _i)},
+    ),
+}
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, $CUDA_PATH/bin, "
+            "/usr/local/cuda/bin and PATH): the CUDA kernels of "
+            "gaussianimage_tpu_torch cannot be built")
+    return found
+
+
+def library_path(name: str) -> Path:
+    source = CSRC / KERNELS[name][0]
+    h = hashlib.sha256(source.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, Path]:
+    """Build every named library that is not built yet, one ``nvcc`` each,
+    all started together. Returns name -> library path. The compiler's
+    output (with ptxas' register and shared-memory report) is kept beside
+    each library as ``<library>.log``."""
+    names = list(names)
+    paths = {n: library_path(n) for n in names}
+    todo = [n for n in names if not paths[n].is_file()]
+    if not todo:
+        return paths
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for n in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / KERNELS[n][0])]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed for {KERNELS[n][0]} "
+                          f"(exit {proc.returncode}):\n{log}")
+            continue
+        Path(str(paths[n]) + ".log").write_text(log)
+        os.replace(tmp, paths[n])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed, with argtypes and
+    restype declared for each of its C functions."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([name])[name]))
+        for fn, (argtypes, restype) in KERNELS[name][1].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,124 @@
+"""The port stands alone and runs on CUDA unless told otherwise:
+gaussianimage_tpu_torch imports neither JAX nor the JAX package; its entry
+points raise without a GPU when the CPU was not asked for; chip_smoke.py
+exits non-zero, with no result line, where there is no card or no
+repository around it; checkpoints round-trip with the JAX package."""
+
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _run(args, cwd):
+    return subprocess.run([sys.executable, *args], cwd=cwd,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import gaussianimage_tpu_torch, gaussianimage_tpu_torch.train\n"
+        "import gaussianimage_tpu_torch.ops._build\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'gaussianimage_tpu' "
+        "or m.startswith('gaussianimage_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    p = _run(["-c", code], ROOT)
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == "clean"
+
+
+def test_port_sources_do_not_name_jax():
+    for path in [*(ROOT / "gaussianimage_tpu_torch").rglob("*.py"),
+                 ROOT / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                mod = s.split()[1]
+                assert mod.split(".")[0] not in ("jax", "gaussianimage_tpu"), \
+                    f"{path}: {s}"
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from gaussianimage_tpu_torch import resolve_device
+    from gaussianimage_tpu_torch import train
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train.main(["--data_name", "synthetic", "--iterations", "0",
+                    "--num_points", "10", "--model_path", "unused.npz"])
+
+
+def test_training_and_other_models_are_not_ported():
+    from gaussianimage_tpu_torch import train
+    from gaussianimage_tpu_torch.models import make_model
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        train.main(["--data_name", "synthetic", "--iterations", "10",
+                    "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_model("GaussianImage_RS", num_points=4, H=8, W=8)
+    with pytest.raises(ValueError, match="unknown model"):
+        make_model("NoSuchModel", num_points=4, H=8, W=8)
+
+
+def test_cuda_wrapper_never_falls_back():
+    """A non-CPU tensor either launches K1 or raises: on a meta tensor (no
+    CUDA here) the wrapper refuses instead of taking the plain version."""
+    from gaussianimage_tpu_torch.ops import rasterize_sum as rs
+
+    feat = torch.zeros(5, 16, device="meta")
+    gids = torch.zeros(64, dtype=torch.int32, device="meta")
+    starts = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        rs.sum_fwd(feat, gids, starts, 32, 32)
+
+
+def test_chip_smoke_fails_without_card_or_repo(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    p = _run([str(ROOT / "chip_smoke.py")], ROOT)
+    assert p.returncode != 0
+    assert '"ok"' not in p.stdout
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    p = _run(["chip_smoke.py"], tmp_path)
+    assert p.returncode != 0
+    assert '"ok"' not in p.stdout
+
+
+def test_checkpoint_round_trip_with_jax_package(tmp_path):
+    from gaussianimage_tpu.utils.checkpoint import load_checkpoint as j_load
+    from gaussianimage_tpu.utils.checkpoint import save_checkpoint as j_save
+    from gaussianimage_tpu_torch.utils.checkpoint import (
+        load_checkpoint, params_from_numpy, save_checkpoint)
+
+    rng = np.random.default_rng(0)
+    params = {"_xyz": rng.normal(size=(7, 2)).astype(np.float32),
+              "_cholesky": rng.normal(size=(7, 3)).astype(np.float32)}
+    j_save(tmp_path / "j.npz", params, {"step": np.int32(3)})
+    ck = load_checkpoint(tmp_path / "j.npz")
+    assert int(ck["extra"]["step"]) == 3
+    state = params_from_numpy(ck["params"])
+    assert all(v.dtype == torch.float32 for v in state.values())
+    save_checkpoint(tmp_path / "t.npz", state)
+    back = j_load(tmp_path / "t.npz")["params"]
+    for k, v in params.items():
+        np.testing.assert_array_equal(back[k], v)
+    assert json.dumps(sorted(back)) == json.dumps(sorted(params))
