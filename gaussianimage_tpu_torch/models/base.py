@@ -1,16 +1,24 @@
-"""Model base (counterpart of the render part of gaussianimage_tpu/models/
-base.py): the configuration and the render protocol. The training step,
-optimizer and loss come with the training slice (ROADMAP.md)."""
+"""Model base (counterpart of gaussianimage_tpu/models/base.py): the
+configuration, the render protocol, the loss with its fused branch, the
+optimizer and the training step.
+
+A model is an ``nn.Module`` that holds its parameters; the optimizer holds
+its moments. ``train_step`` runs one update and returns its metrics as
+device scalars, so a loop of steps synchronises only where it reads them.
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
 
-from gaussianimage_tpu_torch.ops import RasterizeConfig
+from gaussianimage_tpu_torch.ops import (RasterizeConfig,
+                                         rasterize_gaussians_sum_l2)
+from gaussianimage_tpu_torch.opt import Adan, step_lr
+from gaussianimage_tpu_torch.utils.losses import loss_fn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,7 +28,14 @@ class ModelConfig:
     W: int
     block_h: int = 16
     block_w: int = 16
+    loss_type: str = "L2"
+    lambda_value: float = 0.7
+    lr: float = 1e-3
+    opt_type: str = "adan"  # "adan" | "adam"
+    lr_step_size: int = 20000
+    lr_gamma: float = 0.5
     no_clamp: bool = False
+    init_mode: str = "uniform"  # "uniform" (reference) | "adaptive"
     raster: RasterizeConfig = RasterizeConfig()
 
     @property
@@ -29,12 +44,21 @@ class ModelConfig:
 
 
 class GaussianModelBase(nn.Module):
-    """A model is an nn.Module holding its parameters; subclasses define
-    ``render``."""
+    """Subclasses define ``init_params`` and ``render`` (and ``splat`` to
+    take the fused L2 step)."""
+
+    # the fused render + L2 + backward (K3) is valid only when splat()
+    # captures the whole forward
+    fused_l2 = True
+    # error-driven relocation support (core/reseed.py)
+    reseed_ok = False
 
     def __init__(self, config: ModelConfig):
         super().__init__()
         self.cfg = config
+
+    def init_params(self, generator: torch.Generator, gt_image=None) -> None:
+        raise NotImplementedError
 
     def render(self, **kw) -> dict:
         raise NotImplementedError
@@ -46,3 +70,65 @@ class GaussianModelBase(nn.Module):
 
     def forward(self, **kw):
         return self.render(**kw)
+
+    def loss(self, gt_image: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        """(scalar loss, aux with "mse"), the JAX package's branch: L2 on a
+        model whose splat() is its whole forward takes the fused K3 pass;
+        anything else renders and applies ``loss_fn``."""
+        cfg = self.cfg
+        if cfg.loss_type == "L2" and self.fused_l2 and hasattr(self, "splat"):
+            xys, radii, conics, colors, opac = self.splat()
+            mse, raux = rasterize_gaussians_sum_l2(
+                xys, conics, colors, opac, gt_image[0], cfg.H, cfg.W,
+                radii=radii, config=cfg.raster, clamp=not cfg.no_clamp)
+            return mse, {"mse": mse, "pkg": {"raster_aux": raux}}
+        pkg = self.render()
+        img = pkg["render"]
+        loss = loss_fn(img, gt_image, cfg.loss_type, cfg.lambda_value)
+        mse = torch.mean((img.float() - gt_image.float()) ** 2)
+        return loss, {"mse": mse, "render": img, "pkg": pkg}
+
+    # -- optimizer -----------------------------------------------------------
+    def lr_schedule(self):
+        return step_lr(self.cfg.lr, self.cfg.lr_step_size, self.cfg.lr_gamma)
+
+    def make_optimizer(self) -> torch.optim.Optimizer:
+        """Adan on the StepLR schedule, or Adam, whose learning rate
+        ``train_step`` sets from the schedule before each update."""
+        if self.cfg.opt_type == "adan":
+            return Adan(self.parameters(), lr=self.lr_schedule())
+        if self.cfg.opt_type == "adam":
+            opt = torch.optim.Adam(self.parameters(), lr=self.cfg.lr)
+            for group in opt.param_groups:
+                group["count"] = 0
+            return opt
+        raise ValueError(f"unknown opt_type {self.cfg.opt_type}; options: "
+                         "adan, adam")
+
+    def init_state(self, generator: torch.Generator, gt_image=None
+                   ) -> torch.optim.Optimizer:
+        """Initialise the parameters in place; returns a fresh optimizer."""
+        self.init_params(generator, gt_image=gt_image)
+        return self.make_optimizer()
+
+    # -- training ------------------------------------------------------------
+    def train_step(self, optimizer: torch.optim.Optimizer,
+                   gt_image: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One update. Returns device scalars: loss, psnr (of the step's
+        mse) and n_dropped (the instance-stream overflow)."""
+        optimizer.zero_grad(set_to_none=True)
+        loss, aux = self.loss(gt_image)
+        loss.backward()
+        if not isinstance(optimizer, Adan):  # Adam: schedule at the count
+            sched = self.lr_schedule()
+            for group in optimizer.param_groups:
+                group["lr"] = sched(group["count"])
+                group["count"] += 1
+        optimizer.step()
+        mse = aux["mse"].detach()
+        psnr = 10.0 * torch.log10(1.0 / torch.clamp(mse, min=1e-12))
+        raux = aux.get("pkg", {}).get("raster_aux")
+        n_dropped = (raux["n_dropped"] if raux is not None
+                     else torch.zeros((), dtype=torch.int32,
+                                      device=mse.device))
+        return {"loss": loss.detach(), "psnr": psnr, "n_dropped": n_dropped}

@@ -8,9 +8,9 @@ gaussianimage_cholesky.py):
  - opacity fixed at 1
  - render: project + accumulated-sum rasterize, clamp [0,1]
 
-The parameters start at zero: this slice evaluates fitted checkpoints
-(``load_state_dict(params_from_numpy(...))``); initialization comes with the
-training slice.
+The parameters start at zero; ``init_params`` initialises them for a fit
+(grid when N = H*W, adaptive from the GT, or uniform), and a fitted
+checkpoint loads with ``load_state_dict(params_from_numpy(...))``.
 """
 
 from __future__ import annotations
@@ -20,10 +20,14 @@ from torch import nn
 
 from gaussianimage_tpu_torch import resolve_device
 from gaussianimage_tpu_torch.core import project_gaussians_2d
+from gaussianimage_tpu_torch.core.init import (adaptive_init_sigma,
+                                               adaptive_init_xyz,
+                                               init_colors_from_gt)
 from gaussianimage_tpu_torch.models.base import GaussianModelBase, ModelConfig
 from gaussianimage_tpu_torch.ops import rasterize_gaussians_sum
 
 CHOLESKY_BOUND = (0.5, 0.0, 0.5)
+VIZ_SEED = 1234  # fixed random colors of the Gaussian-shape visualization
 
 
 class GaussianImageCholesky(GaussianModelBase):
@@ -40,6 +44,62 @@ class GaussianImageCholesky(GaussianModelBase):
             "cholesky_bound",
             torch.tensor(CHOLESKY_BOUND, dtype=torch.float32, device=device),
             persistent=False)
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator, gt_image=None) -> None:
+        """Initialise the parameters in place: a pixel grid when N = H*W;
+        adaptive (GT gradient-density positions, GT colors, sigma from the
+        point spacing; core/init.py) under init_mode "adaptive" with a GT;
+        else uniform means. Colors and Cholesky elements the branch does not
+        set are uniform on [0, 1)."""
+        cfg = self.cfg
+        N, H, W = cfg.num_points, cfg.H, cfg.W
+        dev = self._xyz.device
+        colors = chol0 = None
+        if N == H * W:
+            ys = torch.linspace(-1.0, 1.0, H, device=dev)
+            xs = torch.linspace(-1.0, 1.0, W, device=dev)
+            grid = torch.stack(torch.meshgrid(xs, ys, indexing="xy"), dim=-1)
+            xyz = torch.atanh(grid.reshape(-1, 2) * (1 - 1e-4))
+        elif cfg.init_mode == "adaptive" and gt_image is not None:
+            gt = gt_image.to(dev)
+            xyz = adaptive_init_xyz(generator, gt, N, H, W)
+            colors = init_colors_from_gt(gt, xyz, H, W)
+            sig = adaptive_init_sigma(gt, xyz, N, H, W)
+            chol0 = torch.stack([sig - CHOLESKY_BOUND[0], torch.zeros_like(sig),
+                                 sig - CHOLESKY_BOUND[2]], dim=1)
+        else:
+            u = torch.rand(N, 2, generator=generator, device=dev)
+            xyz = torch.atanh((2.0 * u - 1.0) * (1 - 1e-6))
+        if colors is None:
+            colors = torch.rand(N, 3, generator=generator, device=dev)
+        if chol0 is None:
+            chol0 = torch.rand(N, 3, generator=generator, device=dev)
+        self._xyz.copy_(xyz)
+        self._cholesky.copy_(chol0)
+        self._features_dc.copy_(colors)
+
+    # -- reseeding hooks (core/reseed.py) ------------------------------------
+    reseed_ok = True
+
+    def importance(self) -> torch.Tensor:
+        """[N] contribution proxy: color energy x footprint area
+        (|L11 * L22| = sqrt(det cov))."""
+        l = self._cholesky
+        area = torch.abs((l[:, 0] + CHOLESKY_BOUND[0])
+                         * (l[:, 2] + CHOLESKY_BOUND[2]))
+        return torch.abs(self._features_dc).sum(dim=1) * area
+
+    @torch.no_grad()
+    def relocate(self, victims, new_xyz, new_colors, sigma) -> None:
+        """Rewrite the victims' rows in place: position and color from the
+        reseed targets, an isotropic sigma-px covariance (raw = sigma -
+        bound)."""
+        self._xyz[victims] = new_xyz
+        self._features_dc[victims] = new_colors
+        self._cholesky[victims] = torch.stack(
+            [sigma - CHOLESKY_BOUND[0], torch.zeros_like(sigma),
+             sigma - CHOLESKY_BOUND[2]], dim=1)
 
     # activations ----------------------------------------------------------
     def get_xyz(self, xyz=None):
@@ -63,7 +123,10 @@ class GaussianImageCholesky(GaussianModelBase):
         opac = torch.ones(N, 1, dtype=torch.float32, device=xys.device)
         return xys, radii, conics, self.get_features(), opac
 
-    def render(self, xyz=None, **kw) -> dict:
+    def render(self, xyz=None, render_viz: bool = False, **kw) -> dict:
+        """The clamped render [1, 3, H, W], the alpha map, the projected
+        centers and the rasterizer's aux. ``render_viz`` adds
+        ``gauss_render``, the Gaussians' shapes in fixed random colors."""
         cfg = self.cfg
         xys, radii, conics, colors, opac = self.splat(xyz)
         img, alpha, aux = rasterize_gaussians_sum(
@@ -71,10 +134,19 @@ class GaussianImageCholesky(GaussianModelBase):
             config=cfg.raster)
         if not cfg.no_clamp:
             img = torch.clamp(img, 0.0, 1.0)
-        return {
+        out = {
             "render": img.permute(2, 0, 1)[None],   # [1,3,H,W]
             "alpha_map": alpha[None, None],         # [1,1,H,W]
             "final_opacities": opac,
             "xys": xys,
             "raster_aux": aux,
         }
+        if render_viz:
+            gen = torch.Generator(device=xys.device).manual_seed(VIZ_SEED)
+            viz_colors = 0.5 * torch.rand(xys.shape[0], 3, generator=gen,
+                                          device=xys.device)
+            gimg, _, _ = rasterize_gaussians_sum(
+                xys.detach(), conics.detach(), viz_colors, opac, cfg.H,
+                cfg.W, radii=radii, config=cfg.raster)
+            out["gauss_render"] = torch.clamp(gimg, 0, 1).permute(2, 0, 1)[None]
+        return out

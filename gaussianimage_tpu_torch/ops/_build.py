@@ -42,6 +42,19 @@ KERNELS = {
         {"rasterize_sum_fwd": ([_p, _i, _p, _p, _p, _i, _i, _i, _i, _f, _p],
                                _i)},
     ),
+    "rasterize_sum_bwd": (
+        "rasterize_sum_bwd.cu",
+        {
+            # K2: feat, n_rows, gids, starts, g, dgfeat, H, W, tiles_x,
+            # tiles_y, q_cut, stream
+            "rasterize_sum_bwd": ([_p, _i, _p, _p, _p, _p, _i, _i, _i, _i,
+                                   _f, _p], _i),
+            # K3: feat, n_rows, gids, starts, gt, sse, dgfeat, H, W,
+            # tiles_x, tiles_y, q_cut, gscale, clamp, stream
+            "rasterize_sum_l2": ([_p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i,
+                                  _f, _f, _i, _p], _i),
+        },
+    ),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -62,8 +75,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC / KERNELS[name][0]
-    h = hashlib.sha256(source.read_bytes())
+    """The library's path, keyed by its source, the shared headers under
+    ``csrc/`` and the compiler flags."""
+    h = hashlib.sha256((CSRC / KERNELS[name][0]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -19,27 +19,24 @@
 // few MB (the feature rows, the stream, the 4 x H x W output).
 //
 // Design: one thread block per tile, 256 threads, each owning 4 pixels of
-// one column (rows ly, ly+8, ly+16, ly+24), so stores are coalesced along x.
-// The block stages each chunk of BK instances' rows in shared memory (every
-// thread then reads the same word: a broadcast, no bank conflicts) and each
-// thread keeps its 4 x 4 accumulators in registers. Instances are summed in
-// stream order: deterministic, no atomics.
+// one column (rasterize_sum_common.cuh's TileGeom), so stores are coalesced
+// along x. The block stages each chunk of BK instances' rows in shared
+// memory (every thread then reads the same word: a broadcast, no bank
+// conflicts) and each thread keeps its 4 x 4 accumulators in registers.
+// Instances are summed in stream order: deterministic, no atomics.
 //
-// Arithmetic: the JAX kernel's expression, rounded op by op (__fmul_rn,
-// __fadd_rn: no FMA contraction) and expf, not __expf, so q and w are
-// bit-equal to the plain PyTorch version's. That matters at the q <= q_cut
-// gate, where one ulp of q decides whether exp(-4.5) ~ 0.011 is added.
+// Arithmetic: the walk, and the pair's q, gate and weight, come from
+// rasterize_sum_common.cuh (tile_forward), shared with K3 (which must
+// reproduce K1's image bit for bit) and K2, rounded op by op so they are
+// bit-equal to the plain PyTorch version's.
 
 #include <cuda_runtime.h>
 
+#include "rasterize_sum_common.cuh"
+
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kThreads = 256;
-constexpr int kRowsPerThread = kTile * kTile / kThreads;  // 4
-constexpr int kRowStride = kThreads / kTile;              // 8
-constexpr int kBK = 64;                                   // instances per chunk
-constexpr int kFW = 16;                                   // floats per feature row
+using namespace gsum;
 
 __global__ void __launch_bounds__(kThreads)
 rasterize_sum_fwd_kernel(const float* __restrict__ feat, int n_rows,
@@ -47,79 +44,17 @@ rasterize_sum_fwd_kernel(const float* __restrict__ feat, int n_rows,
                          const int* __restrict__ starts,
                          float* __restrict__ out, int H, int W, int tiles_x,
                          float q_cut) {
-  // per-instance columns: tile-local center, conic (a, 2b, c), color matrix
-  __shared__ float s_gx[kBK], s_gy[kBK], s_a[kBK], s_b2[kBK], s_c[kBK];
-  __shared__ float s_cm[4][kBK];
+  __shared__ Chunk s;
+  const TileGeom tg = tile_geom(starts, H, W, tiles_x);
+  float acc[kRowsPerThread][kC];
+  tile_forward(s, feat, n_rows, gids, tg, q_cut, acc);
 
-  const int t = blockIdx.x;
-  const int tx = t % tiles_x;
-  const int ty = t / tiles_x;
-  const float tx0 = static_cast<float>(tx * kTile);
-  const float ty0 = static_cast<float>(ty * kTile);
-  const int start = starts[t];
-  const int end = starts[t + 1];
-
-  const int lx = threadIdx.x % kTile;
-  const int ly = threadIdx.x / kTile;
-  const float X = static_cast<float>(lx);
-  float Y[kRowsPerThread];
-  float acc[kRowsPerThread][4];
-#pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j) {
-    Y[j] = static_cast<float>(ly + j * kRowStride);
-#pragma unroll
-    for (int ch = 0; ch < 4; ++ch) acc[j][ch] = 0.0f;
-  }
-
-  for (int base = start; base < end; base += kBK) {
-    const int n = min(kBK, end - base);
-    if (threadIdx.x < n) {
-      int g = gids[base + threadIdx.x];
-      if (g < 0 || g >= n_rows) g = n_rows - 1;  // the zero sentinel row
-      const float* r = feat + static_cast<size_t>(g) * kFW;
-      const int k = threadIdx.x;
-      s_gx[k] = __fsub_rn(r[0], tx0);
-      s_gy[k] = __fsub_rn(r[1], ty0);
-      s_a[k] = r[2];
-      s_b2[k] = __fmul_rn(2.0f, r[3]);
-      s_c[k] = r[4];
-#pragma unroll
-      for (int ch = 0; ch < 4; ++ch) s_cm[ch][k] = r[5 + ch];
-    }
-    __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      const float gx = s_gx[k], gy = s_gy[k];
-      const float a = s_a[k], b2 = s_b2[k], c = s_c[k];
-      const float dx = __fsub_rn(X, gx);
-      const float adxdx = __fmul_rn(__fmul_rn(a, dx), dx);
-      const float b2dx = __fmul_rn(b2, dx);
-#pragma unroll
-      for (int j = 0; j < kRowsPerThread; ++j) {
-        const float dy = __fsub_rn(Y[j], gy);
-        float q = __fadd_rn(__fadd_rn(adxdx, __fmul_rn(b2dx, dy)),
-                            __fmul_rn(__fmul_rn(c, dy), dy));
-        q = fmaxf(q, 0.0f);
-        if (q <= q_cut) {
-          const float w = expf(__fmul_rn(-0.5f, q));
-#pragma unroll
-          for (int ch = 0; ch < 4; ++ch)
-            acc[j][ch] = __fadd_rn(acc[j][ch], __fmul_rn(s_cm[ch][k], w));
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const int px = tx * kTile + lx;
-  if (px >= W) return;
   const size_t plane = static_cast<size_t>(H) * W;
 #pragma unroll
   for (int j = 0; j < kRowsPerThread; ++j) {
-    const int py = ty * kTile + ly + j * kRowStride;
-    if (py < H) {
-      const size_t o = static_cast<size_t>(py) * W + px;
+    if (tg.inside[j]) {
 #pragma unroll
-      for (int ch = 0; ch < 4; ++ch) out[ch * plane + o] = acc[j][ch];
+      for (int ch = 0; ch < kC; ++ch) out[ch * plane + tg.pix[j]] = acc[j][ch];
     }
   }
 }

@@ -1,27 +1,36 @@
-"""Accumulated-summation Gaussian rasterizer, forward only (counterpart of
-gaussianimage_tpu/ops/rasterize_sum.py; reference contract: gsplat
-``rasterize_gaussians_sum``).
+"""Accumulated-summation Gaussian rasterizer with its analytic backward
+(counterpart of gaussianimage_tpu/ops/rasterize_sum.py; reference contract:
+gsplat ``rasterize_gaussians_sum``).
 
 Pipeline, as in the JAX package:
 
 - bin each Gaussian into the tiles its exact q <= q_cut bbox overlaps and
-  sort the instances by tile (ops/tiles.py via stream_common.prepare_stream);
+  sort the instances by tile (ops/tiles.py via stream_common.prepare_stream),
+  on detached inputs: no graph is built through the binning;
 - pack the per-Gaussian feature rows [N+1, 16] with premultiplied colors
-  (stream_common.pack_feat);
-- K1 walks each tile's window of the stream and sums
+  (stream_common.pack_feat); autograd carries the rows' gradient back to
+  xys, conics, colors and opacities;
+- walk each tile's window of the stream and sum
   (o*r, o*g, o*b, o) * exp(-q/2) over it, cut at q > q_cut.
 
-K1 is ``ops/csrc/rasterize_sum_fwd.cu``, launched by ``sum_fwd`` for CUDA
-tensors; it gathers the rows itself and writes the [4, H, W] image
-directly, so neither the JAX package's stream gather nor its untile runs on
-the card. ``sum_fwd_plain`` is the same function in plain PyTorch: the
-wrapper takes it for CPU tensors only, and the tests and ``chip_smoke.py``
-hold the kernel against it.
+Three CUDA kernels, each with a plain PyTorch version of the same function
+beside it; a wrapper takes the plain version for CPU tensors only, and a
+CUDA tensor launches the kernel or raises:
 
-Channel 3 of the output is the accumulated alpha. No clamping, no
-background compositing (the model clamps). Not differentiable yet: the
-backward kernel K2 is not ported, so a call with inputs that require grad
-raises rather than return a result without gradients.
+- K1 ``sum_fwd`` (``csrc/rasterize_sum_fwd.cu``): the [4, H, W] render;
+- K2 ``sum_bwd`` (``csrc/rasterize_sum_bwd.cu``): per-instance gradient rows
+  from a [4, H, W] cotangent, the backward of ``rasterize_gaussians_sum``;
+- K3 ``sum_l2`` (same file): render, clip, masked L2 against a target and
+  K2's backward in one pass, the training step of
+  ``rasterize_gaussians_sum_l2``.
+
+The kernels gather the rows themselves and read and write [C, H, W]
+images directly, so neither the JAX package's stream gather nor its tiling
+and untiling of images runs on the card. Per-instance rows go back onto the
+Gaussians through ``stream_common.scatter_stream_grads``, deterministically.
+
+Channel 3 of the render is the accumulated alpha. No clamping, no
+background compositing (the model clamps).
 """
 
 from __future__ import annotations
@@ -35,12 +44,13 @@ from gaussianimage_tpu_torch.ops import _build
 from gaussianimage_tpu_torch.ops import stream_common as sc
 
 _C = 4  # output channels: rgb + alpha
-_PLAIN_CHUNK = 4096  # stream slots per step of the plain version
+_PLAIN_CHUNK = 4096  # stream slots per step of the plain versions
+_KERNEL_TILE = 32  # the CUDA kernels' tile side
 
 
 class RasterizeConfig(NamedTuple):
     """The JAX package's RasterizeConfig: same fields, same defaults."""
-    tile_px: int = 32        # square image tile side (K1 takes 32 only)
+    tile_px: int = 32        # square image tile side (the kernels take 32)
     tiles_per_step: int = 8  # tiles per grid step on the TPU; pads T only
     block_inst: int = 64     # instances per chunk (BK); rounds the stream cap
     q_cut: float = 9.0       # Mahalanobis cutoff (3 sigma)
@@ -62,7 +72,7 @@ class RasterizeConfig(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# K1 and its plain version
+# geometry shared by the plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -77,28 +87,36 @@ def _check_tiles(H: int, W: int, tile_px: int, starts: torch.Tensor):
     return tiles_x, tiles_y
 
 
+class Pairs(NamedTuple):
+    """One chunk of stream slots against their tiles' pixels."""
+    start: int            # first stream slot of the chunk
+    tile: torch.Tensor    # [n] each slot's tile
+    rows: torch.Tensor    # [n, 16] gathered feature rows
+    dx: torch.Tensor      # [n, P] pixel minus center, tile-local
+    dy: torch.Tensor      # [n, P]
+    q: torch.Tensor       # [n, P] clamped quadratic form
+    inside: torch.Tensor  # [n, P] pixel within H x W
+
+
 def window_pairs(feat: torch.Tensor, gids: torch.Tensor,
                  starts: torch.Tensor, H: int, W: int, tile_px: int = 32):
-    """K1's (instance, pixel) geometry, ``_PLAIN_CHUNK`` stream slots at a
-    time: yields (tile [n], rows [n, 16], q [n, P], inside [n, P]).
-
-    ``tile`` is each slot's tile, T for the slots past the last window;
-    ``rows`` its gathered feature row; ``q`` the clamped quadratic form on
-    the tile's P pixels, op for op as K1 computes it; ``inside`` marks the
-    pairs K1 evaluates: a live slot and a pixel within H x W.
-    """
+    """The kernels' (instance, pixel) geometry over the slots of the tiles'
+    windows, ``_PLAIN_CHUNK`` slots at a time: yields ``Pairs`` with q
+    computed op for op as the kernels compute it
+    (rasterize_sum_common.cuh). Reads the end of the last window back to
+    the host."""
     tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
     T = tiles_x * tiles_y
     P = tile_px * tile_px
     dev = feat.device
-    rows = sc.gather_stream(gids, feat)
-    I = rows.shape[0]
+    I = int(starts[T])
+    rows = sc.gather_stream(gids[:I], feat)
     pidx = torch.arange(P, device=dev)
     X = (pidx % tile_px).float()[None, :]   # [1, P] tile-local pixel x
     Y = (pidx // tile_px).float()[None, :]
     slot = torch.arange(I, device=dev, dtype=torch.int32)
     tile_of = torch.searchsorted(starts[1:T + 1].contiguous(), slot,
-                                 right=True)  # [I] in [0, T]; T = dead
+                                 right=True)  # [I] in [0, T)
     for s in range(0, I, _PLAIN_CHUNK):
         t = tile_of[s:s + _PLAIN_CHUNK]
         g = rows[s:s + _PLAIN_CHUNK]  # [n, 16]
@@ -112,8 +130,98 @@ def window_pairs(feat: torch.Tensor, gids: torch.Tensor,
         dy = Y - gy
         q = torch.clamp(a * dx * dx + 2.0 * b * dx * dy + c * dy * dy,
                         min=0.0)
-        inside = (t < T)[:, None] & (X + tx0 < W) & (Y + ty0 < H)
-        yield t, g, q, inside
+        inside = (X + tx0 < W) & (Y + ty0 < H)
+        yield Pairs(s, t, g, dx, dy, q, inside)
+
+
+def _tile_image(img: torch.Tensor, tile_px: int, tiles_x: int,
+                tiles_y: int) -> torch.Tensor:
+    """[C, H, W] -> [T, C, P] tiles, zero-padded past H x W."""
+    C, H, W = img.shape
+    pad = torch.zeros(C, tiles_y * tile_px, tiles_x * tile_px,
+                      dtype=img.dtype, device=img.device)
+    pad[:, :H, :W] = img
+    return (pad.reshape(C, tiles_y, tile_px, tiles_x, tile_px)
+            .permute(1, 3, 0, 2, 4)
+            .reshape(tiles_y * tiles_x, C, tile_px * tile_px))
+
+
+def _untile_image(tiles: torch.Tensor, tile_px: int, tiles_x: int,
+                  tiles_y: int, H: int, W: int) -> torch.Tensor:
+    """[T, C, P] tiles -> [C, H, W], cropped."""
+    C = tiles.shape[1]
+    img = (tiles.reshape(tiles_y, tiles_x, C, tile_px, tile_px)
+           .permute(2, 0, 3, 1, 4)
+           .reshape(C, tiles_y * tile_px, tiles_x * tile_px))
+    return img[:, :H, :W].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# plain versions of K1, K2 and K3
+# ---------------------------------------------------------------------------
+
+
+class Gated(NamedTuple):
+    """The gated (instance, pixel) pairs of one chunk of stream slots."""
+    start: int          # first stream slot of the chunk
+    rows: torch.Tensor  # [n, 16] the chunk's feature rows
+    k: torch.Tensor     # [m] slot within the chunk
+    tile: torch.Tensor  # [m] the slot's tile
+    pix: torch.Tensor   # [m] tile-local pixel
+    w: torch.Tensor     # [m] exp(-q/2)
+    dx: torch.Tensor    # [m] pixel minus center
+    dy: torch.Tensor    # [m]
+
+
+def gated_pairs(feat, gids, starts, H, W, tile_px=32, q_cut=9.0):
+    """The pairs that pass the kernels' gate: a slot of a window, a pixel
+    within H x W and q <= q_cut, in stream order (slot-major), with their
+    weights. The plain versions evaluate only these."""
+    out = []
+    for pr in window_pairs(feat, gids, starts, H, W, tile_px):
+        k, p = torch.nonzero(pr.inside & (pr.q <= q_cut), as_tuple=True)
+        out.append(Gated(pr.start, pr.rows, k, pr.tile[k], p,
+                         torch.exp(-0.5 * pr.q[k, p]), pr.dx[k, p],
+                         pr.dy[k, p]))
+    return out
+
+
+def _accumulate(gated, T: int, P: int, device) -> torch.Tensor:
+    """[T, 4, P] per-tile sums of cm * w over the gated pairs (index_add_,
+    in stream order where the device adds in order)."""
+    acc = torch.zeros(T * P, _C, dtype=torch.float32, device=device)
+    for gp in gated:
+        acc.index_add_(0, gp.tile * P + gp.pix,
+                       gp.rows[gp.k, 5:5 + _C] * gp.w[:, None])
+    return acc.reshape(T, P, _C).permute(0, 2, 1)
+
+
+def _backward_rows(gated, G: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """dgfeat [n_slots, 16]: K2's per-slot rows from the tiled cotangent
+    G [T, 4, P] over the gated pairs; rows of slots outside every
+    window stay zero."""
+    dg = torch.zeros(n_slots, sc.FW, dtype=torch.float32, device=G.device)
+    for gp in gated:
+        cm = gp.rows[gp.k, 5:5 + _C]               # [m, 4]
+        Gk = G[gp.tile, :, gp.pix]                 # [m, 4]
+        dq = -0.5 * gp.w * (cm * Gk).sum(dim=1)
+        dqdx, dqdy = dq * gp.dx, dq * gp.dy
+        terms = torch.cat([torch.stack([dqdx, dqdy, dqdx * gp.dx,
+                                        dqdx * gp.dy, dqdy * gp.dy], dim=1),
+                           gp.w[:, None] * Gk], dim=1)  # [m, 9]
+        n = gp.rows.shape[0]
+        mom = torch.zeros(n, 9, dtype=torch.float32, device=G.device)
+        mom.index_add_(0, gp.k, terms)
+        cx, cy = mom[:, 0], mom[:, 1]
+        a, b, c = gp.rows[:, 2], gp.rows[:, 3], gp.rows[:, 4]
+        out = dg[gp.start:gp.start + n]
+        out[:, 0] = -2.0 * a * cx - 2.0 * b * cy
+        out[:, 1] = -2.0 * b * cx - 2.0 * c * cy
+        out[:, 2] = mom[:, 2]
+        out[:, 3] = 2.0 * mom[:, 3]
+        out[:, 4] = mom[:, 4]
+        out[:, 5:5 + _C] = mom[:, 5:]
+    return dg
 
 
 def sum_fwd_plain(feat: torch.Tensor, gids: torch.Tensor,
@@ -122,23 +230,113 @@ def sum_fwd_plain(feat: torch.Tensor, gids: torch.Tensor,
     """Plain PyTorch version of K1 -> [4, H, W] float32.
 
     feat [N+1, 16] packed rows, gids [I] int32 stream, starts [>= T+1]
-    int32 window bounds. Evaluates every stream slot against its tile's
-    pixels (``window_pairs``) and sums the contributions onto the tiles
-    with ``index_add_``; slots past the last window land in a discarded row.
-    The arithmetic is K1's, op for op.
+    int32 window bounds. Sums cm * w over the gated pairs of every window
+    (``gated_pairs``) onto the tiles with ``index_add_``. The arithmetic of
+    each term is K1's, op for op.
     """
     tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
-    T = tiles_x * tiles_y
-    acc = torch.zeros(T + 1, _C, tile_px * tile_px, dtype=torch.float32,
-                      device=feat.device)
-    for t, g, q, _ in window_pairs(feat, gids, starts, H, W, tile_px):
-        w = torch.where(q <= q_cut, torch.exp(-0.5 * q),
-                        torch.zeros_like(q))
-        acc.index_add_(0, t, g[:, 5:5 + _C, None] * w[:, None, :])
-    img = (acc[:T].reshape(tiles_y, tiles_x, _C, tile_px, tile_px)
-           .permute(2, 0, 3, 1, 4)
-           .reshape(_C, tiles_y * tile_px, tiles_x * tile_px))
-    return img[:, :H, :W].contiguous()
+    acc = _accumulate(gated_pairs(feat, gids, starts, H, W, tile_px, q_cut),
+                      tiles_x * tiles_y, tile_px * tile_px, feat.device)
+    return _untile_image(acc, tile_px, tiles_x, tiles_y, H, W)
+
+
+def sum_bwd_plain(feat: torch.Tensor, gids: torch.Tensor,
+                  starts: torch.Tensor, g: torch.Tensor, H: int, W: int,
+                  tile_px: int = 32, q_cut: float = 9.0) -> torch.Tensor:
+    """Plain PyTorch version of K2 -> dgfeat [I, 16] float32.
+
+    g [4, H, W] is the cotangent of the render. Row s is slot s's
+    [dgx, dgy, da, db, dc, dcm0..3, 0 x 7]: K2's formulas (the moments of
+    dq summed directly over the pixel offsets) over the slot's gated
+    pairs; rows of slots outside every window are zero.
+    """
+    tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
+    return _backward_rows(
+        gated_pairs(feat, gids, starts, H, W, tile_px, q_cut),
+        _tile_image(g.float(), tile_px, tiles_x, tiles_y), gids.shape[0])
+
+
+def sum_l2_plain(feat: torch.Tensor, gids: torch.Tensor,
+                 starts: torch.Tensor, gt: torch.Tensor, H: int, W: int,
+                 tile_px: int = 32, q_cut: float = 9.0, clamp: bool = True
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K3 -> (sse [T] per tile, dgfeat [I, 16]).
+
+    gt [3, H, W]. The plain K1 render, clipped (unless ``clamp`` is False),
+    diff = img - gt, the per-tile sums of diff^2 and the L2 cotangent
+    G = 2 / (3HW) * diff * [0 < img < 1] (``l2_cotangent``; alpha's is 0),
+    then the plain K2 on G, over one evaluation of the gated pairs: K1, the
+    loss and K2, as K3 fuses them.
+    """
+    tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
+    T, P = tiles_x * tiles_y, tile_px * tile_px
+    gated = gated_pairs(feat, gids, starts, H, W, tile_px, q_cut)
+    img = _untile_image(_accumulate(gated, T, P, feat.device), tile_px,
+                        tiles_x, tiles_y, H, W)[:3]
+    diff, G = l2_cotangent(img, gt.float(), H, W, clamp)
+    sse = _tile_image(diff * diff, tile_px, tiles_x, tiles_y).sum(dim=(1, 2))
+    dg = _backward_rows(gated, _tile_image(G, tile_px, tiles_x, tiles_y),
+                        gids.shape[0])
+    return sse, dg
+
+
+def l2_cotangent(img: torch.Tensor, gt: torch.Tensor, H: int, W: int,
+                 clamp: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(diff [3, H, W], G [4, H, W]): K3's per-pixel loss terms from an
+    unclipped render ``img`` [3, H, W], op for op as K3 forms them."""
+    if clamp:
+        diff = torch.clamp(img, 0.0, 1.0) - gt
+        live = (img > 0.0) & (img < 1.0)
+        Grgb = 2.0 / (3.0 * H * W) * torch.where(live, diff,
+                                                 torch.zeros_like(diff))
+    else:
+        diff = img - gt
+        Grgb = 2.0 / (3.0 * H * W) * diff
+    return diff, torch.cat([Grgb, torch.zeros_like(Grgb[:1])])
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_launch(kernel: str, feat, gids, starts, tile_px, images=()):
+    """Device, type, layout and shape checks of a kernel launch; raises on
+    anything the kernels do not take."""
+    if feat.device.type != "cuda":
+        raise ValueError(f"{kernel} runs on CUDA or CPU tensors, got "
+                         f"{feat.device}")
+    if tile_px != _KERNEL_TILE:
+        raise NotImplementedError(
+            f"{kernel} is built for {_KERNEL_TILE}x{_KERNEL_TILE} tiles, got "
+            f"tile_px={tile_px}")
+    named = [("feat", feat, torch.float32), ("gids", gids, torch.int32),
+             ("starts", starts, torch.int32)]
+    named += [(n, x, torch.float32) for n, x, _ in images]
+    for name, x, dtype in named:
+        if x.device != feat.device:
+            raise ValueError(f"{name} is on {x.device}, feat on {feat.device}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, x, shape in images:
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+    if feat.dim() != 2 or feat.shape[1] != sc.FW or feat.shape[0] < 1:
+        raise ValueError(f"feat must be [N+1, {sc.FW}], got "
+                         f"{tuple(feat.shape)}")
+    if gids.dim() != 1:
+        raise ValueError(f"gids must be 1-D, got {tuple(gids.shape)}")
+
+
+def _raise_on(kernel: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
+
+
+def _stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def sum_fwd(feat: torch.Tensor, gids: torch.Tensor, starts: torch.Tensor,
@@ -151,42 +349,121 @@ def sum_fwd(feat: torch.Tensor, gids: torch.Tensor, starts: torch.Tensor,
     """
     if feat.device.type == "cpu":
         return sum_fwd_plain(feat, gids, starts, H, W, tile_px, q_cut)
-    if feat.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA or CPU tensors, got {feat.device}")
-    if tile_px != 32:
-        raise NotImplementedError(
-            f"K1 is built for 32x32 tiles, got tile_px={tile_px}")
-    for name, x, dtype in (("feat", feat, torch.float32),
-                           ("gids", gids, torch.int32),
-                           ("starts", starts, torch.int32)):
-        if x.device != feat.device:
-            raise ValueError(f"{name} is on {x.device}, feat on {feat.device}")
-        if x.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if feat.dim() != 2 or feat.shape[1] != sc.FW or feat.shape[0] < 1:
-        raise ValueError(f"feat must be [N+1, {sc.FW}], got "
-                         f"{tuple(feat.shape)}")
-    if gids.dim() != 1:
-        raise ValueError(f"gids must be 1-D, got {tuple(gids.shape)}")
+    _check_launch("K1", feat, gids, starts, tile_px)
     tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
-
     lib = _build.load("rasterize_sum_fwd")
     out = torch.empty(_C, H, W, dtype=torch.float32, device=feat.device)
-    stream = torch.cuda.current_stream(feat.device).cuda_stream
-    rc = lib.rasterize_sum_fwd(
+    _raise_on("K1 rasterize_sum_fwd", lib.rasterize_sum_fwd(
         feat.data_ptr(), feat.shape[0], gids.data_ptr(), starts.data_ptr(),
         out.data_ptr(), H, W, tiles_x, tiles_y, ctypes.c_float(q_cut),
-        stream)
-    if rc != 0:
-        raise RuntimeError(f"K1 rasterize_sum_fwd launch failed: CUDA error "
-                           f"{rc}")
+        _stream_ptr(feat)))
     sum_fwd.launches += 1
     return out
 
 
+def sum_bwd(feat: torch.Tensor, gids: torch.Tensor, starts: torch.Tensor,
+            g: torch.Tensor, H: int, W: int, tile_px: int = 32,
+            q_cut: float = 9.0) -> torch.Tensor:
+    """K2 -> dgfeat [I, 16] float32 from the render's cotangent g [4, H, W].
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version. ``sum_bwd.launches`` counts the kernel's launches.
+    """
+    if feat.device.type == "cpu":
+        return sum_bwd_plain(feat, gids, starts, g, H, W, tile_px, q_cut)
+    _check_launch("K2", feat, gids, starts, tile_px,
+                  images=[("g", g, (_C, H, W))])
+    tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
+    lib = _build.load("rasterize_sum_bwd")
+    dg = torch.zeros(gids.shape[0], sc.FW, dtype=torch.float32,
+                     device=feat.device)
+    _raise_on("K2 rasterize_sum_bwd", lib.rasterize_sum_bwd(
+        feat.data_ptr(), feat.shape[0], gids.data_ptr(), starts.data_ptr(),
+        g.data_ptr(), dg.data_ptr(), H, W, tiles_x, tiles_y,
+        ctypes.c_float(q_cut), _stream_ptr(feat)))
+    sum_bwd.launches += 1
+    return dg
+
+
+def sum_l2(feat: torch.Tensor, gids: torch.Tensor, starts: torch.Tensor,
+           gt: torch.Tensor, H: int, W: int, tile_px: int = 32,
+           q_cut: float = 9.0, clamp: bool = True
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 -> (sse [T] per-tile sums of squared errors, dgfeat [I, 16]) of
+    the clipped render against gt [3, H, W].
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version. ``sum_l2.launches`` counts the kernel's launches.
+    """
+    if feat.device.type == "cpu":
+        return sum_l2_plain(feat, gids, starts, gt, H, W, tile_px, q_cut,
+                            clamp)
+    _check_launch("K3", feat, gids, starts, tile_px,
+                  images=[("gt", gt, (3, H, W))])
+    tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
+    lib = _build.load("rasterize_sum_bwd")
+    sse = torch.empty(tiles_x * tiles_y, dtype=torch.float32,
+                      device=feat.device)
+    dg = torch.zeros(gids.shape[0], sc.FW, dtype=torch.float32,
+                     device=feat.device)
+    _raise_on("K3 rasterize_sum_l2", lib.rasterize_sum_l2(
+        feat.data_ptr(), feat.shape[0], gids.data_ptr(), starts.data_ptr(),
+        gt.data_ptr(), sse.data_ptr(), dg.data_ptr(), H, W, tiles_x, tiles_y,
+        ctypes.c_float(q_cut), ctypes.c_float(2.0 / (3.0 * H * W)),
+        int(bool(clamp)), _stream_ptr(feat)))
+    sum_l2.launches += 1
+    return sse, dg
+
+
 sum_fwd.launches = 0
+sum_bwd.launches = 0
+sum_l2.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# autograd over the whole rasterize
+# ---------------------------------------------------------------------------
+
+
+class _Raster(torch.autograd.Function):
+    """feat [N+1, 16] -> the [4, H, W] render (K1); backward K2 on the
+    cotangent, then the scatter onto the rows (the JAX package's
+    ``_raster`` custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, feat, gids, starts, H, W, tile_px, q_cut, m_span):
+        ctx.save_for_backward(feat, gids, starts)
+        ctx.geom = (H, W, tile_px, q_cut, m_span)
+        return sum_fwd(feat, gids, starts, H, W, tile_px, q_cut)
+
+    @staticmethod
+    def backward(ctx, g):
+        feat, gids, starts = ctx.saved_tensors
+        H, W, tile_px, q_cut, m_span = ctx.geom
+        dg = sum_bwd(feat, gids, starts, g.float().contiguous(), H, W,
+                     tile_px, q_cut)
+        dfeat = sc.scatter_stream_grads(dg, gids, feat.shape[0], m_span)
+        return dfeat, None, None, None, None, None, None, None
+
+
+class _RasterL2(torch.autograd.Function):
+    """feat [N+1, 16] -> mse = sum(sse) / (3HW) of the clipped render
+    against gt (K3). The forward also scatters K3's gradient rows, so the
+    backward is grad_output * dfeat; gt gets no gradient (the JAX package's
+    ``_raster_l2`` custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, feat, gids, starts, gt, H, W, tile_px, q_cut, clamp,
+                m_span):
+        sse, dg = sum_l2(feat, gids, starts, gt, H, W, tile_px, q_cut, clamp)
+        ctx.save_for_backward(
+            sc.scatter_stream_grads(dg, gids, feat.shape[0], m_span))
+        return sse.sum() / (3.0 * H * W)
+
+    @staticmethod
+    def backward(ctx, gbar):
+        dfeat, = ctx.saved_tensors
+        return (gbar * dfeat,) + (None,) * 9
 
 
 # ---------------------------------------------------------------------------
@@ -218,25 +495,30 @@ def _axis_radii(conics, radii, q_cut):
             torch.where(live, torch.minimum(ry, radii), zero))
 
 
-def _render_chw(xys, conics, colors, opacities, H, W, radii, cfg, band):
+def _prepare(xys, conics, colors, opacities, H, W, radii, cfg, band=None):
+    """The binned stream of detached inputs (the JAX package's
+    stop_gradients) and the packed rows, which carry the gradient."""
     if cfg.fused_prep:
         raise NotImplementedError(
             "RasterizeConfig.fused_prep needs the fused splat-prep kernel K5 "
             "(ops/splat_prep.py::_raw_kernel), which is not ported yet")
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (xys, conics, colors, opacities)):
-        raise NotImplementedError(
-            "rasterize backward needs kernel K2 (ops/rasterize_sum.py::"
-            "_bwd_kernel), which is not ported yet; render under "
-            "torch.no_grad()")
-    if radii is None:
-        radii = _radii_from_conics(conics)
-    radii = radii.float()
-    rxy = _axis_radii(conics, radii, cfg.q_cut)
-    sp = sc.prepare_stream(xys.float(), rxy, H, W, cfg, band=band)
+    with torch.no_grad():
+        conics_d = conics.detach()
+        if radii is None:
+            radii = _radii_from_conics(conics_d)
+        radii = radii.detach().float()
+        rxy = _axis_radii(conics_d, radii, cfg.q_cut)
+        sp = sc.prepare_stream(xys.detach().float(), rxy, H, W, cfg,
+                               band=band)
     feat = sc.pack_feat(xys, conics, colors, opacities, premultiply=True)
-    full = sum_fwd(feat, sp.gids, sp.starts, H, W, cfg.tile_px,
-                   float(cfg.q_cut))
+    return sp, feat
+
+
+def _render_chw(xys, conics, colors, opacities, H, W, radii, cfg, band):
+    sp, feat = _prepare(xys, conics, colors, opacities, H, W, radii, cfg,
+                        band)
+    full = _Raster.apply(feat, sp.gids, sp.starts, H, W, cfg.tile_px,
+                         float(cfg.q_cut), sp.m_span)
     aux = {"n_dropped": sp.n_dropped, "max_per_tile_used": sp.counts.max()}
     return full, aux
 
@@ -256,8 +538,9 @@ def rasterize_gaussians_sum(
 
     xys [N,2] pixel coords, conics [N,3], colors [N,3], opacities [N,1] or
     [N]. Returns (img [H,W,3], alpha [H,W], aux) with aux["n_dropped"] the
-    instance-stream overflow count. ``band`` restricts each Gaussian to an
-    inclusive tile-row range.
+    instance-stream overflow count. Differentiable with respect to the four
+    inputs (K2). ``band`` restricts each Gaussian to an inclusive tile-row
+    range.
     """
     full, aux = _render_chw(xys, conics, colors, opacities, H, W, radii,
                             config, band)
@@ -280,3 +563,31 @@ def rasterize_gaussians_sum_chw(
     full, aux = _render_chw(xys, conics, colors, opacities, H, W, radii,
                             config, band)
     return full[:3], full[3], aux
+
+
+def rasterize_gaussians_sum_l2(
+    xys: torch.Tensor,
+    conics: torch.Tensor,
+    colors: torch.Tensor,
+    opacities: torch.Tensor,
+    gt_chw: torch.Tensor,
+    H: int,
+    W: int,
+    radii: Optional[torch.Tensor] = None,
+    config: RasterizeConfig = RasterizeConfig(),
+    clamp: bool = True,
+) -> Tuple[torch.Tensor, dict]:
+    """Fused training objective: mse = mean((clip(render) - gt)^2), with the
+    analytic backward computed in the same kernel pass (K3). Equal to
+    ``mean((clip(rasterize(...)) - gt)^2)`` up to summation order.
+
+    gt_chw [3, H, W] gets no gradient. Differentiable with respect to the
+    four Gaussian inputs. Returns (mse, aux).
+    """
+    sp, feat = _prepare(xys, conics, colors, opacities, H, W, radii, config)
+    mse = _RasterL2.apply(feat, sp.gids, sp.starts,
+                          gt_chw.detach().float().contiguous(), H, W,
+                          config.tile_px, float(config.q_cut), bool(clamp),
+                          sp.m_span)
+    aux = {"n_dropped": sp.n_dropped, "max_per_tile_used": sp.counts.max()}
+    return mse, aux

@@ -1,6 +1,7 @@
 """Shared glue for the instance-stream rasterizer (counterpart of
 gaussianimage_tpu/ops/stream_common.py): stream capacity, packed feature
-rows, the stream gather and the binning products.
+rows, the stream gather, the binning products and the scatter of
+per-instance gradient rows back onto the Gaussians.
 
 Only the flat stream layout is ported. The JAX package switches to a
 BK-aligned block layout above ``flat_stream_limit`` instances because of
@@ -67,9 +68,38 @@ def pack_feat(xys, conics, colors, opac, premultiply: bool = False
 def gather_stream(gids, feat) -> torch.Tensor:
     """[I, 16] feature rows in stream order; dead slots read the zero row.
     The JAX package pads BK more sentinel rows for the TPU's chunked reads;
-    nothing here reads past I. K1 gathers the rows itself; the plain
-    version uses this."""
+    nothing here reads past I. The kernels gather the rows themselves; the
+    plain versions use this."""
     return feat[gids.long()]
+
+
+def scatter_stream_grads(dgfeat: torch.Tensor, gids: torch.Tensor,
+                         n_rows: int, m_span: int) -> torch.Tensor:
+    """Per-instance gradient rows dgfeat [>= I, 16] -> the cotangent of the
+    packed rows feat [n_rows, 16]: each Gaussian's rows summed, row N (the
+    dead-slot sink) zero.
+
+    Deterministic on every device, with no float atomics: a stable sort of
+    ``gids`` groups each Gaussian's slots in stream order, they are laid
+    into an [N, m_span] table of slot indices (a Gaussian has at most
+    ``m_span`` instances; empty cells point at a zero row), and the gathered
+    rows are summed over the table's second axis, a reduction whose order is
+    fixed by the table.
+    """
+    N = n_rows - 1
+    I = gids.shape[0]
+    dev = gids.device
+    gs, order = torch.sort(gids.long(), stable=True)
+    first = torch.searchsorted(gs, torch.arange(N, device=dev))
+    pos = torch.arange(I, device=dev) - first[gs.clamp(max=N - 1)]
+    ok = (gs < N) & (pos < m_span)
+    # cells of dead slots all land on one extra cell, which is cut off
+    cell = torch.where(ok, gs * m_span + pos, N * m_span)
+    table = torch.full((N * m_span + 1,), I, dtype=torch.long, device=dev)
+    table[cell] = order
+    rows = torch.cat([dgfeat[:I], dgfeat.new_zeros(1, FW)])
+    dfeat = rows[table[:N * m_span]].view(N, m_span, FW).sum(dim=1)
+    return torch.cat([dfeat, dgfeat.new_zeros(1, FW)])
 
 
 class StreamPrep(NamedTuple):
@@ -81,6 +111,7 @@ class StreamPrep(NamedTuple):
     tiles_x: int
     T: int                  # tiles, padded to a multiple of tiles_per_step
     I: int
+    m_span: int             # most instances of one Gaussian
 
 
 def prepare_stream(xys, radii, H: int, W: int, cfg, band=None,
@@ -105,4 +136,5 @@ def prepare_stream(xys, radii, H: int, W: int, cfg, band=None,
         max_tiles_per_gauss=m_span, band=band, force_pair=force_pair)
     counts = st.starts[1:] - st.starts[:-1]
     return StreamPrep(gids=st.gids, starts=st.starts, counts=counts,
-                      n_dropped=st.n_dropped, tiles_x=tiles_x, T=T, I=I0)
+                      n_dropped=st.n_dropped, tiles_x=tiles_x, T=T, I=I0,
+                      m_span=m_span)

@@ -1,15 +1,27 @@
-"""Evaluate and serve a fitted checkpoint — the ``--iterations 0`` path of the
-JAX package's trainer (gaussianimage_tpu/train.py:479-511): load the
-checkpoint, run ``test()`` (n_dropped warning, PSNR, MS-SSIM, the
-``*_fitting.png`` under ``--save_imgs``), run the 100-frame FPS probe, and
-write ``train.txt`` lines in the JAX package's format.
+"""Fit an image with 2D Gaussians, or evaluate a fitted checkpoint — the
+trainer and CLI (counterpart of gaussianimage_tpu/train.py:60-372,479-511).
 
-Fitting (``--iterations > 0``) is the training slice of ROADMAP.md and is not
-ported yet.
+A fit (``--iterations > 0``) initialises the model (adaptive by default),
+optionally warm-starts from ``--model_path`` or resumes from the image's
+``resume.pt``, and runs a plain Python loop of training steps on the card:
+for GaussianImage_Cholesky under L2 each step is one fused render + L2 +
+backward kernel (K3) and one Adan update. The JAX package scans 250 steps
+per compiled call; here the chunk is bookkeeping only: reseed rounds fire
+at the first chunk boundary at or after each scheduled iteration, the
+stream overflow (``n_dropped``) is read once per chunk, and the per-step
+metrics are read back once per chunk. ``scalars.jsonl`` gets every
+``--log_every``-th step, viz PNGs come every ``--viz_every`` iterations,
+and a resume snapshot every ``--ckpt_every``.
+
+Every run ends as the JAX trainer's does: ``test()`` (n_dropped warning,
+PSNR, MS-SSIM, ``*_fitting.png`` under ``--save_imgs``), the 100-frame FPS
+probe, ``train.txt`` lines in the JAX package's format,
+``gaussian_model.npz`` in its checkpoint format and ``training.npy`` with
+its keys. ``--iterations 0 --model_path <checkpoint>`` evaluates a fitted
+checkpoint.
 
 Run:  python -m gaussianimage_tpu_torch.train --data_name photos \\
-        --dataset data/ --model_path <checkpoint file or dir> \\
-        --iterations 0 --num_points 10000 [--device cpu]
+        --dataset data/ --iterations 50000 --num_points 10000 [--device cpu]
 
 A ``--model_path`` directory is searched for ``<image>/gaussian_model.npz``,
 then ``gaussian_model.npz``.
@@ -18,6 +30,7 @@ then ``gaussian_model.npz``.
 from __future__ import annotations
 
 import argparse
+import json
 import math
 import sys
 import time
@@ -27,21 +40,24 @@ import numpy as np
 import torch
 
 from gaussianimage_tpu_torch import resolve_device
+from gaussianimage_tpu_torch.core.reseed import default_schedule, reseed_state
 from gaussianimage_tpu_torch.datasets import iterate_dataset
 from gaussianimage_tpu_torch.models import make_model
 from gaussianimage_tpu_torch.utils import LogWriter, ms_ssim, ssim
 from gaussianimage_tpu_torch.utils.checkpoint import (
     load_checkpoint,
+    load_train_state,
+    merge_matching,
     params_from_numpy,
     save_checkpoint,
+    save_train_state,
 )
 from gaussianimage_tpu_torch.utils.image_io import save_image_array
 
-TRAINING_NOT_PORTED = (
-    "fitting (--iterations > 0) is not ported yet: it is the training slice "
-    "of ROADMAP.md (kernels K3 and K2, Adan, init, reseed); run with "
-    "--iterations 0 to evaluate a fitted checkpoint")
 FPS_FRAMES = 100  # renders per FPS probe, as in the JAX package
+PROFILE_NOT_PORTED = (
+    "--profile is not ported yet (ROADMAP.md): chip_smoke.py traces the "
+    "training step with torch.profiler")
 
 
 def render_burst(model):
@@ -69,39 +85,131 @@ def checkpoint_file(model_path, image_name: str) -> Path:
         f"no {image_name}/gaussian_model.npz or gaussian_model.npz in {p}")
 
 
+def reseed_seed(seed: int, iteration: int) -> int:
+    """The seed of the reseed round at ``iteration``: a function of the run's
+    seed and the iteration only, so ``--resume`` replays the rounds of the
+    uninterrupted run."""
+    return (seed + 17) * 1_000_003 + iteration
+
+
+def _colormap_viridis(x: np.ndarray) -> np.ndarray:
+    """[H,W] in [0,1] -> [H,W,3] viridis-like heat map (fixed stops)."""
+    stops = np.array([[0.267, 0.005, 0.329], [0.283, 0.141, 0.458],
+                      [0.254, 0.265, 0.530], [0.207, 0.372, 0.553],
+                      [0.164, 0.471, 0.558], [0.128, 0.567, 0.551],
+                      [0.135, 0.659, 0.518], [0.267, 0.749, 0.441],
+                      [0.478, 0.821, 0.318], [0.741, 0.873, 0.150],
+                      [0.993, 0.906, 0.144]], np.float32)
+    x = np.clip(x, 0.0, 1.0) * (len(stops) - 1)
+    i = np.minimum(x.astype(np.int32), len(stops) - 2)
+    f = (x - i)[..., None]
+    return stops[i] * (1 - f) + stops[i + 1] * f
+
+
 class SimpleTrainer2d:
-    """Evaluates one fitted image representation on one device."""
+    """Fits one image with 2D Gaussians on one device, or evaluates a fitted
+    checkpoint (``iterations=0``)."""
 
     def __init__(self, gt_image: np.ndarray, image_name: str,
                  num_points: int = 2000,
                  model_name: str = "GaussianImage_Cholesky",
-                 iterations: int = 0, model_path=None, args=None,
-                 log_dir: Path | None = None, device=None):
-        if iterations > 0:
-            raise NotImplementedError(TRAINING_NOT_PORTED)
-        if model_path is None:
+                 iterations: int = 30000, model_path=None, args=None,
+                 log_dir: Path | None = None, chunk_size: int = 250,
+                 device=None):
+        if getattr(args, "profile", None):
+            raise NotImplementedError(PROFILE_NOT_PORTED)
+        if iterations == 0 and model_path is None:
             raise ValueError("--iterations 0 evaluates a fitted checkpoint: "
                              "pass --model_path")
         self.device = resolve_device(device)
+        # shape bucketing: pad H/W up to a multiple with edge replication;
+        # metrics and artifacts use the original crop
+        bucket = int(getattr(args, "shape_bucket", 0) or 0)
+        self.crop_h, self.crop_w = int(gt_image.shape[2]), int(gt_image.shape[3])
+        if bucket > 1:
+            ph, pw = (-self.crop_h) % bucket, (-self.crop_w) % bucket
+            if ph or pw:
+                gt_image = np.pad(gt_image, ((0, 0), (0, 0), (0, ph), (0, pw)),
+                                  mode="edge")
         self.gt_image = torch.as_tensor(gt_image, dtype=torch.float32,
                                         device=self.device)  # [1,3,H,W]
         self.image_name = image_name
         self.num_points = num_points
         self.iterations = iterations
+        self.chunk_size = (min(chunk_size, iterations) if iterations
+                           else chunk_size)
         self.H, self.W = int(gt_image.shape[2]), int(gt_image.shape[3])
         self.save_imgs = bool(getattr(args, "save_imgs", False))
         self.model = make_model(
             model_name, device=self.device, num_points=num_points, H=self.H,
-            W=self.W, no_clamp=bool(getattr(args, "no_clamp", False)))
+            W=self.W, loss_type="L2", lr=getattr(args, "lr", 1e-3),
+            opt_type=getattr(args, "opt_type", "adan"),
+            no_clamp=bool(getattr(args, "no_clamp", False)),
+            init_mode=getattr(args, "init_mode", "adaptive"))
 
         self.log_dir = Path(log_dir) if log_dir is not None else Path(
             f"./checkpoints/run/{model_name}_{iterations}_{num_points}/"
             f"{image_name}")
         self.logwriter = LogWriter(self.log_dir)
 
-        path = checkpoint_file(model_path, image_name)
+        self.seed = int(getattr(args, "seed", 1) or 1)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            self.seed)
+        self.optimizer = self.model.init_state(self.generator,
+                                               gt_image=self.gt_image)
+        if model_path is not None:
+            self._load(checkpoint_file(model_path, image_name), strict=
+                       iterations == 0)
+
+        # mid-fit resume (snapshots every ckpt_every iterations)
+        self.ckpt_every = int(getattr(args, "ckpt_every", 10000) or 0)
+        self.start_iter = 0
+        self.chunk_dropped = []  # n_dropped, the worst step of each chunk
+        self._hist = {"iter": [], "loss": [], "psnr": []}
+        self.resume_path = self.log_dir / "resume.pt"
+        if bool(getattr(args, "resume", False)) and self.resume_path.exists():
+            self.start_iter, aux = load_train_state(
+                self.resume_path, self.model, self.optimizer, self.generator)
+            for k in self._hist:
+                if f"hist_{k}" in aux:
+                    self._hist[k] = np.asarray(aux[f"hist_{k}"]).tolist()
+            self.logwriter.write(
+                f"resumed from {self.resume_path} at iteration "
+                f"{self.start_iter}")
+
+        # error-driven relocation rounds (core/reseed.py): on by default for
+        # reseed-capable models on fresh (non-warm-start) fits
+        self._reseed_iters = ()
+        self.reseed_frac = float(getattr(args, "reseed_frac", 0.05) or 0.0)
+        if (self.model.reseed_ok and model_path is None
+                and not bool(getattr(args, "no_reseed", False))):
+            rounds = int(getattr(args, "reseed_rounds", 6) or 0)
+            if rounds > 0 and self.reseed_frac > 0:
+                self._reseed_iters = default_schedule(iterations,
+                                                      rounds=rounds)
+        self.log_every = int(getattr(args, "log_every", 100) or 0)
+        self.viz_every = int(getattr(args, "viz_every", 5000) or 0)
+        self._wandb = None
+        if bool(getattr(args, "wandb", False)):
+            try:
+                import wandb  # optional; scalars/images mirror jsonl/png
+                self._wandb = wandb.init(
+                    project=getattr(args, "wandb_project",
+                                    "gaussianimage_tpu"),
+                    name=f"{model_name}_{num_points}_{image_name}",
+                    reinit=True)
+            except Exception as e:  # wandb missing: jsonl/png remain
+                self.logwriter.write(
+                    f"wandb unavailable ({e}); file logging only")
+
+    def _load(self, path: Path, strict: bool) -> None:
+        """Load a checkpoint's parameters: all of them (``strict``, for
+        evaluation) or those whose name and shape match (a warm start)."""
         self.logwriter.write(f"loading model path:{path}")
         params = load_checkpoint(path)["params"]
+        if not strict:
+            merge_matching(self.model, params)
+            return
         own = self.model.state_dict()
         for k, v in own.items():
             if k not in params or tuple(params[k].shape) != tuple(v.shape):
@@ -112,9 +220,128 @@ class SimpleTrainer2d:
         self.model.load_state_dict(
             params_from_numpy({k: params[k] for k in own}, self.device))
 
+    # -- run observability ---------------------------------------------------
+    def _log_scalars(self, it0: int, losses, psnrs, n: int) -> None:
+        """Append every ``log_every``-th step (and step 1) to
+        scalars.jsonl, one JSON object per line."""
+        if not self.log_every:
+            return
+        with open(self.log_dir / "scalars.jsonl", "a") as fh:
+            for j in range(n):
+                step = it0 + j + 1
+                if step % self.log_every == 0 or step == 1:
+                    rec = {"iteration": step, "loss": float(losses[j]),
+                           "psnr": float(psnrs[j])}
+                    fh.write(json.dumps(rec) + "\n")
+                    if self._wandb is not None:
+                        self._wandb.log(rec, step=step)
+
+    @torch.no_grad()
+    def _dump_viz(self, it: int) -> None:
+        """Render, alpha heat map, Gaussian-shape render and center overlay
+        PNGs under ``viz/``."""
+        out = self.model.render(render_viz=True)
+        viz_dir = self.log_dir / "viz"
+        viz_dir.mkdir(parents=True, exist_ok=True)
+        ch, cw = self.crop_h, self.crop_w
+        render = out["render"].cpu().numpy()[..., :ch, :cw]
+        save_image_array(render, viz_dir / f"iter_{it:06d}_render.png")
+        alpha = out["alpha_map"].cpu().numpy()[0, 0, :ch, :cw]
+        heat = _colormap_viridis(alpha / max(float(alpha.max()), 1e-6))
+        save_image_array(heat.transpose(2, 0, 1)[None],
+                         viz_dir / f"iter_{it:06d}_alpha.png")
+        save_image_array(out["gauss_render"].cpu().numpy()[..., :ch, :cw],
+                         viz_dir / f"iter_{it:06d}_gauss.png")
+        overlay = render[0].transpose(1, 2, 0).copy()
+        xy = out["xys"].cpu().numpy().astype(np.int32)
+        ok = ((xy[:, 0] >= 0) & (xy[:, 0] < overlay.shape[1])
+              & (xy[:, 1] >= 0) & (xy[:, 1] < overlay.shape[0]))
+        overlay[xy[ok, 1], xy[ok, 0]] = np.array([1.0, 0.0, 0.0])
+        save_image_array(overlay.transpose(2, 0, 1)[None],
+                         viz_dir / f"iter_{it:06d}_overlay.png")
+
+    # -- the fit -------------------------------------------------------------
+    def fit(self) -> None:
+        """Run the training loop from ``start_iter`` to ``iterations``."""
+        hist = self._hist
+        it = self.start_iter
+        cs = self.chunk_size
+        reseed_bounds = sorted({-(-r // cs) * cs for r in self._reseed_iters
+                                if -(-r // cs) * cs < self.iterations})
+        warned_overflow = False
+        while it < self.iterations:
+            if it in reseed_bounds:
+                gen = torch.Generator(device=self.device).manual_seed(
+                    reseed_seed(self.seed, it))
+                reseed_state(self.model, self.optimizer, self.gt_image, gen,
+                             frac=self.reseed_frac)
+            n = min(cs, self.iterations - it)
+            ms = [self.model.train_step(self.optimizer, self.gt_image)
+                  for _ in range(n)]
+            # one read-back per chunk
+            losses, psnrs, dropped = torch.stack([torch.stack(
+                [m["loss"].float(), m["psnr"].float(),
+                 m["n_dropped"].float()]) for m in ms], dim=1).cpu().numpy()
+            hist["loss"].extend(losses.tolist())
+            hist["psnr"].extend(psnrs.tolist())
+            hist["iter"].extend(range(it + 1, it + n + 1))
+            self._log_scalars(it, losses, psnrs, n)
+            it += n
+            nd = int(dropped.max())
+            self.chunk_dropped.append(nd)
+            if nd > 0 and not warned_overflow:
+                warned_overflow = True
+                self.logwriter.write(
+                    f"WARNING: iter {it}: rasterizer dropped up to {nd} "
+                    "gaussian-tile instances this chunk (raise "
+                    "RasterizeConfig.max_instances / max_tiles_per_gauss)")
+            if it % 5000 < cs:
+                self.logwriter.write(
+                    f"iter {it}: loss {losses[n - 1]:.7f} "
+                    f"psnr {psnrs[n - 1]:.4f}")
+            if self.viz_every and (it % self.viz_every < cs
+                                   or it >= self.iterations):
+                self._dump_viz(it)
+            if (self.ckpt_every and it < self.iterations
+                    and it % self.ckpt_every < cs):
+                save_train_state(
+                    self.resume_path, self.model, self.optimizer, it,
+                    {f"hist_{k}": np.asarray(v) for k, v in hist.items()},
+                    self.generator)
+
+    def train(self):
+        """Fit (if ``iterations`` > 0), then test, FPS probe and artifacts.
+        Returns a dict of the image's results."""
+        start_time = time.time()
+        self.fit()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        end_time = time.time() - start_time
+        psnr_value, ms_ssim_value, num_points_final, n_dropped = self.test()
+        test_end_time = self.fps_probe()
+        self.logwriter.write(
+            "Training Complete in {:.4f}s, Eval time:{:.8f}s, FPS:{:.4f}"
+            .format(end_time, test_end_time, 1 / test_end_time))
+        save_checkpoint(self.log_dir / "gaussian_model.npz",
+                        dict(self.model.state_dict()))
+        np.save(self.log_dir / "training.npy",
+                {"iterations": self._hist["iter"],
+                 "training_psnr": self._hist["psnr"],
+                 "training_time": end_time, "psnr": psnr_value,
+                 "ms-ssim": ms_ssim_value, "rendering_time": test_end_time,
+                 "rendering_fps": 1 / test_end_time,
+                 "initial_points": self.num_points,
+                 "final_points": num_points_final})
+        return {"image": self.image_name, "H": self.H, "W": self.W,
+                "psnr": psnr_value, "ms_ssim": ms_ssim_value,
+                "training_time": end_time, "eval_time": test_end_time,
+                "fps": 1 / test_end_time, "n_dropped": n_dropped,
+                "iterations": self.iterations}
+
     @torch.no_grad()
     def test(self):
-        """(psnr, ms_ssim, final_points, n_dropped) of the clamped render."""
+        """(psnr, ms_ssim, final_points, n_dropped) of the clamped render,
+        on the original crop."""
         full = self.model.render()
         n_dropped = int(full["raster_aux"]["n_dropped"])
         if n_dropped > 0:
@@ -122,12 +349,13 @@ class SimpleTrainer2d:
                 "WARNING: rasterizer dropped {} gaussian-tile instances "
                 "(raise RasterizeConfig.max_instances / max_tiles_per_gauss)"
                 .format(n_dropped))
-        out, gt = full["render"], self.gt_image
+        out = full["render"][..., :self.crop_h, :self.crop_w]
+        gt = self.gt_image[..., :self.crop_h, :self.crop_w]
         mse = float(torch.mean((out - gt) ** 2))
         psnr = 10 * math.log10(1.0 / max(mse, 1e-12))
         # MS-SSIM needs >= 161 px per side (5 scales x 11-tap window);
         # smaller images fall back to single-scale SSIM
-        if min(self.H, self.W) >= 161:
+        if min(self.crop_h, self.crop_w) >= 161:
             msv = float(ms_ssim(out, gt, data_range=1.0))
         else:
             msv = float(ssim(out, gt, data_range=1.0))
@@ -157,44 +385,58 @@ class SimpleTrainer2d:
         render_burst(self.model)
         return (time.perf_counter() - t0) / FPS_FRAMES
 
-    def train(self):
-        """The JAX trainer's epilogue with no iterations: test, FPS probe,
-        artifacts. Returns a dict of the image's results."""
-        start_time = time.time()
-        end_time = time.time() - start_time
-        psnr_value, ms_ssim_value, num_points_final, n_dropped = self.test()
-        test_end_time = self.fps_probe()
-        self.logwriter.write(
-            "Training Complete in {:.4f}s, Eval time:{:.8f}s, FPS:{:.4f}"
-            .format(end_time, test_end_time, 1 / test_end_time))
-        save_checkpoint(self.log_dir / "gaussian_model.npz",
-                        dict(self.model.state_dict()))
-        np.save(self.log_dir / "training.npy",
-                {"iterations": [], "training_psnr": [],
-                 "training_time": end_time, "psnr": psnr_value,
-                 "ms-ssim": ms_ssim_value, "rendering_time": test_end_time,
-                 "rendering_fps": 1 / test_end_time,
-                 "initial_points": self.num_points,
-                 "final_points": num_points_final})
-        return {"image": self.image_name, "H": self.H, "W": self.W,
-                "psnr": psnr_value, "ms_ssim": ms_ssim_value,
-                "training_time": end_time, "eval_time": test_end_time,
-                "fps": 1 / test_end_time, "n_dropped": n_dropped}
-
 
 def parse_args(argv):
     p = argparse.ArgumentParser(
-        description="GaussianImage (PyTorch + CUDA port): evaluate and serve "
-                    "a fitted checkpoint")
+        description="GaussianImage (PyTorch + CUDA port): fit an image with "
+                    "2D Gaussians, or evaluate a fitted checkpoint")
     p.add_argument("-d", "--dataset", type=str, default="./datasets/kodak/")
     p.add_argument("--data_name", type=str, default="kodak")
     p.add_argument("--iterations", type=int, default=50000)
     p.add_argument("--model_name", type=str, default="GaussianImage_Cholesky")
     p.add_argument("--num_points", type=int, default=50000)
     p.add_argument("--model_path", type=str, default=None)
+    p.add_argument("--seed", type=int, default=1)
     p.add_argument("--save_imgs", action="store_true")
-    p.add_argument("--no_clamp", action="store_true")
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--opt_type", type=str, default="adan",
+                   choices=["adan", "adam"])
+    p.add_argument("--init_mode", type=str, default="adaptive",
+                   choices=["uniform", "adaptive"],
+                   help="Gaussian init: 'uniform' random (reference "
+                        "behavior) or 'adaptive' GT-gradient-density "
+                        "positions + GT colors (core/init.py)")
+    p.add_argument("--chunk_size", type=int, default=250,
+                   help="iterations per chunk: reseed rounds fire at the "
+                        "first chunk boundary at or after each scheduled "
+                        "iteration, and metrics are read once per chunk")
     p.add_argument("--checkpoint_root", type=str, default="./checkpoints")
+    p.add_argument("--ckpt_every", type=int, default=10000,
+                   help="save a mid-fit resume snapshot every N "
+                        "iterations; 0 = off")
+    p.add_argument("--resume", action="store_true",
+                   help="continue an interrupted fit from the image's "
+                        "resume.pt snapshot if present")
+    p.add_argument("--shape_bucket", type=int, default=0,
+                   help="pad images up to a multiple of this many pixels "
+                        "(metrics use the original crop); 0 = off")
+    p.add_argument("--profile", type=str, default=None,
+                   help="not ported yet; raises")
+    p.add_argument("--log_every", type=int, default=100,
+                   help="append loss/psnr to scalars.jsonl every N iters; "
+                        "0 = off")
+    p.add_argument("--viz_every", type=int, default=5000,
+                   help="dump render/alpha-heatmap/gaussian-viz/center-"
+                        "overlay PNGs every N iters; 0 = off")
+    p.add_argument("--wandb", action="store_true",
+                   help="mirror scalars to wandb if installed")
+    p.add_argument("--wandb_project", type=str, default="gaussianimage_tpu")
+    p.add_argument("--no_reseed", action="store_true",
+                   help="disable error-driven relocation rounds "
+                        "(core/reseed.py; reference behavior)")
+    p.add_argument("--reseed_rounds", type=int, default=6)
+    p.add_argument("--reseed_frac", type=float, default=0.05)
+    p.add_argument("--no_clamp", action="store_true")
     p.add_argument("--device", type=str, default=None,
                    help="cuda (the default) or cpu")
     return p.parse_args(argv)
@@ -203,8 +445,8 @@ def parse_args(argv):
 def main(argv):
     """Runs the CLI; returns the per-image result dicts."""
     args = parse_args(argv)
-    if args.iterations > 0:
-        raise NotImplementedError(TRAINING_NOT_PORTED)
+    if args.profile:
+        raise NotImplementedError(PROFILE_NOT_PORTED)
     device = resolve_device(args.device)
     folder = f"{args.model_name}_{args.iterations}_{args.num_points}"
     root = Path(args.checkpoint_root) / args.data_name / folder
@@ -216,7 +458,8 @@ def main(argv):
             img, image_name, num_points=args.num_points,
             iterations=args.iterations, model_name=args.model_name,
             model_path=args.model_path, args=args,
-            log_dir=root / image_name, device=device)
+            log_dir=root / image_name, chunk_size=args.chunk_size,
+            device=device)
         r = trainer.train()
         results.append(r)
         logwriter.write(

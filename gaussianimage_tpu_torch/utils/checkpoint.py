@@ -1,12 +1,21 @@
-"""Checkpoints in the JAX package's format (gaussianimage_tpu/utils/
-checkpoint.py:31-46): one flat .npz with ``params/<name>`` and
-``extra/<name>`` keys, so every checkpoint the JAX package wrote loads
-unchanged, and a checkpoint written here loads there."""
+"""Checkpoints (counterpart of gaussianimage_tpu/utils/checkpoint.py).
+
+- ``save_checkpoint`` / ``load_checkpoint``: the JAX package's format
+  (:31-46), one flat .npz with ``params/<name>`` and ``extra/<name>`` keys,
+  so every checkpoint the JAX package wrote loads unchanged, and a
+  checkpoint written here loads there.
+- ``save_train_state`` / ``load_train_state``: the mid-fit resume snapshot.
+  Its format is the port's own, not the JAX package's leaf-indexed npz:
+  one ``torch.save`` file with the model's and the optimizer's
+  ``state_dict``s, the iteration, host arrays (the metric history) and a
+  random generator's state, written atomically (tmp + rename) so a crash
+  mid-save keeps the previous snapshot.
+"""
 
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -51,3 +60,46 @@ def params_from_numpy(params: Dict[str, np.ndarray], device="cpu"
     return {k: torch.as_tensor(np.ascontiguousarray(v, dtype=np.float32),
                                device=device)
             for k, v in params.items()}
+
+
+def merge_matching(model: torch.nn.Module, loaded: Dict[str, np.ndarray]
+                   ) -> list:
+    """Partial load (the reference's filtered state_dict update): copy the
+    entries whose name and shape match the model's into it in place.
+    Returns the names copied."""
+    own = model.state_dict()
+    hit = {k: v for k, v in loaded.items()
+           if k in own and tuple(own[k].shape) == tuple(np.shape(v))}
+    model.load_state_dict(params_from_numpy(hit, next(iter(own.values()))
+                                            .device), strict=False)
+    return sorted(hit)
+
+
+def save_train_state(path, model: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer, iteration: int,
+                     aux: Optional[Dict[str, np.ndarray]] = None,
+                     generator: Optional[torch.Generator] = None) -> None:
+    """Write the resume snapshot of a fit at ``iteration``."""
+    os.makedirs(os.path.dirname(str(path)) or ".", exist_ok=True)
+    snap = {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+            "iteration": int(iteration),
+            "aux": {k: np.asarray(v) for k, v in (aux or {}).items()},
+            "generator": None if generator is None else generator.get_state()}
+    tmp = str(path) + ".tmp"
+    torch.save(snap, tmp)
+    os.replace(tmp, str(path))
+
+
+def load_train_state(path, model: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer,
+                     generator: Optional[torch.Generator] = None):
+    """Restore a ``save_train_state`` snapshot into ``model``, ``optimizer``
+    (and ``generator``) in place. Returns (iteration, aux dict)."""
+    # onto the CPU: a generator's state is a CPU tensor; load_state_dict
+    # copies the rest onto the parameters' device
+    snap = torch.load(str(path), map_location="cpu", weights_only=False)
+    model.load_state_dict(snap["model"])
+    optimizer.load_state_dict(snap["optimizer"])
+    if generator is not None and snap["generator"] is not None:
+        generator.set_state(snap["generator"])
+    return snap["iteration"], snap["aux"]

@@ -67,12 +67,16 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 
 
 def test_training_and_other_models_are_not_ported():
+    """Fitting is ported; --profile and the other models are not yet."""
     from gaussianimage_tpu_torch import train
     from gaussianimage_tpu_torch.models import make_model
 
+    args = train.parse_args(["--data_name", "synthetic", "--iterations",
+                             "10", "--device", "cpu"])
+    assert args.iterations == 10 and args.init_mode == "adaptive"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train.main(["--data_name", "synthetic", "--iterations", "10",
-                    "--device", "cpu"])
+                    "--device", "cpu", "--profile", "unused"])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make_model("GaussianImage_RS", num_points=4, H=8, W=8)
     with pytest.raises(ValueError, match="unknown model"):

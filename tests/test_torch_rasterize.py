@@ -1,8 +1,9 @@
 """Port parity, forward rasterizer: the plain K1 path (what a CPU tensor
 takes) against the JAX package's rasterize_gaussians_sum (Pallas interpret
 mode) and against the port's dense oracle at q_cut=9, with the JAX suite's
-tolerance (rtol 2e-3 / atol 2e-4, tests/test_rasterize_kernel.py); and the
-calls this slice does not support raise NotImplementedError."""
+tolerance (rtol 2e-3 / atol 2e-4, tests/test_rasterize_kernel.py); the
+calls the port does not support yet raise NotImplementedError, and inputs
+that require grad get a render that backpropagates (K2)."""
 
 import pytest
 
@@ -114,10 +115,14 @@ def test_unsupported_calls_raise():
         rs.rasterize_gaussians_sum_chw(*args, H, W,
                                        config=RasterizeConfig.serving(N))
     colors_g = args[2].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K2"):
-        rs.rasterize_gaussians_sum(args[0], args[1], colors_g, args[3], H, W)
+    img, alpha, _ = rs.rasterize_gaussians_sum(args[0], args[1], colors_g,
+                                               args[3], H, W)
+    (img.sum() + alpha.sum()).backward()  # K2's plain version
+    assert colors_g.grad is not None and colors_g.grad.abs().sum() > 0
     with torch.no_grad():  # no graph is built, so no backward is needed
-        rs.rasterize_gaussians_sum(args[0], args[1], colors_g, args[3], H, W)
+        img, _, _ = rs.rasterize_gaussians_sum(args[0], args[1], colors_g,
+                                               args[3], H, W)
+    assert img.grad_fn is None
     with pytest.raises(NotImplementedError, match="K11"):
         rs.rasterize_gaussians_sum(*args, H, W, config=CFG._replace(
             flat_stream_limit=1024))
