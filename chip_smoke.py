@@ -15,20 +15,38 @@ Phases, one JSON line each (with ``elapsed_s``):
              flower@10k stream, their gradient rows to 1e-4 of each
              column's largest magnitude; K3 also against K1 -> L2
              cotangent -> K2 (1e-6), and twice on the same step (K3 and the
-             scatter), which must give bit-identical gradients;
+             scatter), which must give bit-identical gradients; the fused
+             splat prep, K5 on the flower@10k fit and K4 on the china@10k
+             QAT codes under ``RasterizeConfig.serving(10000)``: sorted
+             keys, trunc and n_total integer-exact, feature rows to 1e-6,
+             and K5's stream (gids, starts) against the generic binning;
 4. slice     the evaluation entry point ``gaussianimage_tpu_torch.train
              --iterations 0`` on the fitted flower@10k checkpoint
              (768x512): PSNR within 0.01 dB of 41.906, n_dropped == 0, K1
              launched;
-5. fit       ``SimpleTrainer2d`` (the class the CLI runs) fits the flower
+5. serve     ``render_fast`` of the flower@10k fit under serving(10000)
+             (K5, a sort, K1): the image against ``render()`` under the
+             default config (atol 2e-5, at most 16 pixels above 1e-4), PSNR
+             within 0.01 dB of 41.906, n_dropped 0 on every timed render;
+             wall ms, host operator calls and launches per render beside
+             ``render()``'s;
+6. codec     the codec CLI ``gaussianimage_tpu_torch.test_quantize`` on the
+             committed QAT checkpoints (results_quant, photos, 10k points):
+             PSNR within 0.01 dB and MS-SSIM within 1e-4 of the JAX
+             package's evaluation, bpp 1.4285, entropy-coded bpp 1.3920 /
+             1.4000, the round trip below 1e-6, >= 300 K4 launches (china's
+             decode probe; flower's serving twin drops instances, so its
+             probe takes the default model), china's K4 image against its
+             generic decode; the entropy-coded decode in three parts;
+7. fit       ``SimpleTrainer2d`` (the class the CLI runs) fits the flower
              photo at N = 10,000 for 5000 iterations with the CLI defaults
              (adaptive init, 6 reseed rounds), in a temp dir: test PSNR
              >= 38.5 dB, no NaN loss, n_dropped 0 in every chunk, and
              >= 5000 K3 launches; the training PSNR every 1000 iterations;
-6. generic   50 steps of the model's train_step under a non-L2 loss
+8. generic   50 steps of the model's train_step under a non-L2 loss
              (Fusion2 = 0.7 L1 + 0.3 (1 - SSIM)), which renders through
              the differentiable rasterizer: K1 forward, K2 backward;
-7. timing    each kernel and its plain version, the render, a training
+9. timing    each kernel and its plain version, the render, a training
              step over a 250-step burst, with each kernel's bound from this
              run's pair counts; torch.profiler traces of 20 launches of
              each kernel give its device time per launch, and traces of
@@ -58,6 +76,27 @@ ROOT = Path(__file__).resolve().parent
 FLOWER_DIR = ROOT / "results/photos/GaussianImage_Cholesky_50000_10000"
 FLOWER_PHOTO = ROOT / "data/flower_768x512.png"
 FLOWER_PSNR = 41.906  # the JAX package's render of this checkpoint
+QAT_DIR = ROOT / "results_quant/photos/GaussianImage_Cholesky_50000_10000"
+# the JAX package's codec evaluation of those checkpoints (generic decode,
+# default config, on the CPU); the TPU's test.txt agrees to ~1e-3 dB
+CODEC_ANCHORS = {
+    "china": {"psnr": 27.5687, "ms-ssim": 0.958868, "bpp": 1.4285,
+              "bpp_ec": 1.3920},
+    "flower": {"psnr": 38.8210, "ms-ssim": 0.992063, "bpp": 1.4285,
+               "bpp_ec": 1.4000},
+}
+SERVE_N = 10000
+PREP_TOL = 1e-6    # feature rows, K4 / K5 against their plain versions
+IMG_TOL = 2e-5     # fused against generic images, but for MAX_EDGE_PX
+MAX_EDGE_PX = 16   # pixels above 1e-4 where an instance crosses a tile edge
+MIN_K4 = 300       # K4 launches in the codec run: two timed decode bursts
+# FP32 issue slots per row of the fused prep (an FMA as one): two tanhf
+# (~20 each), seven IEEE divisions (~10 each) and four square roots (~8
+# each) and ~70 adds, multiplies, floors and compares; K4 adds its
+# dequantization and codebook index (~10); and per key slot ~6 integer
+# operations
+PREP_ROW_SLOTS = {"splat_prep_raw": 212, "splat_prep_decode": 222}
+PREP_KEY_SLOTS = 6
 K1_TOL = 1e-5      # max |diff| of the render, K1 against its plain version
 ROW_TOL = 1e-4     # gradient rows: |diff| <= ROW_TOL x the column's max |.|
 CHAIN_TOL = 1e-6   # K3 against K1 -> L2 cotangent -> K2, same relative form
@@ -202,19 +241,24 @@ def main() -> None:
 
     import numpy as np
 
-    from gaussianimage_tpu_torch import train
+    from gaussianimage_tpu_torch import test_quantize, train
     from gaussianimage_tpu_torch.models import make_model
-    from gaussianimage_tpu_torch.ops import _build
+    from gaussianimage_tpu_torch.models.cholesky import CHOLESKY_BOUND
+    from gaussianimage_tpu_torch.ops import RasterizeConfig, _build
     from gaussianimage_tpu_torch.ops import rasterize_sum as rs
+    from gaussianimage_tpu_torch.ops import splat_prep as prep
     from gaussianimage_tpu_torch.ops import stream_common as sc
     from gaussianimage_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                          merge_matching,
                                                           params_from_numpy)
     from gaussianimage_tpu_torch.utils.image_io import image_path_to_array
 
     dev = torch.device("cuda", 0)
     counters = {"rasterize_sum_fwd": rs.sum_fwd,
                 "rasterize_sum_bwd": rs.sum_bwd,
-                "rasterize_sum_l2": rs.sum_l2}
+                "rasterize_sum_l2": rs.sum_l2,
+                "splat_prep_raw": prep.raw_prep,
+                "splat_prep_decode": prep.decode_prep}
 
     def reset_counts():
         for fn in counters.values():
@@ -356,7 +400,64 @@ def main() -> None:
     deterministic = bool(torch.equal(dfeat[0], dfeat[1]))
     if not deterministic:
         fail("two runs of K3 and the scatter on the same step differ")
-    phase("kernel", k1={"tol": K1_TOL, "cases": cases},
+    # K5 and K4, the fused splat prep, under serving(10000)
+    serve_cfg = RasterizeConfig.serving(SERVE_N)
+    I_s, m_s, _ = sc.stream_caps(SERVE_N, serve_cfg)
+    q_s = float(serve_cfg.q_cut)
+
+    def prep_check(name, out, ref):
+        (feat_k, keys_k, stats_k), (feat_p, keys_p, stats_p) = out, ref
+        err = float((feat_k - feat_p).abs().max())
+        keys_equal = bool(torch.equal(torch.sort(keys_k.flatten()).values,
+                                      torch.sort(keys_p.flatten()).values))
+        tot, tot_p = stats_k.sum(dim=1).tolist(), stats_p.sum(dim=1).tolist()
+        if not (keys_equal and tot == tot_p and math.isfinite(err)
+                and err <= PREP_TOL):
+            fail(f"{name} disagrees with its plain version: sorted keys "
+                 f"equal {keys_equal}, (trunc, n_total) {tot} against "
+                 f"{tot_p}, feature rows max |diff| {err} (<= {PREP_TOL})")
+        return {"max_abs_err": err, "tol": PREP_TOL,
+                "bit_equal": bool(torch.equal(feat_k, feat_p)),
+                "sorted_keys_equal": keys_equal,
+                "row_counts_equal": bool(torch.equal(stats_k, stats_p)),
+                "trunc": tot[0], "n_total": tot[1], "span": m_s}
+
+    flower_s = make_model("GaussianImage_Cholesky", device=dev,
+                          num_points=SERVE_N, H=512, W=768, raster=serve_cfg)
+    flower_s.load_state_dict(flower.state_dict())
+    k5_args = (flower_s._xyz.detach(), flower_s._cholesky.detach(),
+               flower_s._features_dc.detach(), CHOLESKY_BOUND, Hf, Wf,
+               serve_cfg.tile_px, m_s, q_s)
+    out5 = prep.raw_prep(*k5_args)
+    torch.cuda.synchronize()
+    k5 = prep_check("K5", out5, prep.raw_prep_plain(*k5_args))
+    # K5's stream against the generic binning of the same parameters
+    gids5, starts5, _ = rs.stream_from_keys(out5[1].reshape(-1), SERVE_N,
+                                            Hf, Wf, serve_cfg, I_s)
+    _, sp_gen = stream_inputs(flower_s)
+    k5["stream_vs_generic"] = {
+        "instances": int(sp_gen.starts[sp_gen.T]),
+        "instances_differ": int((gids5 != sp_gen.gids).sum()),
+        "starts_equal": bool(torch.equal(starts5, sp_gen.starts))}
+    china_s = make_model("GaussianImage_Cholesky", device=dev,
+                         num_points=SERVE_N, H=512, W=768, quantize=True,
+                         raster=serve_cfg)
+    ckq = load_checkpoint(QAT_DIR / "china" / "gaussian_model.best.npz")
+    merge_matching(china_s, ckq["params"], ckq["extra"])
+    enc_c = china_s.compress_wo_ec()
+    k4_args = (torch.as_tensor(enc_c["xyz"], device=dev).float(),
+               torch.as_tensor(enc_c["quant_cholesky"], device=dev),
+               torch.as_tensor(enc_c["feature_dc_index"], device=dev),
+               china_s.cholesky_quant_scale.detach(),
+               china_s.cholesky_quant_beta.detach(),
+               china_s.features_vq.combined_codebook(
+                   china_s.vq_state()).contiguous(),
+               CHOLESKY_BOUND, 512, 768, serve_cfg.tile_px, m_s, q_s)
+    out4 = prep.decode_prep(*k4_args)
+    torch.cuda.synchronize()
+    k4 = prep_check("K4", out4, prep.decode_prep_plain(*k4_args))
+
+    phase("kernel", k5=k5, k4=k4, k1={"tol": K1_TOL, "cases": cases},
           k2={"row_tol": ROW_TOL, "worst_row": float(e2.max()),
               "max_abs_err": k2_err, "instances": n_live},
           k3={"row_tol": ROW_TOL, "worst_row": float(e3.max()),
@@ -397,6 +498,119 @@ def main() -> None:
                                         "eval_time", "n_dropped")}
                   for k, r in by_image.items()},
           train_txt=log.strip().splitlines()[-2:])
+
+    # -- serve: render_fast under serving(10000), counts read around it ------
+    ported = tuple(counters)
+    nd_timed = []
+
+    def serve_one():
+        img, aux = flower_s.render_fast(with_aux=True)
+        nd_timed.append(aux["n_dropped"])
+        return img
+
+    reset_counts()
+    img_s = serve_one()
+    serve_ms = burst_ms(torch, serve_one, reps=30)
+    serve_counts = read_counts()
+    nd_timed = torch.stack(nd_timed).cpu()
+    with torch.no_grad():
+        img_ref = flower.render()["render"]
+    diff = (img_s - img_ref).abs()
+    edge_px = int((diff > 1e-4).sum())
+    off_edge = float(diff[diff <= 1e-4].max())
+    serve_psnr = 10 * math.log10(1.0 / float(torch.mean((img_s - gt_f[None])
+                                                         ** 2)))
+    if serve_counts["splat_prep_raw"] == 0 or serve_counts[
+            "rasterize_sum_fwd"] == 0:
+        fail(f"render_fast launched {serve_counts}")
+    if int(nd_timed.max()) != 0:
+        fail(f"render_fast dropped instances on a timed render: "
+             f"{nd_timed.tolist()}")
+    if edge_px > MAX_EDGE_PX or off_edge > IMG_TOL:
+        fail(f"render_fast differs from render(): {edge_px} pixels above "
+             f"1e-4 (<= {MAX_EDGE_PX}), the rest up to {off_edge} "
+             f"(<= {IMG_TOL})")
+    if abs(serve_psnr - FLOWER_PSNR) > 0.01:
+        fail(f"render_fast PSNR {serve_psnr} is not within 0.01 dB of "
+             f"{FLOWER_PSNR}")
+    with torch.no_grad():
+        default_ms = burst_ms(torch, flower.render, reps=30)
+        serve_prof = profile_of(
+            torch, lambda: [flower_s.render_fast()
+                            for _ in range(train.FPS_FRAMES)],
+            train.FPS_FRAMES, ported)
+    phase("serve", config="RasterizeConfig.serving(10000)",
+          stream_cap=I_s, span=m_s, launches=serve_counts,
+          renders=len(nd_timed), n_dropped_timed_max=int(nd_timed.max()),
+          max_abs_diff_vs_render=float(diff.max()),
+          pixels_above_1e4=edge_px, psnr=serve_psnr,
+          render_fast_ms=serve_ms, render_default_ms=default_ms,
+          render_fast_profile=serve_prof)
+
+    # -- codec: the codec CLI on the QAT checkpoints, counts read around it --
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_codec_")
+    try:
+        reset_counts()
+        codec = test_quantize.main([
+            "--data_name", "photos", "--dataset", str(ROOT / "data"),
+            "--model_path", str(QAT_DIR), "--num_points", "10000",
+            "--checkpoint_root", out_dir])
+        codec_counts = read_counts()
+        codec_txt = {r["image"]: (
+            Path(out_dir) / "photos" / "GaussianImage_Cholesky_50000_10000"
+            / r["image"] / "test.txt").read_text().strip().splitlines()[-5:]
+            for r in codec}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    by_codec = {r["image"]: r for r in codec}
+    for name, want in CODEC_ANCHORS.items():
+        r = by_codec[name]
+        if (abs(r["psnr"] - want["psnr"]) > 0.01
+                or abs(r["ms-ssim"] - want["ms-ssim"]) > 1e-4
+                or round(r["bpp"], 4) != want["bpp"]
+                or round(r["bpp_ec"], 4) != want["bpp_ec"]
+                or not r["ec_roundtrip_err"] < 1e-6):
+            fail(f"codec {name}: psnr {r['psnr']}, ms-ssim {r['ms-ssim']}, "
+                 f"bpp {r['bpp']}, bpp_ec {r['bpp_ec']}, round trip "
+                 f"{r['ec_roundtrip_err']}; want {want}, round trip < 1e-6")
+    if codec_counts["splat_prep_decode"] < MIN_K4:
+        fail(f"the codec run launched K4 {codec_counts['splat_prep_decode']}"
+             f" times, fewer than {MIN_K4}")
+    if by_codec["china"]["probe_model"] != "serving":
+        fail("china's decode probe did not take the serving twin")
+    if not (by_codec["flower"]["serving_n_dropped"] > 0
+            and by_codec["flower"]["probe_model"] == "default"):
+        fail("flower's serving twin should drop instances and its probe "
+             "take the default model")
+    # china's K4 image against its generic decode (outside the counted run)
+    ev = test_quantize.CodecEvaluator2d(
+        image_path_to_array(ROOT / "data/china_768x512.png"), "china",
+        num_points=10000, model_path=QAT_DIR / "china" /
+        "gaussian_model.best.npz", log_dir=tempfile.mkdtemp(
+            prefix="chip_smoke_codec_"), device=dev)
+    enc_dev = {k: torch.as_tensor(v, device=dev)
+               for k, v in ev.model.compress_wo_ec().items()}
+    dec_k4 = ev.model_s.decompress_wo_ec(enc_dev)
+    dec_gen = ev.model.decompress_wo_ec(enc_dev)["render"]
+    shutil.rmtree(ev.log_dir, ignore_errors=True)
+    diff = (dec_k4["render"] - dec_gen).abs()
+    k4_edge = int((diff > 1e-4).sum())
+    k4_off = float(diff[diff <= 1e-4].max())
+    if k4_edge > MAX_EDGE_PX or k4_off > IMG_TOL:
+        fail(f"china's K4 decode differs from its generic decode: {k4_edge} "
+             f"pixels above 1e-4, the rest up to {k4_off}")
+    keys = ("psnr", "ms-ssim", "bpp", "bpp_ec", "ec_roundtrip_err",
+            "rendering_fps", "rendering_time", "rendering_fps_ec",
+            "rendering_time_ec", "rendering_time_ec_rans",
+            "rendering_time_ec_h2d", "rendering_time_ec_device",
+            "serving_n_dropped", "probe_model")
+    phase("codec", launches=codec_counts,
+          images={k: {m: r[m] for m in keys} for k, r in by_codec.items()},
+          china_k4_vs_generic={"max_abs_diff": float(diff.max()),
+                               "pixels_above_1e4": k4_edge,
+                               "n_dropped": int(dec_k4["raster_aux"]
+                                                ["n_dropped"])},
+          test_txt=codec_txt)
 
     # -- fit: SimpleTrainer2d on the flower photo ----------------------------
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_fit_")
@@ -471,13 +685,20 @@ def main() -> None:
         feat, sp.gids, sp.starts, g, Hf, Wf), reps=5, warmup=1)
     plain["rasterize_sum_l2"] = burst_ms(torch, lambda: rs.sum_l2_plain(
         feat, sp.gids, sp.starts, gt_f, Hf, Wf), reps=5, warmup=1)
+    ms["splat_prep_raw"] = burst_ms(torch, lambda: prep.raw_prep(*k5_args),
+                                    reps=50)
+    ms["splat_prep_decode"] = burst_ms(
+        torch, lambda: prep.decode_prep(*k4_args), reps=50)
+    plain["splat_prep_raw"] = burst_ms(
+        torch, lambda: prep.raw_prep_plain(*k5_args), reps=20)
+    plain["splat_prep_decode"] = burst_ms(
+        torch, lambda: prep.decode_prep_plain(*k4_args), reps=20)
     with torch.no_grad():
         render_ms = burst_ms(torch, flower.render, reps=30)
     step_opt = fitted.make_optimizer()
     gt_fit = trainer.gt_image
     step_ms = burst_ms(torch, lambda: fitted.train_step(step_opt, gt_fit),
                        reps=250, warmup=10)
-    ported = tuple(counters)
     with torch.no_grad():
         render_prof = profile_of(torch, lambda: train.render_burst(flower),
                                  train.FPS_FRAMES, ported)
@@ -493,7 +714,9 @@ def main() -> None:
         "rasterize_sum_bwd": lambda: rs.sum_bwd(feat, sp.gids, sp.starts, g,
                                                 Hf, Wf),
         "rasterize_sum_l2": lambda: rs.sum_l2(feat, sp.gids, sp.starts, gt_f,
-                                              Hf, Wf)}
+                                              Hf, Wf),
+        "splat_prep_raw": lambda: prep.raw_prep(*k5_args),
+        "splat_prep_decode": lambda: prep.decode_prep(*k4_args)}
     device_ms = {}
     for k, fn in launch.items():
         us = profile_of(torch, lambda: [fn() for _ in range(20)], 20,
@@ -520,6 +743,16 @@ def main() -> None:
                              stream_bytes + 4 * 3 * plane
                              + 4 * sse3.numel() + 4 * 16 * n_live),
     }
+    # the fused prep: per row its inputs (K5 xyz, chol, colors: 32 B; K4
+    # xyz, codes, idx: 28 B, plus the scale, beta and codebook once), a
+    # 64 B feature row, M keys and two counts; bytes-bound (no MUFU count:
+    # tanhf's two MUFU ops a row are folded into the row's slots)
+    rows = SERVE_N + 1
+    out_bytes = rows * (4 * sc.FW + 4 * m_s + 8)
+    for k, in_bytes in (("splat_prep_raw", 32 * SERVE_N),
+                        ("splat_prep_decode", 28 * SERVE_N + 4 * (6 + 192))):
+        work[k] = (rows * (PREP_ROW_SLOTS[k] + PREP_KEY_SLOTS * m_s), 0,
+                   in_bytes + out_bytes)
     bounds = {k: bound(*v) for k, v in work.items()}
     phase("timing", device=torch.cuda.get_device_name(0), nvidia_smi=smi,
           kernel_ms=ms, kernel_device_ms=device_ms, plain_ms=plain,
@@ -536,15 +769,24 @@ def main() -> None:
     print(smi, flush=True)
     replaces = {"rasterize_sum_fwd": "gaussianimage_tpu/ops/rasterize_sum.py:205",
                 "rasterize_sum_bwd": "gaussianimage_tpu/ops/rasterize_sum.py:280",
-                "rasterize_sum_l2": "gaussianimage_tpu/ops/rasterize_sum.py:618"}
+                "rasterize_sum_l2": "gaussianimage_tpu/ops/rasterize_sum.py:618",
+                "splat_prep_raw": "gaussianimage_tpu/ops/splat_prep.py:249",
+                "splat_prep_decode": "gaussianimage_tpu/ops/splat_prep.py:157"}
     sources = {"rasterize_sum_fwd": "rasterize_sum_fwd.cu",
                "rasterize_sum_bwd": "rasterize_sum_bwd.cu",
-               "rasterize_sum_l2": "rasterize_sum_bwd.cu"}
+               "rasterize_sum_l2": "rasterize_sum_bwd.cu",
+               "splat_prep_raw": "splat_prep.cu",
+               "splat_prep_decode": "splat_prep.cu"}
+    # each kernel's launches in the run of the path that drives it
     launches = {"rasterize_sum_fwd": eval_counts["rasterize_sum_fwd"],
                 "rasterize_sum_bwd": generic_counts["rasterize_sum_bwd"],
-                "rasterize_sum_l2": fit_counts["rasterize_sum_l2"]}
+                "rasterize_sum_l2": fit_counts["rasterize_sum_l2"],
+                "splat_prep_raw": serve_counts["splat_prep_raw"],
+                "splat_prep_decode": codec_counts["splat_prep_decode"]}
     errs = {"rasterize_sum_fwd": k1_err, "rasterize_sum_bwd": k2_err,
-            "rasterize_sum_l2": k3_err}
+            "rasterize_sum_l2": k3_err,
+            "splat_prep_raw": k5["max_abs_err"],
+            "splat_prep_decode": k4["max_abs_err"]}
     emit({"kernels": [{
         "name": k,
         "route": "cuda",

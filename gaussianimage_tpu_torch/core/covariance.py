@@ -45,7 +45,9 @@ def conic_from_cov2d(cov: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """
     s11, s12, s22 = cov[..., 0], cov[..., 1], cov[..., 2]
     det = s11 * s22 - s12 * s12
-    inv_det = 1.0 / torch.clamp(det, min=eps)
+    # torch.maximum, not clamp: at det == eps it splits the gradient between
+    # its two arguments, as jnp.maximum does (clamp passes all of it to det)
+    inv_det = 1.0 / torch.maximum(det, det.new_full((), eps))
     return torch.stack([s22 * inv_det, -s12 * inv_det, s11 * inv_det], dim=-1)
 
 

@@ -34,6 +34,7 @@ class ModelConfig:
     opt_type: str = "adan"  # "adan" | "adam"
     lr_step_size: int = 20000
     lr_gamma: float = 0.5
+    quantize: bool = False  # the codec's quantizers and VQ state (QAT)
     no_clamp: bool = False
     init_mode: str = "uniform"  # "uniform" (reference) | "adaptive"
     raster: RasterizeConfig = RasterizeConfig()
@@ -63,20 +64,27 @@ class GaussianModelBase(nn.Module):
     def render(self, **kw) -> dict:
         raise NotImplementedError
 
-    def render_fast(self) -> torch.Tensor:
-        """Inference-only render returning [1, 3, H, W] — the FPS-probe /
-        serving entry."""
-        return self.render()["render"]
+    @torch.no_grad()
+    def render_fast(self, with_aux: bool = False):
+        """Inference-only render returning [1, 3, H, W] (and with
+        ``with_aux`` the rasterizer's aux) — the serving entry. Default:
+        render()'s image; a model may take a faster path to the same
+        image."""
+        pkg = self.render()
+        img = pkg["render"]
+        return (img, pkg["raster_aux"]) if with_aux else img
 
     def forward(self, **kw):
         return self.render(**kw)
 
     def loss(self, gt_image: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
         """(scalar loss, aux with "mse"), the JAX package's branch: L2 on a
-        model whose splat() is its whole forward takes the fused K3 pass;
-        anything else renders and applies ``loss_fn``."""
+        model whose splat() is its whole forward, and which does not
+        quantize, takes the fused K3 pass; anything else renders and
+        applies ``loss_fn``."""
         cfg = self.cfg
-        if cfg.loss_type == "L2" and self.fused_l2 and hasattr(self, "splat"):
+        if (cfg.loss_type == "L2" and self.fused_l2 and not cfg.quantize
+                and hasattr(self, "splat")):
             xys, radii, conics, colors, opac = self.splat()
             mse, raux = rasterize_gaussians_sum_l2(
                 xys, conics, colors, opac, gt_image[0], cfg.H, cfg.W,

@@ -10,7 +10,11 @@ gaussianimage_cholesky.py):
 
 The parameters start at zero; ``init_params`` initialises them for a fit
 (grid when N = H*W, adaptive from the GT, or uniform), and a fitted
-checkpoint loads with ``load_state_dict(params_from_numpy(...))``.
+checkpoint loads with ``load_state_dict(params_from_numpy(...))``. Under
+``quantize`` the model also holds the codec's quantizer parameters and VQ
+state (models/quantize_mixin.py) and decodes code arrays. ``render_fast``
+and the decode take the fused splat prep (K5, K4) where
+``fused_decode_supported`` allows it, else the generic path.
 """
 
 from __future__ import annotations
@@ -24,14 +28,21 @@ from gaussianimage_tpu_torch.core.init import (adaptive_init_sigma,
                                                adaptive_init_xyz,
                                                init_colors_from_gt)
 from gaussianimage_tpu_torch.models.base import GaussianModelBase, ModelConfig
+from gaussianimage_tpu_torch.models.quantize_mixin import QuantizeMixin
 from gaussianimage_tpu_torch.ops import rasterize_gaussians_sum
+from gaussianimage_tpu_torch.ops.splat_prep import (fused_decode_cholesky,
+                                                   fused_decode_supported,
+                                                   fused_render_cholesky)
 
 CHOLESKY_BOUND = (0.5, 0.0, 0.5)
 VIZ_SEED = 1234  # fixed random colors of the Gaussian-shape visualization
 
 
-class GaussianImageCholesky(GaussianModelBase):
+class GaussianImageCholesky(QuantizeMixin, GaussianModelBase):
     name = "GaussianImage_Cholesky"
+    # the fused splat prep fixes opacity at 1; a subclass whose splat
+    # changes the opacity must opt out
+    fused_prep_ok = True
 
     def __init__(self, config: ModelConfig, device=None):
         super().__init__(config)
@@ -44,6 +55,8 @@ class GaussianImageCholesky(GaussianModelBase):
             "cholesky_bound",
             torch.tensor(CHOLESKY_BOUND, dtype=torch.float32, device=device),
             persistent=False)
+        if config.quantize:
+            self.quantize_param_init(device)
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator, gt_image=None) -> None:
@@ -100,6 +113,71 @@ class GaussianImageCholesky(GaussianModelBase):
         self._cholesky[victims] = torch.stack(
             [sigma - CHOLESKY_BOUND[0], torch.zeros_like(sigma),
              sigma - CHOLESKY_BOUND[2]], dim=1)
+
+    # quantization hooks (QuantizeMixin) -------------------------------------
+    def _uq_channels(self):
+        return {"cholesky": 3}
+
+    def _uq_raw_values(self):
+        return {"cholesky": self._cholesky}
+
+    def _quantized_splat(self, means, geo, colors):
+        """Dequantized values -> the splat tuple (xys, radii, conics,
+        colors, opacities): the generic decode's projection half."""
+        cfg = self.cfg
+        xys, _, radii, conics, _ = project_gaussians_2d(
+            means, geo["cholesky"] + self.cholesky_bound, cfg.H, cfg.W,
+            cfg.tile_bounds)
+        opac = torch.ones(means.shape[0], 1, dtype=torch.float32,
+                          device=means.device)
+        return xys, radii, conics, colors, opac
+
+    def _rasterize_quantized(self, means, geo, colors):
+        cfg = self.cfg
+        xys, radii, conics, colors, opac = self._quantized_splat(
+            means, geo, colors)
+        return rasterize_gaussians_sum(xys, conics, colors, opac, cfg.H,
+                                       cfg.W, radii=radii, config=cfg.raster)
+
+    def _fused_ok(self) -> bool:
+        cfg = self.cfg
+        return self.fused_prep_ok and fused_decode_supported(
+            self._xyz.shape[0], cfg.H, cfg.W, cfg.raster)
+
+    @torch.no_grad()
+    def decompress_wo_ec(self, enc):
+        """The decode. Where the fused prep's gate allows it, the
+        dequantization, projection, packing and binning keys are one K4
+        launch, then the sort and K1; otherwise the generic path runs."""
+        if not self._fused_ok():
+            return super().decompress_wo_ec(enc)
+        cfg = self.cfg
+        img, _, aux = fused_decode_cholesky(
+            self._on_device(enc["xyz"]),
+            self._on_device(enc["quant_cholesky"]),
+            self.cholesky_quant_scale, self.cholesky_quant_beta,
+            CHOLESKY_BOUND, self._on_device(enc["feature_dc_index"]),
+            self.features_vq.combined_codebook(self.vq_state()), cfg.H,
+            cfg.W, cfg.raster)
+        img = torch.clamp(img, 0.0, 1.0)
+        return {"render": img[None], "raster_aux": aux}
+
+    @torch.no_grad()
+    def render_fast(self, with_aux: bool = False):
+        """The serving render [1, 3, H, W], and with ``with_aux`` the
+        rasterizer's aux (n_dropped). Where the fused prep's gate allows
+        it, tanh, the bound, the projection, the packing and the binning
+        keys are one K5 launch, then the sort and K1; otherwise
+        ``render()``. The image equals render()'s."""
+        if not self._fused_ok():
+            return super().render_fast(with_aux)
+        cfg = self.cfg
+        img, _, aux = fused_render_cholesky(
+            self._xyz, self._cholesky, self._features_dc, CHOLESKY_BOUND,
+            cfg.H, cfg.W, cfg.raster)
+        if not cfg.no_clamp:
+            img = torch.clamp(img, 0.0, 1.0)
+        return (img[None], aux) if with_aux else img[None]
 
     # activations ----------------------------------------------------------
     def get_xyz(self, xyz=None):

@@ -1,0 +1,237 @@
+"""The codec half of quantization support for the 2D models (counterpart of
+gaussianimage_tpu/models/quantize_mixin.py; reference
+gaussianimage_cholesky.py:126-283):
+
+- the quantizers: float16 means, a learned 6-bit uniform quantizer on the
+  covariance parameters (its scale and beta are parameters of the model),
+  residual VQ (8 codes x 2 layers) on the colors (its state is buffers of
+  the model, ``vq.<name>``);
+- compress / decompress with and without rANS entropy coding;
+- the bit accounting and the bpp breakdown of ``analysis_wo_ec`` /
+  ``analysis`` (keys bpp, position_bpp, cholesky_bpp, feature_dc_bpp).
+
+Quantization-aware training (the QAT forward, its loss, the VQ's k-means
+init and EMA updates, the quantizer warm start) is not ported yet: those
+methods raise, naming ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from gaussianimage_tpu_torch.codec import (ResidualVQ, ResidualVQState,
+                                           UniformQuantizer,
+                                           UniformQuantizerState)
+from gaussianimage_tpu_torch.codec.bitstream import (compress_categorical,
+                                                     decompress_categorical,
+                                                     np_bits)
+
+VQ_SPEC = dict(dim=3, codebook_size=8, num_quantizers=2, kmeans_iters=5,
+               decay=0.8, commitment_weight=1.0)
+QAT_NOT_PORTED = (
+    "quantization-aware training is not ported yet: the QAT forward, its "
+    "loss and the VQ codebook updates come with the QAT slice (ROADMAP.md)")
+
+
+def _np(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+class QuantizeMixin:
+    """Requires: ``self.cfg``, ``self._xyz``, ``get_features()`` and the
+    hooks ``_uq_channels()``, ``_uq_raw_values()`` and
+    ``_rasterize_quantized(means, geo, colors)``."""
+
+    @property
+    def features_vq(self) -> ResidualVQ:
+        return ResidualVQ(**VQ_SPEC)
+
+    def _uq(self, name: str) -> UniformQuantizer:
+        return UniformQuantizer(bits=6, num_channels=self._uq_channels()[name])
+
+    def _uq_state(self, name: str) -> UniformQuantizerState:
+        return UniformQuantizerState(getattr(self, f"{name}_quant_scale"),
+                                     getattr(self, f"{name}_quant_beta"))
+
+    def vq_state(self) -> ResidualVQState:
+        return ResidualVQState(self.vq.embed, self.vq.cluster_size,
+                               self.vq.embed_avg, self.vq.initted)
+
+    def quantize_param_init(self, device) -> None:
+        """Register the quantizers' scale and beta (1/qmax, the JAX init) as
+        parameters ``<name>_quant_{scale,beta}`` and the VQ state as the
+        buffers ``vq.{embed,cluster_size,embed_avg,initted}``, the names of
+        the JAX checkpoint's ``params/`` and ``extra/vq/`` keys."""
+        for name, ch in self._uq_channels().items():
+            st = UniformQuantizer(bits=6, num_channels=ch).init_state(device)
+            setattr(self, f"{name}_quant_scale", nn.Parameter(st.scale))
+            setattr(self, f"{name}_quant_beta", nn.Parameter(st.beta))
+        self.vq = nn.Module()
+        for k, v in self.features_vq.init_state(device)._asdict().items():
+            self.vq.register_buffer(k, v)
+
+    # ---- QAT (not ported yet) ----------------------------------------------
+    def init_quantizer_data(self):
+        raise NotImplementedError(QAT_NOT_PORTED)
+
+    def quantized_splat_inputs(self, **kw):
+        raise NotImplementedError(QAT_NOT_PORTED)
+
+    def render_quantize(self, **kw):
+        raise NotImplementedError(QAT_NOT_PORTED)
+
+    def update_extra(self, *args, **kw):
+        raise NotImplementedError(QAT_NOT_PORTED)
+
+    def loss(self, gt_image):
+        # the plain forward stays available on a quantize model; only the
+        # training loss switches to the QAT path
+        if not self.cfg.quantize:
+            return super().loss(gt_image)
+        raise NotImplementedError(QAT_NOT_PORTED)
+
+    # ---- the codec -----------------------------------------------------------
+    @torch.no_grad()
+    def compress_wo_ec(self) -> Dict[str, np.ndarray]:
+        """The code arrays, without a bitstream (reference :154-159): float16
+        means, int32 quantizer codes, int32 VQ indices."""
+        out = {"xyz": _np(self._xyz).astype(np.float16)}
+        for name, raw in self._uq_raw_values().items():
+            codes, _ = self._uq(name).compress(self._uq_state(name), raw)
+            out[f"quant_{name}"] = _np(codes).astype(np.int32)
+        _, idx = self.features_vq.compress(self.vq_state(),
+                                           self.get_features())
+        out["feature_dc_index"] = _np(idx).astype(np.int32)
+        return out
+
+    def _on_device(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self._xyz.device)
+
+    @torch.no_grad()
+    def dequantize_wo_ec(self, enc: Dict):
+        """Code arrays (numpy, or tensors on the model's device) ->
+        (means, geo dict, colors): the generic decode's front half."""
+        means = torch.tanh(self._on_device(enc["xyz"]).float())
+        geo = {name: self._uq(name).decompress(
+                   self._uq_state(name),
+                   self._on_device(enc[f"quant_{name}"]).float())
+               for name in self._uq_channels()}
+        colors = self.features_vq.decompress(
+            self.vq_state(), self._on_device(enc["feature_dc_index"]))
+        return means, geo, colors
+
+    @torch.no_grad()
+    def decompress_wo_ec(self, enc: Dict) -> Dict:
+        """The generic decode: dequantize, project, rasterize, clamp.
+        Returns {"render": [1, 3, H, W], "raster_aux": ...}."""
+        means, geo, colors = self.dequantize_wo_ec(enc)
+        img, _, aux = self._rasterize_quantized(means, geo, colors)
+        img = torch.clamp(img, 0.0, 1.0)
+        return {"render": img.permute(2, 0, 1)[None], "raster_aux": aux}
+
+    def compress(self) -> Dict:
+        """The code arrays and their rANS bitstreams (reference :210-219)."""
+        enc = self.compress_wo_ec()
+        for name in self._uq_channels():
+            enc[f"{name}_bitstream"] = compress_categorical(
+                enc[f"quant_{name}"])
+        enc["feature_dc_bitstream"] = compress_categorical(
+            enc["feature_dc_index"])
+        return enc
+
+    def entropy_decode(self, enc: Dict) -> Dict:
+        """The host half of the entropy-coded decode: the bitstreams back
+        to code arrays (numpy). ``decompress_wo_ec`` is the device half."""
+        N = enc["xyz"].shape[0]
+        dec = {"xyz": enc["xyz"]}
+        for name, ch in self._uq_channels().items():
+            words, counts, uniq = enc[f"{name}_bitstream"]
+            dec[f"quant_{name}"] = decompress_categorical(
+                words, counts, uniq, N * ch, (N, ch))
+        nq = self.features_vq.num_quantizers
+        words, counts, uniq = enc["feature_dc_bitstream"]
+        dec["feature_dc_index"] = decompress_categorical(
+            words, counts, uniq, N * nq, (N, nq))
+        return dec
+
+    def decompress(self, enc: Dict) -> Dict:
+        return self.decompress_wo_ec(self.entropy_decode(enc))
+
+    # ---- bit accounting ------------------------------------------------------
+    def _codebook_bits(self) -> int:
+        return np_bits(_np(self.vq.embed))
+
+    def _uq_side_bits(self, name: str) -> int:
+        st = self._uq_state(name)
+        return np_bits(_np(st.scale)) + np_bits(_np(st.beta))
+
+    @torch.no_grad()
+    def measure_unit_bits(self) -> Tuple[int, int, int, int]:
+        """Eval-time [m_bit, s_bit, r_bit, c_bit] with a real rANS probe
+        (reference UniformQuantizer.size / VectorQuantizer.size)."""
+        N = self._xyz.shape[0]
+        m_bit = 16 * N * 2
+        s_bit = r_bit = 0
+        for name, raw in self._uq_raw_values().items():
+            codes, _ = self._uq(name).compress(self._uq_state(name), raw)
+            words, counts, uniq = compress_categorical(
+                _np(codes).astype(np.int32))
+            bits = (np_bits(words) + np_bits(counts) + np_bits(uniq)
+                    + self._uq_side_bits(name))
+            if name == "rotation":
+                r_bit += bits
+            else:
+                s_bit += bits
+        _, idx = self.features_vq.compress(self.vq_state(),
+                                           self.get_features())
+        words, counts, uniq = compress_categorical(_np(idx).astype(np.int32))
+        c_bit = (self._codebook_bits() + np_bits(words) + np_bits(counts)
+                 + np_bits(uniq))
+        return m_bit, s_bit, r_bit, c_bit
+
+    def _bpp(self, position_bits, per_name, feature_bits) -> Dict[str, float]:
+        H, W = self.cfg.H, self.cfg.W
+        total = position_bits + sum(per_name.values()) + feature_bits
+        out = {"bpp": total / H / W,
+               "position_bpp": position_bits / H / W,
+               "cholesky_bpp": sum(per_name.values()) / H / W,
+               "feature_dc_bpp": feature_bits / H / W}
+        # per-component covariance keys (the RS reference reports
+        # scaling_bpp / rotation_bpp, gaussianimage_rs.py:186-192)
+        for name, bits in per_name.items():
+            out.setdefault(f"{name}_bpp", bits / H / W)
+        return out
+
+    def analysis_wo_ec(self, enc: Dict) -> Dict[str, float]:
+        """bpp with the codes at a fixed 6 bits and the VQ index at
+        ceil(log2(max)) bits (reference :174-208). Where every index is 0
+        the reference gives 0 bits; this floors at 1 bit, as the JAX
+        package does."""
+        N = self._xyz.shape[0]
+        per_name = {name: self._uq_side_bits(name)
+                    + np.asarray(enc[f"quant_{name}"]).size * 6
+                    for name in self._uq_channels()}
+        idx = np.asarray(enc["feature_dc_index"])
+        max_bit = max(int(np.ceil(np.log2(max(idx.max(), 1) + 1e-9))), 1)
+        feature_bits = self._codebook_bits() + idx.size * max_bit
+        return self._bpp(N * 2 * 16, per_name, feature_bits)
+
+    def analysis(self, enc: Dict) -> Dict[str, float]:
+        """bpp with the real entropy-coded stream sizes (reference
+        :242-283)."""
+        N = self._xyz.shape[0]
+        per_name = {}
+        for name in self._uq_channels():
+            words, counts, uniq = compress_categorical(
+                np.asarray(enc[f"quant_{name}"], np.int32))
+            per_name[name] = (self._uq_side_bits(name) + np_bits(words)
+                              + np_bits(counts) + np_bits(uniq))
+        words, counts, uniq = compress_categorical(
+            np.asarray(enc["feature_dc_index"], np.int32))
+        feature_bits = (self._codebook_bits() + np_bits(words)
+                        + np_bits(counts) + np_bits(uniq))
+        return self._bpp(N * 2 * 16, per_name, feature_bits)

@@ -55,6 +55,18 @@ KERNELS = {
                                   _f, _f, _i, _p], _i),
         },
     ),
+    "splat_prep": (
+        "splat_prep.cu",
+        {
+            # K5: xyz, chol, colors, N, H, W, tile_px, tiles_x, tiles_y, M,
+            # id_bits, q_cut, b0, b1, b2, feat, keys, stats, stream
+            "splat_prep_raw": ([_p, _p, _p] + [_i] * 8 + [_f] * 4
+                               + [_p, _p, _p, _p], _i),
+            # K4: xyz, codes, idx, scale, beta, embed, then as K5 from N on
+            "splat_prep_decode": ([_p] * 6 + [_i] * 8 + [_f] * 4
+                                  + [_p, _p, _p, _p], _i),
+        },
+    ),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,107 @@
+// Device code shared by the fused splat-prep kernels K4 and K5
+// (splat_prep.cu): the projection, the packed feature row, the binning keys
+// and the counts of one Gaussian, from its mean in NDC, its covariance and
+// its color. Counterpart of gaussianimage_tpu/ops/splat_prep.py
+// _project_pack_bin (:61) and _pack_bin (:110), which replicate
+// core/covariance.py, rasterize_sum._axis_radii and tiles._expand_instances.
+//
+// Arithmetic: the JAX expression, rounded op by op (__fmul_rn, __fadd_rn,
+// __fdiv_rn, __fsqrt_rn: no FMA contraction, no fast math), with floorf and
+// ceilf. The plain PyTorch versions (ops/splat_prep.py) and the port's
+// generic path (core/covariance.py, ops/tiles.py) compute the same
+// expressions one operator at a time, so all three agree bit for bit; one
+// ulp of an extent would move a tile edge and flip a key.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace sprep {
+
+constexpr int kFW = 16;                // floats per packed feature row
+constexpr int kIntMax = 0x7fffffff;    // dead key slot
+constexpr int kThreads = 256;
+
+// Static geometry of one prep launch. n_rows = N + 1: row N is the zero
+// sentinel row the stream's dead slots read.
+struct Geom {
+  int N, n_rows, H, W, tile_px, tiles_x, tiles_y, M, id_bits;
+  float q_cut;
+};
+
+// Row r's outputs: feat[r] (16 floats), its M keys keys[j * n_rows + r]
+// (slot-major, as the JAX kernel lays them out), and its counts
+// stats[r] = trunc, stats[n_rows + r] = live instances. Rows r >= N
+// (valid == false) write a zero row, dead keys and zero counts.
+__device__ __forceinline__ void project_pack_bin(
+    int r, bool valid, float mx, float my, float s11, float s12, float s22,
+    float c0, float c1, float c2, const Geom& g, float* __restrict__ feat,
+    int* __restrict__ keys, int* __restrict__ stats) {
+  // pixel mapping: 0.5 * ((m + 1) * W - 1)
+  const float x = __fmul_rn(
+      0.5f, __fsub_rn(__fmul_rn(__fadd_rn(mx, 1.0f), (float)g.W), 1.0f));
+  const float y = __fmul_rn(
+      0.5f, __fsub_rn(__fmul_rn(__fadd_rn(my, 1.0f), (float)g.H), 1.0f));
+  // conic with the 1e-6 det floor
+  const float det = __fsub_rn(__fmul_rn(s11, s22), __fmul_rn(s12, s12));
+  const float inv_det = __fdiv_rn(1.0f, fmaxf(det, 1e-6f));
+  const float ca = __fmul_rn(s22, inv_det);
+  const float cb = __fmul_rn(-s12, inv_det);
+  const float cc = __fmul_rn(s11, inv_det);
+  // radius_from_cov2d: ceil(3 * sqrt(lambda_max))
+  const float mid = __fmul_rn(0.5f, __fadd_rn(s11, s22));
+  const float disc =
+      __fsqrt_rn(fmaxf(__fsub_rn(__fmul_rn(mid, mid), det), 0.0f));
+  const float radii =
+      ceilf(__fmul_rn(3.0f, __fsqrt_rn(fmaxf(__fadd_rn(mid, disc), 1e-12f))));
+  // _axis_radii: the q <= q_cut ellipse's extents, capped by radii
+  const float cdet =
+      fmaxf(__fsub_rn(__fmul_rn(ca, cc), __fmul_rn(cb, cb)), 1e-12f);
+  float rx = __fsqrt_rn(__fdiv_rn(__fmul_rn(g.q_cut, fmaxf(cc, 0.0f)), cdet));
+  float ry = __fsqrt_rn(__fdiv_rn(__fmul_rn(g.q_cut, fmaxf(ca, 0.0f)), cdet));
+  const bool live = radii > 0.0f;
+  rx = live ? fminf(rx, radii) : 0.0f;
+  ry = live ? fminf(ry, radii) : 0.0f;
+
+  // ---- the feature row: x, y, conic, colors, opacity 1, zero pad -------
+  float4* row = reinterpret_cast<float4*>(feat + static_cast<size_t>(r) * kFW);
+  if (valid) {
+    row[0] = make_float4(x, y, ca, cb);
+    row[1] = make_float4(cc, c0, c1, c2);
+    row[2] = make_float4(1.0f, 0.0f, 0.0f, 0.0f);
+  } else {
+    row[0] = row[1] = row[2] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  row[3] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  // ---- binning keys (_expand_instances + the packed key) ---------------
+  const float tp = (float)g.tile_px;
+  const float hx = (float)(g.tiles_x - 1);
+  const float hy = (float)(g.tiles_y - 1);
+  const float x0 = fminf(fmaxf(floorf(__fdiv_rn(__fsub_rn(x, rx), tp)), 0.0f), hx);
+  const float x1 = fminf(fmaxf(floorf(__fdiv_rn(__fadd_rn(x, rx), tp)), 0.0f), hx);
+  const float y0 = fminf(fmaxf(floorf(__fdiv_rn(__fsub_rn(y, ry), tp)), 0.0f), hy);
+  const float y1 = fminf(fmaxf(floorf(__fdiv_rn(__fadd_rn(y, ry), tp)), 0.0f), hy);
+  const bool inside = valid && rx > 0.0f && ry > 0.0f &&
+                      __fadd_rn(x, rx) >= 0.0f &&
+                      __fsub_rn(x, rx) < (float)(g.tiles_x * g.tile_px) &&
+                      __fadd_rn(y, ry) >= 0.0f &&
+                      __fsub_rn(y, ry) < (float)(g.tiles_y * g.tile_px);
+  // the spans are small whole numbers: float and int arithmetic agree
+  const int span_w = inside ? (int)x1 - (int)x0 + 1 : 1;
+  const int area = inside ? span_w * ((int)y1 - (int)y0 + 1) : 0;
+  const int n_live = area < g.M ? area : g.M;
+  for (int j = 0; j < g.M; ++j) {
+    int key = kIntMax;
+    if (j < n_live) {
+      const int jy = j / span_w;
+      const int tile = ((int)y0 + jy) * g.tiles_x + ((int)x0 + (j - jy * span_w));
+      key = (tile << g.id_bits) | r;
+    }
+    keys[static_cast<size_t>(j) * g.n_rows + r] = key;
+  }
+  stats[r] = area > g.M ? area - g.M : 0;
+  stats[g.n_rows + r] = n_live;
+}
+
+}  // namespace sprep

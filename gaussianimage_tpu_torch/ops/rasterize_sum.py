@@ -29,6 +29,10 @@ images directly, so neither the JAX package's stream gather nor its tiling
 and untiling of images runs on the card. Per-instance rows go back onto the
 Gaussians through ``stream_common.scatter_stream_grads``, deterministically.
 
+``rasterize_from_keys_chw`` is the forward render from the fused splat
+prep's rows and sort keys (ops/splat_prep.py): the serving render and the
+codec's fused decode.
+
 Channel 3 of the render is the accumulated alpha. No clamping, no
 background compositing (the model clamps).
 """
@@ -42,6 +46,7 @@ import torch
 
 from gaussianimage_tpu_torch.ops import _build
 from gaussianimage_tpu_torch.ops import stream_common as sc
+from gaussianimage_tpu_torch.ops.tiles import INT32_MAX, sorted_window_bounds
 
 _C = 4  # output channels: rgb + alpha
 _PLAIN_CHUNK = 4096  # stream slots per step of the plain versions
@@ -58,7 +63,7 @@ class RasterizeConfig(NamedTuple):
     max_instances: Optional[int] = None  # stream cap (None -> auto from N)
     flat_stream_limit: int = 65536  # above this the aligned layout (K11)
     interpret: Optional[bool] = None  # Pallas interpret mode; unused here
-    fused_prep: bool = False  # fused splat prep (K5); not ported yet
+    fused_prep: bool = False  # render_fast / decode take the fused prep
 
     @staticmethod
     def serving(num_points: int, **overrides) -> "RasterizeConfig":
@@ -497,11 +502,10 @@ def _axis_radii(conics, radii, q_cut):
 
 def _prepare(xys, conics, colors, opacities, H, W, radii, cfg, band=None):
     """The binned stream of detached inputs (the JAX package's
-    stop_gradients) and the packed rows, which carry the gradient."""
-    if cfg.fused_prep:
-        raise NotImplementedError(
-            "RasterizeConfig.fused_prep needs the fused splat-prep kernel K5 "
-            "(ops/splat_prep.py::_raw_kernel), which is not ported yet")
+    stop_gradients) and the packed rows, which carry the gradient.
+    ``cfg.fused_prep`` is not read here: as in the JAX package, only the
+    models' ``render_fast`` and fused decode take the fused prep
+    (ops/splat_prep.py), and this generic path bins under the same caps."""
     with torch.no_grad():
         conics_d = conics.detach()
         if radii is None:
@@ -562,6 +566,60 @@ def rasterize_gaussians_sum_chw(
     """Channel-major variant: (img [3, H, W], alpha [H, W], aux)."""
     full, aux = _render_chw(xys, conics, colors, opacities, H, W, radii,
                             config, band)
+    return full[:3], full[3], aux
+
+
+def stream_from_keys(keys: torch.Tensor, N: int, H: int, W: int,
+                     config: RasterizeConfig, max_instances: int):
+    """(gids [<= I], starts [T+1], counts [T]) of the tile-sorted stream
+    from the flat packed int32 keys ``(tile << id_bits) | gaussian_id``
+    (INT32_MAX dead slots) that the fused splat prep emits: one sort, the
+    first I keys, dead slots to the sentinel row N, and the window bounds,
+    as ``tiles._sorted_stream``'s packed branch finishes it."""
+    tp = config.tile_px
+    T_real = (-(-W // tp)) * (-(-H // tp))
+    T = T_real + ((-T_real) % config.tiles_per_step)
+    id_bits = max(int(N - 1).bit_length(), 1)
+    if (T_real + 1) * (1 << id_bits) >= 2 ** 31:
+        raise ValueError("stream_from_keys needs the packed-key regime")
+    # live keys are unique, so a non-stable sort gives one order
+    skey = torch.sort(keys, stable=False).values[:max_instances]
+    srank = skey & ((1 << id_bits) - 1)
+    gids = torch.where(skey == INT32_MAX, torch.full_like(srank, N),
+                       srank).int()
+    queries = torch.arange(T_real + 1, dtype=torch.int32,
+                           device=keys.device) << id_bits
+    starts = sorted_window_bounds(skey, queries)  # [T_real + 1], <= I
+    if T > T_real:
+        starts = torch.cat([starts, starts[-1:].expand(T - T_real)])
+    return gids, starts, starts[1:] - starts[:-1]
+
+
+def rasterize_from_keys_chw(
+    feat: torch.Tensor,
+    keys: torch.Tensor,
+    trunc: torch.Tensor,
+    n_total: torch.Tensor,
+    H: int,
+    W: int,
+    config: RasterizeConfig,
+    max_instances: int,
+) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """Forward-only render from pre-packed inputs: ``feat`` [N+1, 16]
+    premultiplied rows and the flat packed sort ``keys`` of the fused
+    splat prep (ops/splat_prep.py): ``stream_from_keys``, then K1. Flat
+    stream, packed keys only.
+
+    ``trunc`` / ``n_total`` are the prep's summed counts: n_dropped =
+    trunc + max(n_total - I, 0), as ``prepare_stream`` counts it. Returns
+    (img [3, H, W], alpha [H, W], aux)."""
+    I = max_instances
+    gids, starts, counts = stream_from_keys(keys, feat.shape[0] - 1, H, W,
+                                            config, I)
+    full = sum_fwd(feat, gids, starts, H, W, config.tile_px,
+                   float(config.q_cut))
+    n_dropped = (trunc + torch.clamp(n_total - I, min=0)).int()
+    aux = {"n_dropped": n_dropped, "max_per_tile_used": counts.max()}
     return full[:3], full[3], aux
 
 

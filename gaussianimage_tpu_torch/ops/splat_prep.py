@@ -1,0 +1,326 @@
+"""Fused splat prep (counterpart of gaussianimage_tpu/ops/splat_prep.py): one
+pass from a Gaussian's parameters, or from its code arrays, to what the
+binning needs, in place of the projection, the packing and the
+instance-expansion glue of the generic path.
+
+Per Gaussian it emits:
+
+- ``feat`` [N+1, 16]: the premultiplied feature row ``pack_feat`` builds
+  (opacity 1 on the Cholesky model), row N the zero sentinel;
+- ``keys`` [M, N+1] int32: its M packed sort keys ``(tile << id_bits) | id``
+  in slot-major order, dead slots at INT32_MAX, as ``tiles._sorted_stream``
+  packs them, so one sort and the window bounds finish the binning
+  (``rasterize_sum.rasterize_from_keys_chw``);
+- ``stats`` [2, N+1] int32: its (trunc, live) counts, summed for n_dropped.
+
+Two CUDA kernels in ``csrc/splat_prep.cu`` share one device function
+(``csrc/splat_prep_common.cuh``):
+
+- K5 ``raw_prep``: from raw parameters (tanh means, the Cholesky bound),
+  the serving render's front (``fused_render_cholesky``, ``render_fast``);
+- K4 ``decode_prep``: from the codec's code arrays (f16 means, uniform
+  dequantization, the combined residual-VQ codebook), the decode's front
+  (``fused_decode_cholesky``).
+
+Beside each is a plain PyTorch version of the same math, op for op
+(``raw_prep_plain``, ``decode_prep_plain``). A wrapper takes it for CPU
+tensors only; a CUDA tensor launches the kernel or raises. The math
+replicates core/covariance.py, rasterize_sum._axis_radii and
+tiles._expand_instances, so the prep's stream equals the generic path's.
+Forward only: training keeps the autograd projection.
+
+The JAX kernel's row blocks (``_BLK_CAP``) and its [1, blk] lane layout fit
+the TPU's VMEM and vector lanes; neither carries over. The batched (K7) and
+RS (K6a/b) fronts are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from gaussianimage_tpu_torch.ops import _build
+from gaussianimage_tpu_torch.ops import stream_common as sc
+from gaussianimage_tpu_torch.ops.rasterize_sum import rasterize_from_keys_chw
+from gaussianimage_tpu_torch.ops.tiles import INT32_MAX
+
+CODEBOOK = 8  # residual-VQ codebook size: the combined table has 8 x 8 rows
+
+Prep = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def prep_geometry(N: int, H: int, W: int, tile_px: int):
+    """(tiles_x, tiles_y, id_bits) of a prep; raises outside the packed-key
+    regime, where ``(tiles + 1) << id_bits`` no longer fits 31 bits."""
+    tiles_x = -(-W // tile_px)
+    tiles_y = -(-H // tile_px)
+    id_bits = max(int(N - 1).bit_length(), 1)
+    if (tiles_x * tiles_y + 1) * (1 << id_bits) >= 2 ** 31:
+        raise ValueError("the fused splat prep needs the packed-key regime")
+    return tiles_x, tiles_y, id_bits
+
+
+# ---------------------------------------------------------------------------
+# plain versions of K5 and K4
+# ---------------------------------------------------------------------------
+
+
+def _project_pack_bin(mx, my, s11, s12, s22, colors, H: int, W: int,
+                      tile_px: int, M: int, q_cut: float) -> Prep:
+    """The shared front, op for op as splat_prep_common.cuh computes it:
+    pixel mapping, conic, radius, axis extents, feature rows, keys and
+    counts of the N Gaussians, plus the sentinel row N."""
+    N = mx.shape[0]
+    dev = mx.device
+    tiles_x, tiles_y, id_bits = prep_geometry(N, H, W, tile_px)
+    x = 0.5 * ((mx + 1.0) * W - 1.0)
+    y = 0.5 * ((my + 1.0) * H - 1.0)
+    det = s11 * s22 - s12 * s12
+    inv_det = 1.0 / torch.maximum(det, det.new_full((), 1e-6))
+    ca = s22 * inv_det
+    cb = -s12 * inv_det
+    cc = s11 * inv_det
+    mid = 0.5 * (s11 + s22)
+    disc = torch.sqrt(torch.clamp(mid * mid - det, min=0.0))
+    radii = torch.ceil(3.0 * torch.sqrt(torch.clamp(mid + disc, min=1e-12)))
+    cdet = torch.clamp(ca * cc - cb * cb, min=1e-12)
+    rx = torch.sqrt(q_cut * torch.clamp(cc, min=0.0) / cdet)
+    ry = torch.sqrt(q_cut * torch.clamp(ca, min=0.0) / cdet)
+    live = radii > 0
+    zero = torch.zeros_like(rx)
+    rx = torch.where(live, torch.minimum(rx, radii), zero)
+    ry = torch.where(live, torch.minimum(ry, radii), zero)
+
+    feat = torch.zeros(N + 1, sc.FW, dtype=torch.float32, device=dev)
+    feat[:N, 0] = x
+    feat[:N, 1] = y
+    feat[:N, 2] = ca
+    feat[:N, 3] = cb
+    feat[:N, 4] = cc
+    feat[:N, 5:8] = colors
+    feat[:N, 8] = 1.0
+
+    x0 = torch.clamp(torch.floor((x - rx) / tile_px), 0, tiles_x - 1)
+    x1 = torch.clamp(torch.floor((x + rx) / tile_px), 0, tiles_x - 1)
+    y0 = torch.clamp(torch.floor((y - ry) / tile_px), 0, tiles_y - 1)
+    y1 = torch.clamp(torch.floor((y + ry) / tile_px), 0, tiles_y - 1)
+    inside = ((rx > 0) & (ry > 0)
+              & (x + rx >= 0) & (x - rx < tiles_x * tile_px)
+              & (y + ry >= 0) & (y - ry < tiles_y * tile_px))
+    span_w = x1 - x0 + 1.0
+    area = span_w * (y1 - y0 + 1.0)
+    jj = torch.arange(M, dtype=torch.float32, device=dev)[:, None]
+    jy = torch.floor(jj / span_w)               # exact for small integers
+    jx = jj - jy * span_w
+    tile = (y0 + jy) * tiles_x + (x0 + jx)      # [M, N]
+    live_j = inside & (jj < torch.clamp(area, max=float(M)))
+    row = torch.arange(N, dtype=torch.int32, device=dev)
+    keys = torch.full((M, N + 1), INT32_MAX, dtype=torch.int32, device=dev)
+    keys[:, :N] = torch.where(live_j, (tile.int() << id_bits) | row,
+                              keys[:, :N])
+    stats = torch.zeros(2, N + 1, dtype=torch.int32, device=dev)
+    stats[0, :N] = torch.where(inside, torch.clamp(area - M, min=0.0),
+                               zero).int()
+    stats[1, :N] = torch.where(inside, torch.clamp(area, max=float(M)),
+                               zero).int()
+    return feat, keys, stats
+
+
+def _cov_from_chol(l11, l21, l22):
+    return l11 * l11, l11 * l21, l21 * l21 + l22 * l22
+
+
+def raw_prep_plain(xyz, chol, colors, bound, H: int, W: int, tile_px: int,
+                   M: int, q_cut: float) -> Prep:
+    """Plain PyTorch version of K5: raw ``_xyz`` [N, 2], ``_cholesky``
+    [N, 3] and colors [N, 3] -> (feat [N+1, 16], keys [M, N+1],
+    stats [2, N+1])."""
+    means = torch.tanh(xyz)
+    cov = _cov_from_chol(chol[:, 0] + bound[0], chol[:, 1] + bound[1],
+                         chol[:, 2] + bound[2])
+    return _project_pack_bin(means[:, 0], means[:, 1], *cov, colors, H, W,
+                             tile_px, M, q_cut)
+
+
+def decode_prep_plain(xyz, codes, idx, scale, beta, embed, bound, H: int,
+                      W: int, tile_px: int, M: int, q_cut: float) -> Prep:
+    """Plain PyTorch version of K4: the f16 means widened to f32 [N, 2],
+    Cholesky codes [N, 3] int32, VQ indices [N, 2] int32, the quantizer's
+    scale and beta [3] and the combined codebook [64, 3] -> as K5."""
+    means = torch.tanh(xyz)
+    chol = codes.float() * scale + beta
+    cov = _cov_from_chol(chol[:, 0] + bound[0], chol[:, 1] + bound[1],
+                         chol[:, 2] + bound[2])
+    colors = embed[(idx[:, 0] * CODEBOOK + idx[:, 1]).long()]
+    return _project_pack_bin(means[:, 0], means[:, 1], *cov, colors, H, W,
+                             tile_px, M, q_cut)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_inputs(kernel: str, named):
+    """named: (name, tensor, dtype, shape); raises on anything the kernel
+    does not take."""
+    dev = named[0][1].device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel} runs on CUDA or CPU tensors, got {dev}")
+    for name, x, dtype, shape in named:
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, {named[0][0]} on {dev}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+
+
+def _launch(fn_name: str, kernel: str, inputs, bound, N, H, W, tile_px, M,
+            q_cut, dev) -> Prep:
+    tiles_x, tiles_y, id_bits = prep_geometry(N, H, W, tile_px)
+    feat = torch.empty(N + 1, sc.FW, dtype=torch.float32, device=dev)
+    keys = torch.empty(M, N + 1, dtype=torch.int32, device=dev)
+    stats = torch.empty(2, N + 1, dtype=torch.int32, device=dev)
+    lib = _build.load("splat_prep")
+    rc = getattr(lib, fn_name)(
+        *[x.data_ptr() for x in inputs], N, H, W, tile_px, tiles_x, tiles_y,
+        M, id_bits, ctypes.c_float(q_cut), *(ctypes.c_float(b) for b in bound),
+        feat.data_ptr(), keys.data_ptr(), stats.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
+    return feat, keys, stats
+
+
+def raw_prep(xyz, chol, colors, bound, H: int, W: int, tile_px: int, M: int,
+             q_cut: float) -> Prep:
+    """K5 -> (feat [N+1, 16] f32, keys [M, N+1] i32, stats [2, N+1] i32)
+    from float32 ``xyz`` [N, 2], ``chol`` [N, 3] (before the bound) and
+    ``colors`` [N, 3]; ``bound`` three floats.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version. ``raw_prep.launches`` counts the kernel's launches."""
+    if xyz.device.type == "cpu":
+        return raw_prep_plain(xyz, chol, colors, bound, H, W, tile_px, M,
+                              q_cut)
+    N = xyz.shape[0]
+    _check_inputs("K5", [("xyz", xyz, torch.float32, (N, 2)),
+                         ("chol", chol, torch.float32, (N, 3)),
+                         ("colors", colors, torch.float32, (N, 3))])
+    out = _launch("splat_prep_raw", "K5 splat_prep_raw", (xyz, chol, colors),
+                  bound, N, H, W, tile_px, M, q_cut, xyz.device)
+    raw_prep.launches += 1
+    return out
+
+
+def decode_prep(xyz, codes, idx, scale, beta, embed, bound, H: int, W: int,
+                tile_px: int, M: int, q_cut: float) -> Prep:
+    """K4 -> as K5, from float32 ``xyz`` [N, 2] (the f16 codes, widened),
+    int32 ``codes`` [N, 3] and ``idx`` [N, 2], float32 ``scale`` and
+    ``beta`` [3] and the combined codebook ``embed`` [64, 3].
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version. ``decode_prep.launches`` counts the kernel's launches."""
+    if xyz.device.type == "cpu":
+        return decode_prep_plain(xyz, codes, idx, scale, beta, embed, bound,
+                                 H, W, tile_px, M, q_cut)
+    N = xyz.shape[0]
+    _check_inputs("K4", [("xyz", xyz, torch.float32, (N, 2)),
+                         ("codes", codes, torch.int32, (N, 3)),
+                         ("idx", idx, torch.int32, (N, 2)),
+                         ("scale", scale, torch.float32, (3,)),
+                         ("beta", beta, torch.float32, (3,)),
+                         ("embed", embed, torch.float32,
+                          (CODEBOOK * CODEBOOK, 3))])
+    out = _launch("splat_prep_decode", "K4 splat_prep_decode",
+                  (xyz, codes, idx, scale, beta, embed), bound, N, H, W,
+                  tile_px, M, q_cut, xyz.device)
+    decode_prep.launches += 1
+    return out
+
+
+raw_prep.launches = 0
+decode_prep.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's entry points
+# ---------------------------------------------------------------------------
+
+
+def _finish(prep: Prep):
+    """(feat, flat keys, trunc, n_total), as the JAX package's _run_prep
+    returns them. The keys flatten slot-major; their only reader is a
+    sort. The counts are summed as integers, exactly."""
+    feat, keys, stats = prep
+    tot = stats.sum(dim=1)
+    return feat, keys.reshape(-1), tot[0], tot[1]
+
+
+def fused_raw_prep_cholesky(xyz, chol_raw, colors, bound, H: int, W: int,
+                            cfg, m_span: int):
+    """Raw-parameter Cholesky front (K5) -> (feat, keys, trunc, n_total)."""
+    return _finish(raw_prep(
+        xyz.float().contiguous(), chol_raw.float().contiguous(),
+        colors.float().contiguous(), tuple(float(b) for b in bound), H, W,
+        cfg.tile_px, m_span, float(cfg.q_cut)))
+
+
+def fused_prep_cholesky(enc_xyz, chol_codes, quant_scale, quant_beta, bound,
+                        vq_idx, embed_combined, H: int, W: int, cfg,
+                        m_span: int):
+    """Cholesky decode front (K4): code arrays -> (feat, keys, trunc,
+    n_total). ``enc_xyz`` [N, 2] holds the float16 codes."""
+    return _finish(decode_prep(
+        enc_xyz.float().contiguous(), chol_codes.int().contiguous(),
+        vq_idx.int().contiguous(), quant_scale.float().contiguous(),
+        quant_beta.float().contiguous(), embed_combined.float().contiguous(),
+        tuple(float(b) for b in bound), H, W, cfg.tile_px, m_span,
+        float(cfg.q_cut)))
+
+
+def fused_decode_supported(N: int, H: int, W: int, cfg) -> bool:
+    """The fused prep's gate: ``cfg.fused_prep``, the flat stream and the
+    packed-key regime. Callers take the generic path where it is false, as
+    the JAX package's do."""
+    if not getattr(cfg, "fused_prep", False):
+        return False
+    _, _, aligned = sc.stream_caps(N, cfg)
+    if aligned:
+        return False
+    tp = cfg.tile_px
+    tiles = (-(-W // tp)) * (-(-H // tp))
+    id_bits = max(int(N - 1).bit_length(), 1)
+    return (tiles + 1) * (1 << id_bits) < 2 ** 31
+
+
+def _flat_caps(N: int, cfg):
+    I0, m_span, aligned = sc.stream_caps(N, cfg)
+    if aligned:
+        raise ValueError("the fused splat prep is flat-stream only")
+    return I0, m_span
+
+
+def fused_render_cholesky(xyz, chol_raw, colors, bound, H: int, W: int, cfg):
+    """Forward render from raw parameters: K5, one sort, K1. Returns
+    (img [3, H, W], alpha [H, W], aux), unclamped."""
+    I0, m_span = _flat_caps(xyz.shape[0], cfg)
+    feat, keys, trunc, n_total = fused_raw_prep_cholesky(
+        xyz, chol_raw, colors, bound, H, W, cfg, m_span)
+    return rasterize_from_keys_chw(feat, keys, trunc, n_total, H, W, cfg, I0)
+
+
+def fused_decode_cholesky(enc_xyz, chol_codes, quant_scale, quant_beta,
+                          bound, vq_idx, embed_combined, H: int, W: int, cfg):
+    """Decode from code arrays: K4, one sort, K1. Returns (img [3, H, W],
+    alpha [H, W], aux), unclamped."""
+    I0, m_span = _flat_caps(enc_xyz.shape[0], cfg)
+    feat, keys, trunc, n_total = fused_prep_cholesky(
+        enc_xyz, chol_codes, quant_scale, quant_beta, bound, vq_idx,
+        embed_combined, H, W, cfg, m_span)
+    return rasterize_from_keys_chw(feat, keys, trunc, n_total, H, W, cfg, I0)

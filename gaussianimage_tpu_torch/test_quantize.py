@@ -1,0 +1,214 @@
+"""Codec evaluation CLI (counterpart of gaussianimage_tpu/test_quantize.py;
+reference test_quantize.py:66-90): load each image's best QAT checkpoint,
+compress it once, decode it, and report PSNR, MS-SSIM and the bpp
+breakdown, with and without entropy coding; write ``test.npy`` and
+``test.txt`` with the JAX package's keys and lines.
+
+- The image and its PSNR come from the default model's decode (the generic
+  path), as in the JAX package.
+- The decode probe runs on the ``RasterizeConfig.serving`` twin, whose
+  decode is the fused splat prep K4 and then K1, unless that twin drops
+  instances on this scene (its ``n_dropped`` is read first); then on the
+  default model, as the JAX package routes it. It queues ``FPS_FRAMES``
+  decodes back to back, twice after a warm-up burst, and divides by 200,
+  timed with CUDA events. Eager PyTorch folds nothing across frames, so
+  unlike the JAX probe no frame perturbs the quantizer scale.
+- The entropy-coded path: compress with rANS, the bpp of the real streams,
+  decompress and the round-trip error against the decode above, and the
+  time of 20 entropy-coded decodes in three parts: the host rANS decode,
+  the host-to-device copy of the code arrays and the device decode.
+
+The whole-dataset batched decode probe (``batched_dataset_decode_fps``)
+needs the batched decode front K7, which is not ported yet (ROADMAP.md).
+
+Run:  python -m gaussianimage_tpu_torch.test_quantize -d data/ \\
+        --data_name photos --model_path <QAT checkpoint root> \\
+        --num_points 10000 [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from gaussianimage_tpu_torch import resolve_device
+from gaussianimage_tpu_torch.datasets import iterate_dataset
+from gaussianimage_tpu_torch.models import make_model
+from gaussianimage_tpu_torch.ops import RasterizeConfig
+from gaussianimage_tpu_torch.train import FPS_FRAMES, timed_bursts
+from gaussianimage_tpu_torch.utils import LogWriter, ms_ssim, ssim
+from gaussianimage_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                      merge_matching)
+
+EC_FRAMES = 20  # entropy-coded decodes timed, as in the JAX package
+
+
+def decode_burst(model, enc_dev):
+    """Queue ``FPS_FRAMES`` decodes back to back without synchronising;
+    returns a device scalar that depends on every frame."""
+    acc = torch.zeros((), device=model._xyz.device)
+    for _ in range(FPS_FRAMES):
+        acc += model.decompress_wo_ec(enc_dev)["render"][0, 0, 0, 0]
+    return acc
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class CodecEvaluator2d:
+    def __init__(self, gt_image, image_name, num_points=2000,
+                 model_name="GaussianImage_Cholesky", model_path=None,
+                 args=None, log_dir=None, device=None):
+        self.device = resolve_device(device)
+        self.gt_image = torch.as_tensor(gt_image, dtype=torch.float32,
+                                        device=self.device)
+        self.image_name = image_name
+        self.H, self.W = int(gt_image.shape[2]), int(gt_image.shape[3])
+        self.model = make_model(
+            model_name, device=self.device, num_points=num_points, H=self.H,
+            W=self.W, loss_type="L2", quantize=True)
+        # the serving twin: fused splat prep, the tight 3N stream and the
+        # forward-only flat-stream ceiling (RasterizeConfig.serving)
+        self.model_s = make_model(
+            model_name, device=self.device, num_points=num_points, H=self.H,
+            W=self.W, loss_type="L2", quantize=True,
+            raster=RasterizeConfig.serving(num_points))
+        self.log_dir = Path(log_dir) if log_dir is not None else Path("./eval")
+        self.logwriter = LogWriter(self.log_dir, train=False)
+        seed = int(getattr(args, "seed", 1) or 1)
+        self.model.init_params(
+            torch.Generator(device=self.device).manual_seed(seed))
+        if model_path is not None:
+            self.logwriter.write(f"loading model path:{model_path}")
+            ckpt = load_checkpoint(model_path)
+            merge_matching(self.model, ckpt["params"], ckpt["extra"])
+        self.model_s.load_state_dict(self.model.state_dict())
+
+    @torch.no_grad()
+    def test(self):
+        model, dev = self.model, self.device
+        enc = model.compress_wo_ec()
+        enc_dev = {k: torch.as_tensor(v, device=dev) for k, v in enc.items()}
+        out = model.decompress_wo_ec(enc_dev)["render"]
+
+        # the probe's model: the serving twin unless it drops instances
+        nd = int(self.model_s.decompress_wo_ec(enc_dev)["raster_aux"]
+                 ["n_dropped"])
+        probe_model = self.model_s if nd == 0 else model
+        end_time = timed_bursts(lambda: decode_burst(probe_model, enc_dev),
+                                dev)
+
+        data = model.analysis_wo_ec(enc)
+        enc_ec = model.compress()
+        data_ec = model.analysis(enc_ec)
+        out_ec = model.decompress(enc_ec)["render"]
+        rt_err = float((out_ec - out).abs().max())
+
+        # the entropy-coded decode in three parts, synchronised between them
+        parts = np.zeros(3)
+        for _ in range(EC_FRAMES):
+            t0 = time.perf_counter()
+            dec = model.entropy_decode(enc_ec)
+            t1 = time.perf_counter()
+            dec_dev = {k: torch.as_tensor(v, device=dev)
+                       for k, v in dec.items()}
+            _sync(dev)
+            t2 = time.perf_counter()
+            model.decompress_wo_ec(dec_dev)
+            _sync(dev)
+            parts += (t1 - t0, t2 - t1, time.perf_counter() - t2)
+        parts /= EC_FRAMES
+        ec_time = float(parts.sum())
+
+        mse = float(torch.mean((out - self.gt_image) ** 2))
+        psnr = 10 * math.log10(1.0 / max(mse, 1e-12))
+        metric = ms_ssim if min(self.H, self.W) >= 161 else ssim
+        msv = float(metric(out, self.gt_image, data_range=1.0))
+        data.update({"psnr": psnr, "ms-ssim": msv, "rendering_time": end_time,
+                     "rendering_fps": 1 / end_time,
+                     "rendering_time_ec": ec_time,
+                     "rendering_fps_ec": 1 / ec_time,
+                     "rendering_time_ec_rans": float(parts[0]),
+                     "rendering_time_ec_h2d": float(parts[1]),
+                     "rendering_time_ec_device": float(parts[2]),
+                     "bpp_ec": data_ec["bpp"], "ec_roundtrip_err": rt_err,
+                     "serving_n_dropped": nd,
+                     "probe_model": "serving" if nd == 0 else "default"})
+        np.save(self.log_dir / "test.npy", data)
+        self.logwriter.write(
+            "Eval time:{:.8f}s, FPS:{:.4f}, EC-decode FPS:{:.4f}".format(
+                end_time, 1 / end_time, 1 / ec_time))
+        self.logwriter.write("PSNR:{:.4f}, MS_SSIM:{:.6f}, bpp:{:.4f}".format(
+            psnr, msv, data["bpp"]))
+        self.logwriter.write(
+            "position_bpp:{:.4f}, cholesky_bpp:{:.4f}, feature_dc_bpp:{:.4f}, "
+            "entropy-coded bpp:{:.4f}".format(
+                data["position_bpp"], data["cholesky_bpp"],
+                data["feature_dc_bpp"], data["bpp_ec"]))
+        self.logwriter.write(
+            "EC-decode parts: rANS {:.8f}s, host-to-device {:.8f}s, "
+            "device decode {:.8f}s; decode probe on the {} model "
+            "(serving twin n_dropped {})".format(
+                *parts, data["probe_model"], nd))
+        return data
+
+
+def parse_args(argv):
+    p = argparse.ArgumentParser(
+        description="GaussianImage codec evaluation (PyTorch + CUDA port)")
+    p.add_argument("-d", "--dataset", type=str, default="./dataset/kodak/")
+    p.add_argument("--data_name", type=str, default="kodak")
+    p.add_argument("--model_name", type=str, default="GaussianImage_Cholesky")
+    p.add_argument("--num_points", type=int, default=50000)
+    p.add_argument("--model_path", type=str, default=None)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--save_imgs", action="store_true")
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--checkpoint_root", type=str, default="./checkpoints_quant")
+    p.add_argument("--iterations", type=int, default=50000)
+    p.add_argument("--device", type=str, default=None,
+                   help="cuda (the default) or cpu")
+    return p.parse_args(argv)
+
+
+def main(argv):
+    """Runs the CLI; returns the per-image result dicts (with "image")."""
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    folder = f"{args.model_name}_{args.iterations}_{args.num_points}"
+    root = Path(args.checkpoint_root) / args.data_name / folder
+    logwriter = LogWriter(root, train=False)
+    rows, results = [], []
+    for image_name, img in iterate_dataset(args.data_name, args.dataset):
+        model_path = (Path(args.model_path) / image_name /
+                      "gaussian_model.best.npz" if args.model_path else None)
+        ev = CodecEvaluator2d(img, image_name, num_points=args.num_points,
+                              model_name=args.model_name,
+                              model_path=model_path, args=args,
+                              log_dir=root / image_name, device=device)
+        d = ev.test()
+        results.append({"image": image_name, **d})
+        rows.append([d["psnr"], d["ms-ssim"], d["bpp"], d["rendering_fps"],
+                     d["position_bpp"], d["cholesky_bpp"],
+                     d["feature_dc_bpp"]])
+        logwriter.write(
+            "{}: {}x{}, PSNR:{:.4f}, MS-SSIM:{:.4f}, bpp:{:.4f}, FPS:{:.4f}, "
+            "position_bpp:{:.4f}, cholesky_bpp:{:.4f}, feature_dc_bpp:{:.4f}"
+            .format(image_name, ev.H, ev.W, *rows[-1]))
+    logwriter.write(
+        "Average: PSNR:{:.4f}, MS-SSIM:{:.4f}, bpp:{:.4f}, FPS:{:.4f}, "
+        "position_bpp:{:.4f}, cholesky_bpp:{:.4f}, feature_dc_bpp:{:.4f}"
+        .format(*np.asarray(rows).mean(axis=0)))
+    return results
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -71,6 +71,32 @@ def render_burst(model):
     return acc
 
 
+TIMED_BURSTS = 2  # bursts per probe after the warm-up, as in the JAX package
+
+
+def timed_bursts(burst, device) -> float:
+    """Seconds per frame of ``burst`` (``FPS_FRAMES`` frames queued without
+    synchronising): one untimed warm-up burst, then ``TIMED_BURSTS`` bursts
+    back to back, timed with CUDA events (the host clock on the CPU) and
+    synchronised once at the end."""
+    burst()
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(TIMED_BURSTS):
+            burst()
+        end.record()
+        end.synchronize()
+        seconds = start.elapsed_time(end) / 1000.0
+    else:
+        t0 = time.perf_counter()
+        for _ in range(TIMED_BURSTS):
+            burst()
+        seconds = time.perf_counter() - t0
+    return seconds / (TIMED_BURSTS * FPS_FRAMES)
+
+
 def checkpoint_file(model_path, image_name: str) -> Path:
     """A checkpoint file, or ``<dir>/<image>/gaussian_model.npz`` /
     ``<dir>/gaussian_model.npz`` for a directory."""
@@ -370,20 +396,10 @@ class SimpleTrainer2d:
 
     @torch.no_grad()
     def fps_probe(self) -> float:
-        """Seconds per frame over one ``render_burst``, synchronised once at
-        the end, after one untimed warm-up burst."""
-        render_burst(self.model)
-        if self.device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            render_burst(self.model)
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end) / 1000.0 / FPS_FRAMES
-        t0 = time.perf_counter()
-        render_burst(self.model)
-        return (time.perf_counter() - t0) / FPS_FRAMES
+        """Seconds per frame over two ``render_burst``s queued back to back
+        and synchronised once at the end, after one untimed warm-up burst
+        (the JAX package times two bursts and divides by 200)."""
+        return timed_bursts(lambda: render_burst(self.model), self.device)
 
 
 def parse_args(argv):

@@ -53,25 +53,36 @@ def load_checkpoint(path) -> Dict[str, Dict[str, np.ndarray]]:
     return out
 
 
-def params_from_numpy(params: Dict[str, np.ndarray], device="cpu"
+def params_from_numpy(params: Dict[str, np.ndarray], device="cpu",
+                      extra: Optional[Dict[str, np.ndarray]] = None
                       ) -> Dict[str, torch.Tensor]:
-    """JAX parameters (numpy arrays, as ``load_checkpoint`` returns them) ->
-    a float32 state dict on ``device`` for ``nn.Module.load_state_dict``."""
-    return {k: torch.as_tensor(np.ascontiguousarray(v, dtype=np.float32),
-                               device=device)
-            for k, v in params.items()}
+    """JAX parameters (numpy arrays, as ``load_checkpoint`` returns them),
+    the quantizers' scale and beta among them, -> a state dict on
+    ``device`` for ``nn.Module.load_state_dict``. From ``extra`` it takes
+    the residual VQ's state, ``vq/<name>``, as the buffers ``vq.<name>``.
+    Arrays become float32, except boolean ones (the VQ's init flag)."""
+    flat = dict(params)
+    flat.update({k.replace("/", "."): v for k, v in (extra or {}).items()
+                 if k.startswith("vq/")})
+    # np.array(order="C"): ascontiguousarray would make a 0-d array 1-d
+    return {k: torch.as_tensor(np.array(
+                v, order="C",
+                dtype=bool if np.asarray(v).dtype == bool else np.float32),
+                device=device)
+            for k, v in flat.items()}
 
 
-def merge_matching(model: torch.nn.Module, loaded: Dict[str, np.ndarray]
-                   ) -> list:
+def merge_matching(model: torch.nn.Module, loaded: Dict[str, np.ndarray],
+                   extra: Optional[Dict[str, np.ndarray]] = None) -> list:
     """Partial load (the reference's filtered state_dict update): copy the
-    entries whose name and shape match the model's into it in place.
-    Returns the names copied."""
+    entries of ``loaded`` (and the VQ state of ``extra``, as
+    ``params_from_numpy`` names it) whose name and shape match the model's
+    into it in place. Returns the names copied."""
     own = model.state_dict()
-    hit = {k: v for k, v in loaded.items()
-           if k in own and tuple(own[k].shape) == tuple(np.shape(v))}
-    model.load_state_dict(params_from_numpy(hit, next(iter(own.values()))
-                                            .device), strict=False)
+    state = params_from_numpy(loaded, next(iter(own.values())).device, extra)
+    hit = {k: v for k, v in state.items()
+           if k in own and tuple(own[k].shape) == tuple(v.shape)}
+    model.load_state_dict(hit, strict=False)
     return sorted(hit)
 
 

@@ -58,6 +58,29 @@ def test_covariance_conic_radius(seed):
                                _np(jcore.radius_from_cov2d(cov_j)), **TOL)
 
 
+def test_det_floor_gradient_at_tie_matches_jax():
+    """At det == 1e-6 exactly the floor splits the gradient between det
+    and the floor, as jnp.maximum does (torch.clamp would pass it all to
+    det); above and below the floor the two agree too."""
+    eps = np.float32(1e-6)
+    cov = np.asarray([[eps, 0.0, 1.0],        # det == eps: the tie
+                      [eps / 2, 0.0, 1.0],    # below the floor
+                      [2.0, 0.5, 1.0]], np.float32)
+    w = np.asarray([[0.3, -1.2, 0.7], [1.1, 0.4, -0.5], [0.2, 0.9, 1.3]],
+                   np.float32)
+    cov_t = torch.from_numpy(cov).requires_grad_(True)
+    (tcore.conic_from_cov2d(cov_t) * torch.from_numpy(w)).sum().backward()
+    want = jax.grad(lambda c: jnp.sum(jcore.conic_from_cov2d(c) * w))(
+        jnp.asarray(cov))
+    # rtol 1e-5: the backward chains a few more roundings than the forward
+    np.testing.assert_allclose(_np(cov_t.grad), _np(want), rtol=1e-5)
+    # the tie row's det gradient is halved: d/dc of max(c * 1, eps) is 0.5
+    det = torch.from_numpy(cov[:1, 0] * cov[:1, 2]).requires_grad_(True)
+    torch.maximum(det, det.new_full((), 1e-6)).sum().backward()
+    assert float(det.grad) == 0.5 == float(jax.grad(
+        lambda d: jnp.sum(jnp.maximum(d, 1e-6)))(jnp.asarray(cov[:1, 0]))[0])
+
+
 @pytest.mark.parametrize("N,H,W", [(150, 32, 32), (300, 70, 100),
                                    (1000, 512, 768)])
 def test_project_gaussians_2d(N, H, W):

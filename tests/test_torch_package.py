@@ -29,6 +29,11 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import gaussianimage_tpu_torch, gaussianimage_tpu_torch.train\n"
         "import gaussianimage_tpu_torch.ops._build\n"
+        "import gaussianimage_tpu_torch.test_quantize\n"
+        "import gaussianimage_tpu_torch.ops.splat_prep\n"
+        "import gaussianimage_tpu_torch.codec.rans\n"
+        "import gaussianimage_tpu_torch.codec.bitstream\n"
+        "import gaussianimage_tpu_torch.models.quantize_mixin\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'gaussianimage_tpu' "
         "or m.startswith('gaussianimage_tpu.'))\n"
@@ -64,6 +69,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     with pytest.raises(RuntimeError, match="--device cpu"):
         train.main(["--data_name", "synthetic", "--iterations", "0",
                     "--num_points", "10", "--model_path", "unused.npz"])
+    from gaussianimage_tpu_torch import test_quantize
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        test_quantize.main(["--data_name", "synthetic", "--num_points",
+                            "10"])
 
 
 def test_training_and_other_models_are_not_ported():

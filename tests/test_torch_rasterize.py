@@ -108,12 +108,20 @@ def test_unsupported_calls_raise():
     N, H, W = 150, 32, 32
     xys, radii, conics, colors, opac = _scene(N, H, W, seed=0)
     args = _t((xys, conics, colors, opac))
-    with pytest.raises(NotImplementedError, match="K5"):
-        rs.rasterize_gaussians_sum(*args, H, W, config=CFG._replace(
-            fused_prep=True))
-    with pytest.raises(NotImplementedError, match="K5"):
-        rs.rasterize_gaussians_sum_chw(*args, H, W,
-                                       config=RasterizeConfig.serving(N))
+    # the generic render does not read fused_prep (only render_fast and the
+    # fused decode take the fused prep, as in the JAX package): under
+    # serving(N) it bins under that config's caps and, dropping nothing
+    # here, draws the default config's image
+    img, alpha, aux = rs.rasterize_gaussians_sum(*args, H, W, config=CFG)
+    for cfg in (CFG._replace(fused_prep=True), RasterizeConfig.serving(N)):
+        img_s, alpha_s, aux_s = rs.rasterize_gaussians_sum(*args, H, W,
+                                                           config=cfg)
+        assert int(aux_s["n_dropped"]) == 0 == int(aux["n_dropped"])
+        np.testing.assert_array_equal(img_s.numpy(), img.numpy())
+        np.testing.assert_array_equal(alpha_s.numpy(), alpha.numpy())
+        chw, _, _ = rs.rasterize_gaussians_sum_chw(*args, H, W, config=cfg)
+        np.testing.assert_array_equal(chw.permute(1, 2, 0).numpy(),
+                                      img.numpy())
     colors_g = args[2].clone().requires_grad_(True)
     img, alpha, _ = rs.rasterize_gaussians_sum(args[0], args[1], colors_g,
                                                args[3], H, W)

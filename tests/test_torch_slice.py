@@ -117,3 +117,30 @@ def test_evaluation_entry_point_on_cpu(tmp_path):
         SimpleTrainer2d(gt, "synth01", num_points=N + 1, iterations=0,
                         model_path=tmp_path / "ckpt", log_dir=tmp_path / "x",
                         device="cpu")
+
+
+def test_fps_probe_times_two_bursts(monkeypatch):
+    """The FPS probe renders one warm-up burst and times two, 300 renders
+    in all, and divides the time of the two by 200, as the JAX package's
+    probe does (gaussianimage_tpu/train.py:353-357)."""
+    import types
+
+    from gaussianimage_tpu_torch import train
+
+    model = make_model("GaussianImage_Cholesky", device="cpu", num_points=16,
+                       H=16, W=16)
+    model.init_params(torch.Generator().manual_seed(0))
+    calls = []
+    render = model.render
+
+    def counting(*args, **kw):
+        calls.append(1)
+        return render(*args, **kw)
+
+    monkeypatch.setattr(model, "render", counting)
+    clock = iter([10.0, 12.0])  # the timed bursts' start and end
+    monkeypatch.setattr(train.time, "perf_counter", lambda: next(clock))
+    probe = train.SimpleTrainer2d.fps_probe(
+        types.SimpleNamespace(model=model, device=torch.device("cpu")))
+    assert len(calls) == 3 * train.FPS_FRAMES == 300
+    assert probe == 2.0 / 200
