@@ -20,6 +20,11 @@ Phases, one JSON line each (with ``elapsed_s``):
              QAT codes under ``RasterizeConfig.serving(10000)``: sorted
              keys, trunc and n_total integer-exact, feature rows to 1e-6,
              and K5's stream (gids, starts) against the generic binning;
+             K7, the batched decode prep, on the china and flower QAT codes
+             stacked (B = 2, and B = 6 with each three times) under the
+             batched config, held to its plain version the same way, and
+             at B = 1 equal to K4 (rows max |diff| 0, keys and counts
+             equal);
 4. slice     the evaluation entry point ``gaussianimage_tpu_torch.train
              --iterations 0`` on the fitted flower@10k checkpoint
              (768x512): PSNR within 0.01 dB of 41.906, n_dropped == 0, K1
@@ -37,7 +42,24 @@ Phases, one JSON line each (with ``elapsed_s``):
              1.4000, the round trip below 1e-6, >= 300 K4 launches (china's
              decode probe; flower's serving twin drops instances, so its
              probe takes the default model), china's K4 image against its
-             generic decode; the entropy-coded decode in three parts;
+             generic decode; the entropy-coded decode in three parts; the
+             CLI's "Dataset decode" line, parsed;
+6b. batched  ``batched.decode_many(force="batched")`` (K7, a sort, K1 on the
+             stacked canvas) on china's codes stacked B = 2, 4 and 6 times
+             and on china + flower, each stack against the generic stacked
+             decode under the same batched config (IMG_TOL / MAX_EDGE_PX,
+             n_dropped 0); china's frames against its single-frame K4
+             decode: frame 0 bit for bit, every frame's PSNR within
+             FRAME_PSNR_TOL (frame f's means sit at y + f * 512 on the tall
+             canvas, rounded to float32 there, as in the JAX package); then
+             the wall ms per frame of both strategies at each B and the one
+             ``prefer_batched`` picks;
+6c. qat      ``QuantizeTrainer2d`` (the class the QAT CLI runs) trains the
+             china@10k fit for 5000 QAT iterations at lr 1e-3 in a temp
+             dir: no NaN loss, n_dropped 0 in every chunk, >= 5000 K1 and
+             K2 launches and no K3, the best training PSNR >= 26.9 dB; the
+             best state's bpp 1.4285 and its K4 decode against its
+             evaluation render; wall ms, host calls and launches per step;
 7. fit       ``SimpleTrainer2d`` (the class the CLI runs) fits the flower
              photo at N = 10,000 for 5000 iterations with the CLI defaults
              (adaptive init, 6 reseed rounds), in a temp dir: test PSNR
@@ -65,6 +87,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -90,12 +113,21 @@ PREP_TOL = 1e-6    # feature rows, K4 / K5 against their plain versions
 IMG_TOL = 2e-5     # fused against generic images, but for MAX_EDGE_PX
 MAX_EDGE_PX = 16   # pixels above 1e-4 where an instance crosses a tile edge
 MIN_K4 = 300       # K4 launches in the codec run: two timed decode bursts
+BATCHES = (2, 4, 6)  # frames per batched decode; 6 x 10k is the flat limit
+# a stacked frame's PSNR against its single-frame decode's: frame f's means
+# are shifted by f * H in float32, moving a few pixels' gates
+FRAME_PSNR_TOL = 1e-3
+QAT_ITERS = 5000
+QAT_BEST_PSNR = 26.9  # the TPU run's log: best 27.19 at iteration 5000
+QAT_BPP = 1.4285
 # FP32 issue slots per row of the fused prep (an FMA as one): two tanhf
 # (~20 each), seven IEEE divisions (~10 each) and four square roots (~8
 # each) and ~70 adds, multiplies, floors and compares; K4 adds its
 # dequantization and codebook index (~10); and per key slot ~6 integer
 # operations
-PREP_ROW_SLOTS = {"splat_prep_raw": 212, "splat_prep_decode": 222}
+# K7 adds the frame's integer division (~20)
+PREP_ROW_SLOTS = {"splat_prep_raw": 212, "splat_prep_decode": 222,
+                  "splat_prep_decode_batch": 242}
 PREP_KEY_SLOTS = 6
 K1_TOL = 1e-5      # max |diff| of the render, K1 against its plain version
 ROW_TOL = 1e-4     # gradient rows: |diff| <= ROW_TOL x the column's max |.|
@@ -183,7 +215,8 @@ def row_err(torch, got, want):
 
 
 def _us_per_launch(kernels, name):
-    hits = [e for e in kernels if name in e.key]
+    # kernel ``<name>_kernel``: K4's name is a prefix of K7's
+    hits = [e for e in kernels if f"{name}_kernel(" in e.key]
     n = sum(e.count for e in hits)
     return sum(e.self_device_time_total for e in hits) / n if n else None
 
@@ -241,7 +274,8 @@ def main() -> None:
 
     import numpy as np
 
-    from gaussianimage_tpu_torch import test_quantize, train
+    from gaussianimage_tpu_torch import batched as bt
+    from gaussianimage_tpu_torch import test_quantize, train, train_quantize
     from gaussianimage_tpu_torch.models import make_model
     from gaussianimage_tpu_torch.models.cholesky import CHOLESKY_BOUND
     from gaussianimage_tpu_torch.ops import RasterizeConfig, _build
@@ -258,7 +292,8 @@ def main() -> None:
                 "rasterize_sum_bwd": rs.sum_bwd,
                 "rasterize_sum_l2": rs.sum_l2,
                 "splat_prep_raw": prep.raw_prep,
-                "splat_prep_decode": prep.decode_prep}
+                "splat_prep_decode": prep.decode_prep,
+                "splat_prep_decode_batch": prep.batch_decode_prep}
 
     def reset_counts():
         for fn in counters.values():
@@ -456,8 +491,55 @@ def main() -> None:
     out4 = prep.decode_prep(*k4_args)
     torch.cuda.synchronize()
     k4 = prep_check("K4", out4, prep.decode_prep_plain(*k4_args))
+    # K7 on the QAT codes stacked, under the batched decode's config
+    flower_q = make_model("GaussianImage_Cholesky", device=dev,
+                          num_points=SERVE_N, H=512, W=768, quantize=True,
+                          raster=serve_cfg)
+    ckf = load_checkpoint(QAT_DIR / "flower" / "gaussian_model.best.npz")
+    merge_matching(flower_q, ckf["params"], ckf["extra"])
+    enc_f = flower_q.compress_wo_ec()
 
-    phase("kernel", k5=k5, k4=k4, k1={"tol": K1_TOL, "cases": cases},
+    def k7_args(frames):
+        """K7's arguments for the (model, code arrays) frames stacked."""
+        B = len(frames)
+        _, m7, _ = sc.stream_caps(
+            B * SERVE_N, china_s.cfg.raster.stacked(SERVE_N, B))
+
+        def cat(key, dtype):
+            return torch.as_tensor(np.concatenate([e[key] for _, e in frames]),
+                                   device=dev).to(dtype).contiguous()
+
+        return (cat("xyz", torch.float32), cat("quant_cholesky", torch.int32),
+                cat("feature_dc_index", torch.int32),
+                torch.stack([m.cholesky_quant_scale.detach()
+                             for m, _ in frames]),
+                torch.stack([m.cholesky_quant_beta.detach()
+                             for m, _ in frames]),
+                torch.cat([m.features_vq.combined_codebook(m.vq_state())
+                           for m, _ in frames]).contiguous(),
+                CHOLESKY_BOUND, B, 512 * B, 768, serve_cfg.tile_px, m7, q_s)
+
+    k7 = {}
+    k7_main = k7_args([(china_s, enc_c), (flower_q, enc_f)])
+    for B, args in ((2, k7_main),
+                    (6, k7_args([(china_s, enc_c), (flower_q, enc_f)] * 3))):
+        out7 = prep.batch_decode_prep(*args)
+        torch.cuda.synchronize()
+        k7[f"B{B}"] = prep_check(f"K7 at B={B}", out7,
+                                 prep.batch_decode_prep_plain(*args))
+    out7 = prep.batch_decode_prep(*k7_args([(china_s, enc_c)]))
+    torch.cuda.synchronize()
+    k7_vs_k4 = float((out7[0] - out4[0]).abs().max())
+    if not (k7_vs_k4 == 0.0 and torch.equal(out7[1], out4[1])
+            and torch.equal(out7[2], out4[2])):
+        fail(f"K7 at B=1 differs from K4: rows max |diff| {k7_vs_k4}, keys "
+             f"equal {torch.equal(out7[1], out4[1])}, counts equal "
+             f"{torch.equal(out7[2], out4[2])}")
+    k7["B1_vs_k4"] = {"max_abs_diff": k7_vs_k4, "keys_equal": True,
+                      "counts_equal": True}
+    k7_err = max(k7["B2"]["max_abs_err"], k7["B6"]["max_abs_err"])
+
+    phase("kernel", k5=k5, k4=k4, k7=k7, k1={"tol": K1_TOL, "cases": cases},
           k2={"row_tol": ROW_TOL, "worst_row": float(e2.max()),
               "max_abs_err": k2_err, "instances": n_live},
           k3={"row_tol": ROW_TOL, "worst_row": float(e3.max()),
@@ -560,9 +642,18 @@ def main() -> None:
             Path(out_dir) / "photos" / "GaussianImage_Cholesky_50000_10000"
             / r["image"] / "test.txt").read_text().strip().splitlines()[-5:]
             for r in codec}
+        root_txt = (Path(out_dir) / "photos" /
+                    "GaussianImage_Cholesky_50000_10000" / "test.txt"
+                    ).read_text()
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     by_codec = {r["image"]: r for r in codec}
+    dd = re.search(r"Dataset decode \((\d+) frames/pass, (\w+) strategy\): "
+                   r"([0-9.]+) FPS", root_txt)
+    if dd is None:
+        fail("the codec CLI printed no Dataset decode line")
+    dataset_decode = {"line": dd.group(0), "frames_per_pass": int(dd.group(1)),
+                      "strategy": dd.group(2), "fps": float(dd.group(3))}
     for name, want in CODEC_ANCHORS.items():
         r = by_codec[name]
         if (abs(r["psnr"] - want["psnr"]) > 0.01
@@ -610,7 +701,154 @@ def main() -> None:
                                "pixels_above_1e4": k4_edge,
                                "n_dropped": int(dec_k4["raster_aux"]
                                                 ["n_dropped"])},
-          test_txt=codec_txt)
+          dataset_decode=dataset_decode, test_txt=codec_txt)
+
+    # -- batched: decode_many through K7, counts read around it --------------
+    model_f = make_model("GaussianImage_Cholesky", device=dev,
+                         num_points=SERVE_N, H=512, W=768, quantize=True,
+                         raster=RasterizeConfig(fused_prep=True))
+    model_g = make_model("GaussianImage_Cholesky", device=dev,
+                         num_points=SERVE_N, H=512, W=768, quantize=True)
+    china_ref = china_s.decompress_wo_ec(enc_c)["render"]  # K4, one frame
+
+    def stack(frames):
+        return test_quantize.stack_frames([m for m, _ in frames],
+                                          [e for _, e in frames], dev)
+
+    def img_check(name, got, want):
+        diff = (got - want).abs()
+        edge = int((diff > 1e-4).sum())
+        off = float(diff[diff <= 1e-4].max())
+        if edge > MAX_EDGE_PX or off > IMG_TOL:
+            fail(f"{name}: {edge} pixels above 1e-4 (<= {MAX_EDGE_PX}), the "
+                 f"rest up to {off} (<= {IMG_TOL})")
+        return {"max_abs_diff": float(diff.max()), "pixels_above_1e4": edge}
+
+    stacks = {B: stack([(china_s, enc_c)] * B) for B in BATCHES}
+    pair = stack([(china_s, enc_c), (flower_q, enc_f)])
+    gt_china_t = torch.as_tensor(image_path_to_array(
+        ROOT / "data/china_768x512.png"), device=dev)
+
+    def psnr_of(img):
+        return 10 * math.log10(1.0 / float(torch.mean((img - gt_china_t[0])
+                                                      ** 2)))
+
+    reset_counts()
+    outs = {B: bt.decode_many(model_f, *stacks[B], force="batched")
+            for B in BATCHES}
+    out_pair = bt.decode_many(model_f, *pair, force="batched")
+    batched_counts = read_counts()
+    china_psnr = psnr_of(china_ref[0])
+    batched_out = {}
+    for B in BATCHES:
+        out = outs[B]
+        gen = bt.decompress_wo_ec_batch(model_g, *stacks[B])
+        nd = int(out["raster_aux"]["n_dropped"])
+        if nd != 0 or int(gen["raster_aux"]["n_dropped"]) != 0:
+            fail(f"the batched decodes of china x {B} dropped instances: "
+                 f"{nd} (K7), {int(gen['raster_aux']['n_dropped'])} "
+                 "(generic)")
+        frames = []
+        for f in range(B):
+            diff = (out["render"][f] - china_ref[0]).abs()
+            frames.append({"max_abs_diff": float(diff.max()),
+                           "pixels_above_1e4": int((diff > 1e-4).sum()),
+                           "psnr": psnr_of(out["render"][f])})
+        if frames[0]["max_abs_diff"] != 0.0:
+            fail(f"frame 0 of china x {B} differs from its single-frame K4 "
+                 f"decode: {frames[0]}")
+        worst = max(abs(fr["psnr"] - china_psnr) for fr in frames)
+        if worst > FRAME_PSNR_TOL:
+            fail(f"a frame of china x {B} is {worst} dB off its single-frame "
+                 f"decode's {china_psnr} dB (<= {FRAME_PSNR_TOL})")
+        batched_out[f"china_x{B}"] = {
+            "n_dropped": nd, "frames_vs_k4": frames,
+            "vs_generic_stacked": img_check(
+                f"china x {B} against the generic stacked decode",
+                out["render"], gen["render"])}
+    gen_pair = bt.decompress_wo_ec_batch(model_g, *pair)
+    batched_out["china_flower"] = {
+        "n_dropped": int(out_pair["raster_aux"]["n_dropped"]),
+        "n_dropped_generic": int(gen_pair["raster_aux"]["n_dropped"]),
+        "vs_generic_stacked": img_check(
+            "china + flower against the generic stacked decode",
+            out_pair["render"], gen_pair["render"])}
+    if batched_counts["splat_prep_decode_batch"] == 0:
+        fail(f"the batched decodes launched {batched_counts}")
+    strategy_ms = {}
+    for B in BATCHES:
+        strategy_ms[B] = {
+            s: burst_ms(torch, lambda: bt.decode_many(
+                model_f, *stacks[B], force=s), reps=20) / B
+            for s in bt.STRATEGIES}
+    phase("batched", launches=batched_counts, decodes=batched_out,
+          ms_per_frame=strategy_ms,
+          prefer_batched_768x512={
+              B: "batched" if bt.prefer_batched(512, 768, B, SERVE_N)
+              else "scan" for B in BATCHES},
+          batched_win_max_pixels=bt.BATCHED_WIN_MAX_PIXELS,
+          batched_win_frames=bt.BATCHED_WIN_FRAMES)
+
+    # -- qat: QuantizeTrainer2d on china, counts read around it --------------
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_qat_")
+    gt_china = image_path_to_array(ROOT / "data/china_768x512.png")
+    try:
+        reset_counts()
+        qt = train_quantize.QuantizeTrainer2d(
+            gt_china, "china", num_points=SERVE_N, iterations=QAT_ITERS,
+            model_path=FLOWER_DIR / "china" / "gaussian_model.npz",
+            args=train_quantize.parse_args(["--lr", "1e-3"]),
+            log_dir=Path(out_dir) / "china", device=dev)
+        qat = qt.train()
+        qat_counts = read_counts()
+        qat_txt = (Path(out_dir) / "china" / "train.txt").read_text()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    qlosses = np.asarray(qt.losses)
+    if not np.isfinite(qlosses).all() or len(qlosses) != QAT_ITERS:
+        fail(f"QAT: {len(qlosses)} losses, "
+             f"{int((~np.isfinite(qlosses)).sum())} not finite")
+    if any(qt.chunk_dropped):
+        fail(f"instances dropped during QAT: {qt.chunk_dropped}")
+    if (qat_counts["rasterize_sum_fwd"] < QAT_ITERS
+            or qat_counts["rasterize_sum_bwd"] < QAT_ITERS
+            or qat_counts["rasterize_sum_l2"] != 0):
+        fail(f"QAT launched {qat_counts}: want >= {QAT_ITERS} K1 and K2, "
+             "no K3")
+    if not qat["best_training_psnr"] >= QAT_BEST_PSNR:
+        fail(f"QAT best training PSNR {qat['best_training_psnr']} < "
+             f"{QAT_BEST_PSNR}")
+    # the best state (the trainer's model now holds it): bpp and K4 decode
+    enc_q = qt.model.compress_wo_ec()
+    bpp_q = qt.model.analysis_wo_ec(enc_q)["bpp"]
+    if round(bpp_q, 4) != QAT_BPP:
+        fail(f"QAT best state's bpp {bpp_q}, want {QAT_BPP}")
+    twin = make_model("GaussianImage_Cholesky", device=dev,
+                      num_points=SERVE_N, H=512, W=768, quantize=True,
+                      raster=RasterizeConfig(fused_prep=True))
+    twin.load_state_dict(qt.model.state_dict())
+    k4_before = prep.decode_prep.launches
+    with torch.no_grad():
+        dec_q = twin.decompress_wo_ec(
+            {k: torch.as_tensor(v, device=dev) for k, v in enc_q.items()})
+        eval_q = qt.model.render_quantize(training=False)["render"]
+    if prep.decode_prep.launches == k4_before:
+        fail("the QAT state's decode did not take K4")
+    qat_decode = img_check("the QAT state's K4 decode against its "
+                           "evaluation render", dec_q["render"], eval_q)
+    qat_prof = profile_of(
+        torch, lambda: [qt.model.train_step(qt.optimizer, qt.gt_image)
+                        for _ in range(20)], 20, ported)
+    phase("qat", iterations=QAT_ITERS, launches=qat_counts,
+          best_training_psnr=qat["best_training_psnr"],
+          test_psnr=qat["psnr"], best_test_psnr=qat["best_psnr"],
+          best_ms_ssim=qat["best_ms_ssim"], bpp_measured=qat["best_bpp"],
+          bpp_wo_ec=bpp_q, decode_vs_eval_render=qat_decode,
+          n_dropped_chunks_max=max(qt.chunk_dropped),
+          training_s=qat["training_time"],
+          ms_per_step=1e3 * qat["training_time"] / QAT_ITERS,
+          fps=qat["fps"], train_txt=qat_txt.strip().splitlines()[-4:],
+          step_profile=qat_prof)
 
     # -- fit: SimpleTrainer2d on the flower photo ----------------------------
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_fit_")
@@ -693,6 +931,10 @@ def main() -> None:
         torch, lambda: prep.raw_prep_plain(*k5_args), reps=20)
     plain["splat_prep_decode"] = burst_ms(
         torch, lambda: prep.decode_prep_plain(*k4_args), reps=20)
+    ms["splat_prep_decode_batch"] = burst_ms(
+        torch, lambda: prep.batch_decode_prep(*k7_main), reps=50)
+    plain["splat_prep_decode_batch"] = burst_ms(
+        torch, lambda: prep.batch_decode_prep_plain(*k7_main), reps=20)
     with torch.no_grad():
         render_ms = burst_ms(torch, flower.render, reps=30)
     step_opt = fitted.make_optimizer()
@@ -716,12 +958,17 @@ def main() -> None:
         "rasterize_sum_l2": lambda: rs.sum_l2(feat, sp.gids, sp.starts, gt_f,
                                               Hf, Wf),
         "splat_prep_raw": lambda: prep.raw_prep(*k5_args),
-        "splat_prep_decode": lambda: prep.decode_prep(*k4_args)}
-    device_ms = {}
-    for k, fn in launch.items():
-        us = profile_of(torch, lambda: [fn() for _ in range(20)], 20,
-                        (k,))["ported_us_per_launch"][k]
-        device_ms[k] = None if us is None else us / 1e3
+        "splat_prep_decode": lambda: prep.decode_prep(*k4_args),
+        "splat_prep_decode_batch": lambda: prep.batch_decode_prep(*k7_main)}
+    # one trace of 20 launches of each kernel; traced again if the profiler
+    # missed a kernel
+    for _ in range(2):
+        us = profile_of(torch, lambda: [fn() for fn in launch.values()
+                                        for _ in range(20)], 20,
+                        tuple(launch))["ported_us_per_launch"]
+        device_ms = {k: None if v is None else v / 1e3 for k, v in us.items()}
+        if None not in device_ms.values():
+            break
 
     pairs, gated = pair_work(rs, feat, sp.gids, sp.starts, Hf, Wf, q_cut)
     plane = Hf * Wf
@@ -753,6 +1000,14 @@ def main() -> None:
                         ("splat_prep_decode", 28 * SERVE_N + 4 * (6 + 192))):
         work[k] = (rows * (PREP_ROW_SLOTS[k] + PREP_KEY_SLOTS * m_s), 0,
                    in_bytes + out_bytes)
+    # K7 on the china + flower stack (the photos dataset's batch): 2N rows
+    # of K4's inputs, two frames' tables, the same outputs per row
+    rows7 = 2 * SERVE_N + 1
+    work["splat_prep_decode_batch"] = (
+        rows7 * (PREP_ROW_SLOTS["splat_prep_decode_batch"]
+                 + PREP_KEY_SLOTS * m_s), 0,
+        28 * 2 * SERVE_N + 4 * 2 * (6 + 192)
+        + rows7 * (4 * sc.FW + 4 * m_s + 8))
     bounds = {k: bound(*v) for k, v in work.items()}
     phase("timing", device=torch.cuda.get_device_name(0), nvidia_smi=smi,
           kernel_ms=ms, kernel_device_ms=device_ms, plain_ms=plain,
@@ -771,22 +1026,28 @@ def main() -> None:
                 "rasterize_sum_bwd": "gaussianimage_tpu/ops/rasterize_sum.py:280",
                 "rasterize_sum_l2": "gaussianimage_tpu/ops/rasterize_sum.py:618",
                 "splat_prep_raw": "gaussianimage_tpu/ops/splat_prep.py:249",
-                "splat_prep_decode": "gaussianimage_tpu/ops/splat_prep.py:157"}
+                "splat_prep_decode": "gaussianimage_tpu/ops/splat_prep.py:157",
+                "splat_prep_decode_batch":
+                    "gaussianimage_tpu/ops/splat_prep.py:195"}
     sources = {"rasterize_sum_fwd": "rasterize_sum_fwd.cu",
                "rasterize_sum_bwd": "rasterize_sum_bwd.cu",
                "rasterize_sum_l2": "rasterize_sum_bwd.cu",
                "splat_prep_raw": "splat_prep.cu",
-               "splat_prep_decode": "splat_prep.cu"}
+               "splat_prep_decode": "splat_prep.cu",
+               "splat_prep_decode_batch": "splat_prep.cu"}
     # each kernel's launches in the run of the path that drives it
     launches = {"rasterize_sum_fwd": eval_counts["rasterize_sum_fwd"],
                 "rasterize_sum_bwd": generic_counts["rasterize_sum_bwd"],
                 "rasterize_sum_l2": fit_counts["rasterize_sum_l2"],
                 "splat_prep_raw": serve_counts["splat_prep_raw"],
-                "splat_prep_decode": codec_counts["splat_prep_decode"]}
+                "splat_prep_decode": codec_counts["splat_prep_decode"],
+                "splat_prep_decode_batch":
+                    batched_counts["splat_prep_decode_batch"]}
     errs = {"rasterize_sum_fwd": k1_err, "rasterize_sum_bwd": k2_err,
             "rasterize_sum_l2": k3_err,
             "splat_prep_raw": k5["max_abs_err"],
-            "splat_prep_decode": k4["max_abs_err"]}
+            "splat_prep_decode": k4["max_abs_err"],
+            "splat_prep_decode_batch": k7_err}
     emit({"kernels": [{
         "name": k,
         "route": "cuda",

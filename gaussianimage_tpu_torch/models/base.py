@@ -96,6 +96,10 @@ class GaussianModelBase(nn.Module):
         mse = torch.mean((img.float() - gt_image.float()) ** 2)
         return loss, {"mse": mse, "render": img, "pkg": pkg}
 
+    def update_extra(self, aux: Dict) -> None:
+        """After the optimizer step: install the carried state the step's
+        forward computed (the VQ codebooks under QAT). Default: none."""
+
     # -- optimizer -----------------------------------------------------------
     def lr_schedule(self):
         return step_lr(self.cfg.lr, self.cfg.lr_step_size, self.cfg.lr_gamma)
@@ -122,8 +126,9 @@ class GaussianModelBase(nn.Module):
     # -- training ------------------------------------------------------------
     def train_step(self, optimizer: torch.optim.Optimizer,
                    gt_image: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """One update. Returns device scalars: loss, psnr (of the step's
-        mse) and n_dropped (the instance-stream overflow)."""
+        """One update, then ``update_extra`` (the JAX package's order,
+        models/base.py:199 there). Returns device scalars: loss, psnr (of
+        the step's mse) and n_dropped (the instance-stream overflow)."""
         optimizer.zero_grad(set_to_none=True)
         loss, aux = self.loss(gt_image)
         loss.backward()
@@ -133,6 +138,7 @@ class GaussianModelBase(nn.Module):
                 group["lr"] = sched(group["count"])
                 group["count"] += 1
         optimizer.step()
+        self.update_extra(aux)
         mse = aux["mse"].detach()
         psnr = 10.0 * torch.log10(1.0 / torch.clamp(mse, min=1e-12))
         raux = aux.get("pkg", {}).get("raster_aux")

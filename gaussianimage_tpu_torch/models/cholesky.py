@@ -12,9 +12,12 @@ The parameters start at zero; ``init_params`` initialises them for a fit
 (grid when N = H*W, adaptive from the GT, or uniform), and a fitted
 checkpoint loads with ``load_state_dict(params_from_numpy(...))``. Under
 ``quantize`` the model also holds the codec's quantizer parameters and VQ
-state (models/quantize_mixin.py) and decodes code arrays. ``render_fast``
-and the decode take the fused splat prep (K5, K4) where
-``fused_decode_supported`` allows it, else the generic path.
+state (models/quantize_mixin.py), trains them (QAT: the quantized render
+goes through the generic differentiable rasterizer, K1 forward and K2
+backward, never the fused L2 kernel K3) and decodes code arrays.
+``render_fast`` and the decode take the fused splat prep (K5, K4; K7 for a
+batch of frames, ``fused_decode_batch``) where ``fused_decode_supported``
+allows it, else the generic path.
 """
 
 from __future__ import annotations
@@ -30,9 +33,9 @@ from gaussianimage_tpu_torch.core.init import (adaptive_init_sigma,
 from gaussianimage_tpu_torch.models.base import GaussianModelBase, ModelConfig
 from gaussianimage_tpu_torch.models.quantize_mixin import QuantizeMixin
 from gaussianimage_tpu_torch.ops import rasterize_gaussians_sum
-from gaussianimage_tpu_torch.ops.splat_prep import (fused_decode_cholesky,
-                                                   fused_decode_supported,
-                                                   fused_render_cholesky)
+from gaussianimage_tpu_torch.ops.splat_prep import (
+    fused_decode_cholesky, fused_decode_cholesky_batch, fused_decode_supported,
+    fused_render_cholesky)
 
 CHOLESKY_BOUND = (0.5, 0.0, 0.5)
 VIZ_SEED = 1234  # fixed random colors of the Gaussian-shape visualization
@@ -133,6 +136,8 @@ class GaussianImageCholesky(QuantizeMixin, GaussianModelBase):
         return xys, radii, conics, colors, opac
 
     def _rasterize_quantized(self, means, geo, colors):
+        """The QAT forward's and the generic decode's render: the generic
+        differentiable rasterizer (K1 forward, K2 backward)."""
         cfg = self.cfg
         xys, radii, conics, colors, opac = self._quantized_splat(
             means, geo, colors)
@@ -145,22 +150,52 @@ class GaussianImageCholesky(QuantizeMixin, GaussianModelBase):
             self._xyz.shape[0], cfg.H, cfg.W, cfg.raster)
 
     @torch.no_grad()
-    def decompress_wo_ec(self, enc):
-        """The decode. Where the fused prep's gate allows it, the
+    def decompress_wo_ec(self, enc, params=None, vq=None):
+        """The decode, with the model's quantizer and VQ state or a frame's
+        (``params``, ``vq``). Where the fused prep's gate allows it, the
         dequantization, projection, packing and binning keys are one K4
         launch, then the sort and K1; otherwise the generic path runs."""
         if not self._fused_ok():
-            return super().decompress_wo_ec(enc)
+            return super().decompress_wo_ec(enc, params, vq)
         cfg = self.cfg
+        uq = self._uq_state("cholesky", params)
         img, _, aux = fused_decode_cholesky(
             self._on_device(enc["xyz"]),
-            self._on_device(enc["quant_cholesky"]),
-            self.cholesky_quant_scale, self.cholesky_quant_beta,
+            self._on_device(enc["quant_cholesky"]), uq.scale, uq.beta,
             CHOLESKY_BOUND, self._on_device(enc["feature_dc_index"]),
-            self.features_vq.combined_codebook(self.vq_state()), cfg.H,
-            cfg.W, cfg.raster)
+            self.features_vq.combined_codebook(
+                self.vq_state() if vq is None else vq), cfg.H, cfg.W,
+            cfg.raster)
         img = torch.clamp(img, 0.0, 1.0)
         return {"render": img[None], "raster_aux": aux}
+
+    @torch.no_grad()
+    def fused_decode_batch(self, params_b, extra_b, enc_b):
+        """The batched decode (batched.py's contract: a leading [B] frame
+        dimension on every leaf) through one K7 launch, one sort and one
+        K1 on the stacked canvas. Returns {"render": [B, 3, H, W],
+        "raster_aux": ...}, or None where the fused batch is not supported
+        (the flag off, H not a multiple of the tile, or the stream past the
+        flat limit); the caller then takes the generic stacked path."""
+        cfg = self.cfg
+        xyz = self._on_device(enc_b["xyz"])
+        B, n = xyz.shape[0], xyz.shape[1]
+        bcfg = cfg.raster.stacked(cfg.num_points, B)
+        if (not self.fused_prep_ok or cfg.H % bcfg.tile_px
+                or not fused_decode_supported(B * n, cfg.H * B, cfg.W,
+                                              bcfg)):
+            return None
+        embed = extra_b["vq"].embed  # [B, Q, K, 3]
+        comb = (embed[:, 0][:, :, None, :] + embed[:, 1][:, None, :, :]
+                ).reshape(B, -1, embed.shape[-1])
+        img, _, aux = fused_decode_cholesky_batch(
+            xyz, self._on_device(enc_b["quant_cholesky"]),
+            params_b["cholesky_quant_scale"], params_b["cholesky_quant_beta"],
+            CHOLESKY_BOUND, self._on_device(enc_b["feature_dc_index"]), comb,
+            cfg.H, cfg.W, bcfg)
+        img = torch.clamp(img, 0.0, 1.0)
+        img = img.reshape(3, B, cfg.H, cfg.W).permute(1, 0, 2, 3)
+        return {"render": img, "raster_aux": aux}
 
     @torch.no_grad()
     def render_fast(self, with_aux: bool = False):
@@ -190,16 +225,25 @@ class GaussianImageCholesky(QuantizeMixin, GaussianModelBase):
         return self._features_dc
 
     # rendering -------------------------------------------------------------
-    def splat(self, xyz=None):
+    def splat(self, xyz=None, params=None):
         """Projected splat tuple (xys, radii, conics, colors, opacities).
-        ``xyz`` stands in for ``_xyz`` (the FPS probe perturbs it)."""
+        ``xyz`` stands in for ``_xyz`` (the FPS probe perturbs it);
+        ``params`` (``_xyz``, ``_cholesky``, ``_features_dc``) for all
+        three, as batched.py's frames do."""
         cfg = self.cfg
+        if params is None:
+            means = self.get_xyz(xyz)
+            chol = self.get_cholesky_elements()
+            colors = self.get_features()
+        else:
+            means = torch.tanh(params["_xyz"])
+            chol = params["_cholesky"] + self.cholesky_bound
+            colors = params["_features_dc"]
         xys, _, radii, conics, _ = project_gaussians_2d(
-            self.get_xyz(xyz), self.get_cholesky_elements(), cfg.H, cfg.W,
-            cfg.tile_bounds)
-        N = self._xyz.shape[0]
-        opac = torch.ones(N, 1, dtype=torch.float32, device=xys.device)
-        return xys, radii, conics, self.get_features(), opac
+            means, chol, cfg.H, cfg.W, cfg.tile_bounds)
+        opac = torch.ones(means.shape[0], 1, dtype=torch.float32,
+                          device=xys.device)
+        return xys, radii, conics, colors, opac
 
     def render(self, xyz=None, render_viz: bool = False, **kw) -> dict:
         """The clamped render [1, 3, H, W], the alpha map, the projected

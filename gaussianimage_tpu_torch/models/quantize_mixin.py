@@ -1,18 +1,21 @@
-"""The codec half of quantization support for the 2D models (counterpart of
-gaussianimage_tpu/models/quantize_mixin.py; reference
+"""Quantization-aware training and the codec for the 2D models (counterpart
+of gaussianimage_tpu/models/quantize_mixin.py; reference
 gaussianimage_cholesky.py:126-283):
 
-- the quantizers: float16 means, a learned 6-bit uniform quantizer on the
-  covariance parameters (its scale and beta are parameters of the model),
-  residual VQ (8 codes x 2 layers) on the colors (its state is buffers of
-  the model, ``vq.<name>``);
+- the quantizers: float16 means (a straight-through round trip), a learned
+  6-bit uniform quantizer on the covariance parameters (its scale and beta
+  are parameters of the model), residual VQ (8 codes x 2 layers) on the
+  colors (its state is buffers of the model, ``vq.<name>``);
+- QAT: the warm start from a fitted checkpoint (``init_quantizer_data``),
+  the quantized forward (``render_quantize``), its loss (the render's loss
+  plus the VQ's commitment loss) and the VQ's EMA state, computed in the
+  forward and installed after the optimizer step (``update_extra``);
 - compress / decompress with and without rANS entropy coding;
 - the bit accounting and the bpp breakdown of ``analysis_wo_ec`` /
   ``analysis`` (keys bpp, position_bpp, cholesky_bpp, feature_dc_bpp).
 
-Quantization-aware training (the QAT forward, its loss, the VQ's k-means
-init and EMA updates, the quantizer warm start) is not ported yet: those
-methods raise, naming ROADMAP.md.
+The decode takes the model's own quantizer and VQ state, or a frame's
+(``params`` / ``vq``), as batched.py's per-frame decodes do.
 """
 
 from __future__ import annotations
@@ -25,20 +28,37 @@ from torch import nn
 
 from gaussianimage_tpu_torch.codec import (ResidualVQ, ResidualVQState,
                                            UniformQuantizer,
-                                           UniformQuantizerState)
+                                           UniformQuantizerState,
+                                           fake_quantize_half)
 from gaussianimage_tpu_torch.codec.bitstream import (compress_categorical,
                                                      decompress_categorical,
                                                      np_bits)
+from gaussianimage_tpu_torch.utils.losses import loss_fn
 
 VQ_SPEC = dict(dim=3, codebook_size=8, num_quantizers=2, kmeans_iters=5,
                decay=0.8, commitment_weight=1.0)
-QAT_NOT_PORTED = (
-    "quantization-aware training is not ported yet: the QAT forward, its "
-    "loss and the VQ codebook updates come with the QAT slice (ROADMAP.md)")
+KMEANS_SEED = 0  # the k-means draw of init_quantizer_data (JAX: PRNGKey(0))
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
+
+
+class _VQBuffers(nn.Module):
+    """The VQ state as the buffers ``embed``, ``cluster_size``,
+    ``embed_avg`` and ``initted``. ``known_initted`` caches a true
+    ``initted`` on the host, so that the training forward reads the device
+    flag once rather than every step; loading a state clears it."""
+
+    def __init__(self, state: ResidualVQState):
+        super().__init__()
+        for k, v in state._asdict().items():
+            self.register_buffer(k, v)
+        self.known_initted = False
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self.known_initted = False
+        super()._load_from_state_dict(*args, **kwargs)
 
 
 class QuantizeMixin:
@@ -53,9 +73,13 @@ class QuantizeMixin:
     def _uq(self, name: str) -> UniformQuantizer:
         return UniformQuantizer(bits=6, num_channels=self._uq_channels()[name])
 
-    def _uq_state(self, name: str) -> UniformQuantizerState:
-        return UniformQuantizerState(getattr(self, f"{name}_quant_scale"),
-                                     getattr(self, f"{name}_quant_beta"))
+    def _uq_state(self, name: str, params=None) -> UniformQuantizerState:
+        """The model's quantizer state, or the one in ``params`` (a dict
+        with ``<name>_quant_{scale,beta}``)."""
+        keys = (f"{name}_quant_scale", f"{name}_quant_beta")
+        if params is None:
+            return UniformQuantizerState(*(getattr(self, k) for k in keys))
+        return UniformQuantizerState(*(params[k] for k in keys))
 
     def vq_state(self) -> ResidualVQState:
         return ResidualVQState(self.vq.embed, self.vq.cluster_size,
@@ -70,29 +94,93 @@ class QuantizeMixin:
             st = UniformQuantizer(bits=6, num_channels=ch).init_state(device)
             setattr(self, f"{name}_quant_scale", nn.Parameter(st.scale))
             setattr(self, f"{name}_quant_beta", nn.Parameter(st.beta))
-        self.vq = nn.Module()
-        for k, v in self.features_vq.init_state(device)._asdict().items():
-            self.vq.register_buffer(k, v)
+        self.vq = _VQBuffers(self.features_vq.init_state(device))
 
-    # ---- QAT (not ported yet) ----------------------------------------------
-    def init_quantizer_data(self):
-        raise NotImplementedError(QAT_NOT_PORTED)
+    # ---- QAT ---------------------------------------------------------------
+    @torch.no_grad()
+    def init_quantizer_data(self, init_idx=None) -> None:
+        """The two-stage warm start, in place (reference model._init_data,
+        train_quantize.py:59): each uniform quantizer's range from the
+        loaded weights (per channel min and max), and the VQ codebooks
+        k-means-initialised from the loaded colors. The k-means draw comes
+        from a generator seeded ``KMEANS_SEED``; ``init_idx`` (one index
+        tensor per layer) gives the starting centers instead."""
+        for name, raw in self._uq_raw_values().items():
+            st = self._uq(name).init_from_data(raw.detach())
+            getattr(self, f"{name}_quant_scale").copy_(st.scale)
+            getattr(self, f"{name}_quant_beta").copy_(st.beta)
+        self._init_vq(init_idx)
 
-    def quantized_splat_inputs(self, **kw):
-        raise NotImplementedError(QAT_NOT_PORTED)
+    @torch.no_grad()
+    def _init_vq(self, init_idx=None) -> None:
+        """Install the residual k-means codebooks of the current colors."""
+        gen = torch.Generator(device=self._xyz.device).manual_seed(
+            KMEANS_SEED)
+        self._install_vq(self.features_vq._kmeans_init(
+            self.get_features(), gen, init_idx))
 
-    def render_quantize(self, **kw):
-        raise NotImplementedError(QAT_NOT_PORTED)
+    def _install_vq(self, state: ResidualVQState) -> None:
+        """Copy an initialised VQ state into the buffers."""
+        for k, v in state._asdict().items():
+            getattr(self.vq, k).copy_(v.detach())
+        self.vq.known_initted = True
 
-    def update_extra(self, *args, **kw):
-        raise NotImplementedError(QAT_NOT_PORTED)
+    def quantized_splat_inputs(self, training: bool = True):
+        """(means, geometry dict, colors, vq_loss, new VQ state) of the
+        quantized forward: float16 means through tanh, the covariance
+        through its uniform quantizer, the colors through the residual VQ
+        (with ``training`` its EMA step, the state not yet installed). A
+        training forward on a VQ state that is not initialised installs
+        the k-means codebooks of the colors first; the JAX package does
+        that inside the VQ call, on the state it returns."""
+        geo = {name: self._uq(name)(self._uq_state(name), raw)
+               for name, raw in self._uq_raw_values().items()}
+        means = torch.tanh(fake_quantize_half(self._xyz))
+        if training:
+            if not self.vq.known_initted:
+                self.vq.known_initted = bool(self.vq.initted)
+            if not self.vq.known_initted:
+                self._init_vq()
+        colors, _, vq_loss, vq_state = self.features_vq(
+            self.vq_state(), self.get_features(), training=training)
+        return means, geo, colors, vq_loss, vq_state
+
+    def render_quantize(self, training: bool = True) -> Dict:
+        """The quantized render [1, 3, H, W], clipped to [0, 1], with the
+        alpha map, the VQ loss and new state, the rasterizer's aux and the
+        train-time bit terms (reference :127-131: only the means' 32 bits a
+        Gaussian). ``training=False`` is the evaluation render."""
+        means, geo, colors, vq_loss, vq_state = self.quantized_splat_inputs(
+            training=training)
+        img, alpha, aux = self._rasterize_quantized(means, geo, colors)
+        # jnp.clip: the gradient splits at a tie with a bound
+        img = torch.minimum(torch.maximum(img, img.new_zeros(())),
+                            img.new_ones(()))
+        N = self._xyz.shape[0]
+        return {"render": img.permute(2, 0, 1)[None],
+                "alpha_map": alpha[None, None], "vq_loss": vq_loss,
+                "vq_state": vq_state, "raster_aux": aux,
+                "unit_bit": [16 * N * 2, 0, 0, 0]}
 
     def loss(self, gt_image):
-        # the plain forward stays available on a quantize model; only the
-        # training loss switches to the QAT path
+        """The plain model's loss without ``quantize``; with it the QAT
+        loss (train_iter_quantize, gaussianimage_cholesky.py:141-152): the
+        quantized render's loss plus the VQ's commitment loss."""
         if not self.cfg.quantize:
             return super().loss(gt_image)
-        raise NotImplementedError(QAT_NOT_PORTED)
+        pkg = self.render_quantize(training=True)
+        img = pkg["render"]
+        loss = loss_fn(img, gt_image, self.cfg.loss_type,
+                       self.cfg.lambda_value) + pkg["vq_loss"]
+        mse = torch.mean((img.float() - gt_image.float()) ** 2)
+        return loss, {"mse": mse, "render": img, "pkg": pkg}
+
+    @torch.no_grad()
+    def update_extra(self, aux: Dict) -> None:
+        """After the optimizer step: install the VQ state the step's
+        forward computed from the parameters before the update."""
+        if self.cfg.quantize and "vq_state" in aux.get("pkg", {}):
+            self._install_vq(aux["pkg"]["vq_state"])
 
     # ---- the codec -----------------------------------------------------------
     @torch.no_grad()
@@ -112,23 +200,26 @@ class QuantizeMixin:
         return torch.as_tensor(x, device=self._xyz.device)
 
     @torch.no_grad()
-    def dequantize_wo_ec(self, enc: Dict):
+    def dequantize_wo_ec(self, enc: Dict, params=None, vq=None):
         """Code arrays (numpy, or tensors on the model's device) ->
-        (means, geo dict, colors): the generic decode's front half."""
+        (means, geo dict, colors): the generic decode's front half, with
+        the model's quantizer and VQ state or a frame's (``params``,
+        ``vq``)."""
         means = torch.tanh(self._on_device(enc["xyz"]).float())
         geo = {name: self._uq(name).decompress(
-                   self._uq_state(name),
+                   self._uq_state(name, params),
                    self._on_device(enc[f"quant_{name}"]).float())
                for name in self._uq_channels()}
         colors = self.features_vq.decompress(
-            self.vq_state(), self._on_device(enc["feature_dc_index"]))
+            self.vq_state() if vq is None else vq,
+            self._on_device(enc["feature_dc_index"]))
         return means, geo, colors
 
     @torch.no_grad()
-    def decompress_wo_ec(self, enc: Dict) -> Dict:
+    def decompress_wo_ec(self, enc: Dict, params=None, vq=None) -> Dict:
         """The generic decode: dequantize, project, rasterize, clamp.
         Returns {"render": [1, 3, H, W], "raster_aux": ...}."""
-        means, geo, colors = self.dequantize_wo_ec(enc)
+        means, geo, colors = self.dequantize_wo_ec(enc, params, vq)
         img, _, aux = self._rasterize_quantized(means, geo, colors)
         img = torch.clamp(img, 0.0, 1.0)
         return {"render": img.permute(2, 0, 1)[None], "raster_aux": aux}

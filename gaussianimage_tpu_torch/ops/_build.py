@@ -65,6 +65,9 @@ KERNELS = {
             # K4: xyz, codes, idx, scale, beta, embed, then as K5 from N on
             "splat_prep_decode": ([_p] * 6 + [_i] * 8 + [_f] * 4
                                   + [_p, _p, _p, _p], _i),
+            # K7: as K4, with n_per after N
+            "splat_prep_decode_batch": ([_p] * 6 + [_i] * 9 + [_f] * 4
+                                        + [_p, _p, _p, _p], _i),
         },
     ),
 }

@@ -1,4 +1,4 @@
-// K4 and K5: the fused splat prep for Hopper (sm_90a), one pass from a
+// K4, K5 and K7: the fused splat prep for Hopper (sm_90a), one pass from a
 // Gaussian's parameters to its packed feature row, its binning keys and its
 // counts.
 //
@@ -10,14 +10,23 @@
 //   means = tanh(f16 xyz codes), L = code * scale + beta + bound,
 //   colors = the combined residual-VQ codebook at idx0 * 8 + idx1
 // (the JAX kernel's one-hot HIGHEST matmul is an exact gather).
-// Both then run splat_prep_common.cuh's project_pack_bin: pixel mapping,
+// K7 splat_prep_decode_batch replaces ::_batch_decode_kernel (:195): K4 over
+// B frames of n Gaussians stacked into B*n rows on one canvas of B frames
+// stacked vertically. Row r is of frame f = r / n (integer division: the
+// same answer as the JAX kernel's comparison ladder), reads frame f's
+// scale, beta and combined codebook (embed[f * 64 + idx0 * 8 + idx1]), maps
+// its y with the frame's height and then adds f * H, and clips its tile
+// rows to its frame's band [f * rows, f * rows + rows - 1].
+// All three then run splat_prep_common.cuh's project_pack_bin: pixel mapping,
 // conic with the 1e-6 det floor, 3-sigma radius, the exact q <= q_cut axis
 // extents, the [N+1, 16] feature row, M packed keys (tile << id_bits) | row
 // with dead slots at INT32_MAX, and the (trunc, live) counts.
 //
 // Bound on the H100: bytes. At N = 10,000 and M = 9 a launch reads 28-32 B
 // and writes 64 + 4M + 8 B per row, about 1.4 MB (0.4 us at 3.35 TB/s),
-// against about 2M FP32 slots (0.06 us). Launch latency dominates.
+// against about 2M FP32 slots (0.06 us); K7 at B frames moves B times that.
+// Launch latency dominates. K7's per-frame tables (2 * 3 B + 64 * 3 B
+// floats) are read through the cache.
 //
 // Design: the simple one, one thread per row r in [0, N]: coalesced row
 // reads, float4 stores of the feature row, and slot-major keys [M, N+1] so
@@ -48,10 +57,10 @@ splat_prep_raw_kernel(const float* __restrict__ xyz,
   const float l11 = __fadd_rn(chol[3 * i], b0);
   const float l21 = __fadd_rn(chol[3 * i + 1], b1);
   const float l22 = __fadd_rn(chol[3 * i + 2], b2);
-  project_pack_bin(r, valid, mx, my, __fmul_rn(l11, l11), __fmul_rn(l11, l21),
-                   __fadd_rn(__fmul_rn(l21, l21), __fmul_rn(l22, l22)),
-                   colors[3 * i], colors[3 * i + 1], colors[3 * i + 2], g, feat,
-                   keys, stats);
+  project_pack_bin<false>(
+      r, valid, mx, my, __fmul_rn(l11, l11), __fmul_rn(l11, l21),
+      __fadd_rn(__fmul_rn(l21, l21), __fmul_rn(l22, l22)), colors[3 * i],
+      colors[3 * i + 1], colors[3 * i + 2], g, Band{}, feat, keys, stats);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -80,10 +89,53 @@ splat_prep_decode_kernel(const float* __restrict__ xyz,
   // indices outside it read entry 0 rather than past the table
   int comb = idx[2 * i] * 8 + idx[2 * i + 1];
   if (comb < 0 || comb >= 64) comb = 0;
-  project_pack_bin(r, valid, mx, my, __fmul_rn(l11, l11), __fmul_rn(l11, l21),
-                   __fadd_rn(__fmul_rn(l21, l21), __fmul_rn(l22, l22)),
-                   embed[3 * comb], embed[3 * comb + 1], embed[3 * comb + 2], g,
-                   feat, keys, stats);
+  project_pack_bin<false>(
+      r, valid, mx, my, __fmul_rn(l11, l11), __fmul_rn(l11, l21),
+      __fadd_rn(__fmul_rn(l21, l21), __fmul_rn(l22, l22)), embed[3 * comb],
+      embed[3 * comb + 1], embed[3 * comb + 2], g, Band{}, feat, keys, stats);
+}
+
+// K7: g.N = B * n_per rows, g.H the frame's height, g.tiles_y the canvas's
+// tile rows (B * rows_pf). scale and beta are [B, 3], embed [B * 64, 3].
+__global__ void __launch_bounds__(kThreads)
+splat_prep_decode_batch_kernel(const float* __restrict__ xyz,
+                               const int* __restrict__ codes,
+                               const int* __restrict__ idx,
+                               const float* __restrict__ scale,
+                               const float* __restrict__ beta,
+                               const float* __restrict__ embed, float b0,
+                               float b1, float b2, int n_per, int rows_pf,
+                               Geom g, float* __restrict__ feat,
+                               int* __restrict__ keys,
+                               int* __restrict__ stats) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= g.n_rows) return;
+  const bool valid = r < g.N;
+  const int i = valid ? r : 0;  // the sentinel row reads row 0 of frame 0
+  const int f = i / n_per;
+  const float mx = tanhf(xyz[2 * i]);
+  const float my = tanhf(xyz[2 * i + 1]);
+  const float* sc = scale + 3 * f;
+  const float* be = beta + 3 * f;
+  const float l11 = __fadd_rn(
+      __fadd_rn(__fmul_rn((float)codes[3 * i], sc[0]), be[0]), b0);
+  const float l21 = __fadd_rn(
+      __fadd_rn(__fmul_rn((float)codes[3 * i + 1], sc[1]), be[1]), b1);
+  const float l22 = __fadd_rn(
+      __fadd_rn(__fmul_rn((float)codes[3 * i + 2], sc[2]), be[2]), b2);
+  int comb = idx[2 * i] * 8 + idx[2 * i + 1];
+  if (comb < 0 || comb >= 64) comb = 0;
+  const float* col = embed + 3 * (f * 64 + comb);
+  // the frame's offset and band, as the JAX kernel forms them in f32 (exact
+  // for these small whole numbers)
+  const float ff = (float)f;
+  const float lo = __fmul_rn(ff, (float)rows_pf);
+  const Band band{__fmul_rn(ff, (float)g.H), lo,
+                  __fadd_rn(lo, (float)(rows_pf - 1))};
+  project_pack_bin<true>(
+      r, valid, mx, my, __fmul_rn(l11, l11), __fmul_rn(l11, l21),
+      __fadd_rn(__fmul_rn(l21, l21), __fmul_rn(l22, l22)), col[0], col[1],
+      col[2], g, band, feat, keys, stats);
 }
 
 Geom make_geom(int N, int H, int W, int tile_px, int tiles_x, int tiles_y,
@@ -135,5 +187,26 @@ extern "C" int splat_prep_decode(const float* xyz, const int* codes,
   const Geom g = make_geom(N, H, W, tile_px, tiles_x, tiles_y, M, id_bits, q_cut);
   splat_prep_decode_kernel<<<blocks_for(g.n_rows), kThreads, 0, stream>>>(
       xyz, codes, idx, scale, beta, embed, b0, b1, b2, g, feat, keys, stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7. N = B * n_per rows: xyz [N, 2] f32, codes [N, 3] i32, idx [N, 2] i32,
+// scale [B, 3], beta [B, 3], embed [B * 64, 3] f32; H the frame's height,
+// tiles_y the canvas's tile rows (a multiple of B); outputs as K5's.
+extern "C" int splat_prep_decode_batch(
+    const float* xyz, const int* codes, const int* idx, const float* scale,
+    const float* beta, const float* embed, int N, int n_per, int H, int W,
+    int tile_px, int tiles_x, int tiles_y, int M, int id_bits, float q_cut,
+    float b0, float b1, float b2, float* feat, int* keys, int* stats,
+    cudaStream_t stream) {
+  if (N < 1 || M < 1 || n_per < 1 || N % n_per != 0 ||
+      tiles_y % (N / n_per) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows_pf = tiles_y / (N / n_per);
+  const Geom g = make_geom(N, H, W, tile_px, tiles_x, tiles_y, M, id_bits, q_cut);
+  splat_prep_decode_batch_kernel<<<blocks_for(g.n_rows), kThreads, 0,
+                                   stream>>>(xyz, codes, idx, scale, beta,
+                                             embed, b0, b1, b2, n_per,
+                                             rows_pf, g, feat, keys, stats);
   return static_cast<int>(cudaGetLastError());
 }

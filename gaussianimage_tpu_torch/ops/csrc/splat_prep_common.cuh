@@ -1,4 +1,4 @@
-// Device code shared by the fused splat-prep kernels K4 and K5
+// Device code shared by the fused splat-prep kernels K4, K5 and K7
 // (splat_prep.cu): the projection, the packed feature row, the binning keys
 // and the counts of one Gaussian, from its mean in NDC, its covariance and
 // its color. Counterpart of gaussianimage_tpu/ops/splat_prep.py
@@ -23,25 +23,41 @@ constexpr int kIntMax = 0x7fffffff;    // dead key slot
 constexpr int kThreads = 256;
 
 // Static geometry of one prep launch. n_rows = N + 1: row N is the zero
-// sentinel row the stream's dead slots read.
+// sentinel row the stream's dead slots read. H is the height the pixel
+// mapping uses, tiles_y the tile rows of the whole canvas: the same image
+// for K4 and K5, one frame and B frames stacked vertically for K7.
 struct Geom {
   int N, n_rows, H, W, tile_px, tiles_x, tiles_y, M, id_bits;
   float q_cut;
+};
+
+// A row's place on K7's tall canvas: y_off shifts its pixel y into its
+// frame, and its tile rows are clipped to the band [lo, hi] of that frame
+// (tiles._expand_instances' band). The inside test stays against the whole
+// canvas, as in the JAX kernel.
+struct Band {
+  float y_off, lo, hi;
 };
 
 // Row r's outputs: feat[r] (16 floats), its M keys keys[j * n_rows + r]
 // (slot-major, as the JAX kernel lays them out), and its counts
 // stats[r] = trunc, stats[n_rows + r] = live instances. Rows r >= N
 // (valid == false) write a zero row, dead keys and zero counts.
+// kBand (K7 only) adds band.y_off to y after the pixel mapping and clips
+// the tile rows to [band.lo, band.hi]; without it (K4, K5) the code is the
+// single-frame expression, and `band` is not read.
+template <bool kBand>
 __device__ __forceinline__ void project_pack_bin(
     int r, bool valid, float mx, float my, float s11, float s12, float s22,
-    float c0, float c1, float c2, const Geom& g, float* __restrict__ feat,
-    int* __restrict__ keys, int* __restrict__ stats) {
-  // pixel mapping: 0.5 * ((m + 1) * W - 1)
+    float c0, float c1, float c2, const Geom& g, Band band,
+    float* __restrict__ feat, int* __restrict__ keys,
+    int* __restrict__ stats) {
+  // pixel mapping: 0.5 * ((m + 1) * W - 1), then K7's frame offset
   const float x = __fmul_rn(
       0.5f, __fsub_rn(__fmul_rn(__fadd_rn(mx, 1.0f), (float)g.W), 1.0f));
-  const float y = __fmul_rn(
+  float y = __fmul_rn(
       0.5f, __fsub_rn(__fmul_rn(__fadd_rn(my, 1.0f), (float)g.H), 1.0f));
+  if (kBand) y = __fadd_rn(y, band.y_off);
   // conic with the 1e-6 det floor
   const float det = __fsub_rn(__fmul_rn(s11, s22), __fmul_rn(s12, s12));
   const float inv_det = __fdiv_rn(1.0f, fmaxf(det, 1e-6f));
@@ -77,11 +93,12 @@ __device__ __forceinline__ void project_pack_bin(
   // ---- binning keys (_expand_instances + the packed key) ---------------
   const float tp = (float)g.tile_px;
   const float hx = (float)(g.tiles_x - 1);
-  const float hy = (float)(g.tiles_y - 1);
+  const float ly = kBand ? band.lo : 0.0f;
+  const float hy = kBand ? band.hi : (float)(g.tiles_y - 1);
   const float x0 = fminf(fmaxf(floorf(__fdiv_rn(__fsub_rn(x, rx), tp)), 0.0f), hx);
   const float x1 = fminf(fmaxf(floorf(__fdiv_rn(__fadd_rn(x, rx), tp)), 0.0f), hx);
-  const float y0 = fminf(fmaxf(floorf(__fdiv_rn(__fsub_rn(y, ry), tp)), 0.0f), hy);
-  const float y1 = fminf(fmaxf(floorf(__fdiv_rn(__fadd_rn(y, ry), tp)), 0.0f), hy);
+  const float y0 = fminf(fmaxf(floorf(__fdiv_rn(__fsub_rn(y, ry), tp)), ly), hy);
+  const float y1 = fminf(fmaxf(floorf(__fdiv_rn(__fadd_rn(y, ry), tp)), ly), hy);
   const bool inside = valid && rx > 0.0f && ry > 0.0f &&
                       __fadd_rn(x, rx) >= 0.0f &&
                       __fsub_rn(x, rx) < (float)(g.tiles_x * g.tile_px) &&

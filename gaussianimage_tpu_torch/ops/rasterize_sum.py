@@ -75,6 +75,17 @@ class RasterizeConfig(NamedTuple):
         kw.update(overrides)
         return RasterizeConfig(**kw)
 
+    def stacked(self, num_points: int, frames: int) -> "RasterizeConfig":
+        """This config for ``frames`` frames of ``num_points`` Gaussians
+        stacked on one canvas (batched.py; the JAX package's
+        ``_batched_raster_config``): an instance budget of 3 per Gaussian
+        (at least 16384), a per-Gaussian span of at most 9 tiles, flat up
+        to 196608 instances."""
+        return self._replace(
+            max_instances=max(3 * frames * num_points, 16384),
+            max_tiles_per_gauss=min(self.max_tiles_per_gauss, 9),
+            flat_stream_limit=max(self.flat_stream_limit, 196608))
+
 
 # ---------------------------------------------------------------------------
 # geometry shared by the plain versions

@@ -13,25 +13,31 @@ Per Gaussian it emits:
   (``rasterize_sum.rasterize_from_keys_chw``);
 - ``stats`` [2, N+1] int32: its (trunc, live) counts, summed for n_dropped.
 
-Two CUDA kernels in ``csrc/splat_prep.cu`` share one device function
+Three CUDA kernels in ``csrc/splat_prep.cu`` share one device function
 (``csrc/splat_prep_common.cuh``):
 
 - K5 ``raw_prep``: from raw parameters (tanh means, the Cholesky bound),
   the serving render's front (``fused_render_cholesky``, ``render_fast``);
 - K4 ``decode_prep``: from the codec's code arrays (f16 means, uniform
   dequantization, the combined residual-VQ codebook), the decode's front
-  (``fused_decode_cholesky``).
+  (``fused_decode_cholesky``);
+- K7 ``batch_decode_prep``: K4 over B frames stacked on one tall canvas,
+  each row with its frame's scale, beta and codebook, its y shifted into
+  its frame and its keys clipped to its frame's tile-row band, the batched
+  decode's front (``fused_decode_cholesky_batch``, batched.py).
 
 Beside each is a plain PyTorch version of the same math, op for op
-(``raw_prep_plain``, ``decode_prep_plain``). A wrapper takes it for CPU
-tensors only; a CUDA tensor launches the kernel or raises. The math
-replicates core/covariance.py, rasterize_sum._axis_radii and
-tiles._expand_instances, so the prep's stream equals the generic path's.
-Forward only: training keeps the autograd projection.
+(``raw_prep_plain``, ``decode_prep_plain``, ``batch_decode_prep_plain``).
+A wrapper takes it for CPU tensors only; a CUDA tensor launches the kernel
+or raises. The math replicates core/covariance.py,
+rasterize_sum._axis_radii and tiles._expand_instances, so the prep's
+stream equals the generic path's. Forward only: training keeps the
+autograd projection.
 
 The JAX kernel's row blocks (``_BLK_CAP``) and its [1, blk] lane layout fit
-the TPU's VMEM and vector lanes; neither carries over. The batched (K7) and
-RS (K6a/b) fronts are not ported yet (ROADMAP.md).
+the TPU's VMEM and vector lanes; neither carries over, nor does K7's
+one-hot selection of the per-frame tables (an exact gather here). The RS
+fronts (K6a/b) are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -68,15 +74,30 @@ def prep_geometry(N: int, H: int, W: int, tile_px: int):
 
 
 def _project_pack_bin(mx, my, s11, s12, s22, colors, H: int, W: int,
-                      tile_px: int, M: int, q_cut: float) -> Prep:
+                      tile_px: int, M: int, q_cut: float,
+                      frame=None, B: int = 1) -> Prep:
     """The shared front, op for op as splat_prep_common.cuh computes it:
     pixel mapping, conic, radius, axis extents, feature rows, keys and
-    counts of the N Gaussians, plus the sentinel row N."""
+    counts of the N Gaussians, plus the sentinel row N.
+
+    With ``frame`` ([N] int, K7) the canvas is B frames of height H stacked
+    vertically: y is mapped with H and then shifted by frame * H, and the
+    tile rows are clipped to the frame's band; the inside test stays
+    against the whole canvas."""
     N = mx.shape[0]
     dev = mx.device
-    tiles_x, tiles_y, id_bits = prep_geometry(N, H, W, tile_px)
+    tiles_x, tiles_y, id_bits = prep_geometry(N, H * B, W, tile_px)
     x = 0.5 * ((mx + 1.0) * W - 1.0)
     y = 0.5 * ((my + 1.0) * H - 1.0)
+    if frame is None:
+        row_lo = torch.zeros_like(y)
+        row_hi = torch.full_like(y, tiles_y - 1)
+    else:
+        ff = frame.float()
+        y = y + ff * float(H)
+        rows = tiles_y // B
+        row_lo = ff * float(rows)
+        row_hi = row_lo + float(rows - 1)
     det = s11 * s22 - s12 * s12
     inv_det = 1.0 / torch.maximum(det, det.new_full((), 1e-6))
     ca = s22 * inv_det
@@ -104,8 +125,10 @@ def _project_pack_bin(mx, my, s11, s12, s22, colors, H: int, W: int,
 
     x0 = torch.clamp(torch.floor((x - rx) / tile_px), 0, tiles_x - 1)
     x1 = torch.clamp(torch.floor((x + rx) / tile_px), 0, tiles_x - 1)
-    y0 = torch.clamp(torch.floor((y - ry) / tile_px), 0, tiles_y - 1)
-    y1 = torch.clamp(torch.floor((y + ry) / tile_px), 0, tiles_y - 1)
+    y0 = torch.minimum(torch.maximum(torch.floor((y - ry) / tile_px), row_lo),
+                       row_hi)
+    y1 = torch.minimum(torch.maximum(torch.floor((y + ry) / tile_px), row_lo),
+                       row_hi)
     inside = ((rx > 0) & (ry > 0)
               & (x + rx >= 0) & (x - rx < tiles_x * tile_px)
               & (y + ry >= 0) & (y - ry < tiles_y * tile_px))
@@ -158,6 +181,26 @@ def decode_prep_plain(xyz, codes, idx, scale, beta, embed, bound, H: int,
                              tile_px, M, q_cut)
 
 
+def batch_decode_prep_plain(xyz, codes, idx, scale, beta, embed, bound,
+                            B: int, H: int, W: int, tile_px: int, M: int,
+                            q_cut: float) -> Prep:
+    """Plain PyTorch version of K7: B frames of n = N / B Gaussians as N
+    stacked rows (``xyz`` [N, 2], ``codes`` [N, 3], ``idx`` [N, 2]), the
+    frames' scale and beta [B, 3] and combined codebooks [B * 64, 3], on a
+    canvas of height ``H`` = B x the frame's height -> as K5, row r of frame
+    r // n."""
+    N = xyz.shape[0]
+    frame = torch.arange(N, device=xyz.device) // (N // B)
+    means = torch.tanh(xyz)
+    chol = codes.float() * scale[frame] + beta[frame]
+    cov = _cov_from_chol(chol[:, 0] + bound[0], chol[:, 1] + bound[1],
+                         chol[:, 2] + bound[2])
+    colors = embed[(frame * CODEBOOK * CODEBOOK + idx[:, 0] * CODEBOOK
+                    + idx[:, 1]).long()]
+    return _project_pack_bin(means[:, 0], means[:, 1], *cov, colors, H // B,
+                             W, tile_px, M, q_cut, frame=frame, B=B)
+
+
 # ---------------------------------------------------------------------------
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
@@ -180,16 +223,23 @@ def _check_inputs(kernel: str, named):
             raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
 
 
-def _launch(fn_name: str, kernel: str, inputs, bound, N, H, W, tile_px, M,
-            q_cut, dev) -> Prep:
+def _launch(fn_name: str, kernel: str, inputs, bound, H, W, tile_px, M,
+            q_cut, frames=None) -> Prep:
+    """Launch ``fn_name`` on the N rows of ``inputs[0]`` and a canvas of
+    height H. Its C function takes the rows and the height (N, H) (K4, K5),
+    or with ``frames`` = B (K7) the rows, the rows of a frame and a
+    frame's height (N, N / B, H / B)."""
+    N, dev = inputs[0].shape[0], inputs[0].device
+    dims = (N, H) if frames is None else (N, N // frames, H // frames)
     tiles_x, tiles_y, id_bits = prep_geometry(N, H, W, tile_px)
     feat = torch.empty(N + 1, sc.FW, dtype=torch.float32, device=dev)
     keys = torch.empty(M, N + 1, dtype=torch.int32, device=dev)
     stats = torch.empty(2, N + 1, dtype=torch.int32, device=dev)
     lib = _build.load("splat_prep")
     rc = getattr(lib, fn_name)(
-        *[x.data_ptr() for x in inputs], N, H, W, tile_px, tiles_x, tiles_y,
-        M, id_bits, ctypes.c_float(q_cut), *(ctypes.c_float(b) for b in bound),
+        *[x.data_ptr() for x in inputs], *dims, W, tile_px, tiles_x,
+        tiles_y, M, id_bits, ctypes.c_float(q_cut),
+        *(ctypes.c_float(b) for b in bound),
         feat.data_ptr(), keys.data_ptr(), stats.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -213,7 +263,7 @@ def raw_prep(xyz, chol, colors, bound, H: int, W: int, tile_px: int, M: int,
                          ("chol", chol, torch.float32, (N, 3)),
                          ("colors", colors, torch.float32, (N, 3))])
     out = _launch("splat_prep_raw", "K5 splat_prep_raw", (xyz, chol, colors),
-                  bound, N, H, W, tile_px, M, q_cut, xyz.device)
+                  bound, H, W, tile_px, M, q_cut)
     raw_prep.launches += 1
     return out
 
@@ -238,14 +288,48 @@ def decode_prep(xyz, codes, idx, scale, beta, embed, bound, H: int, W: int,
                          ("embed", embed, torch.float32,
                           (CODEBOOK * CODEBOOK, 3))])
     out = _launch("splat_prep_decode", "K4 splat_prep_decode",
-                  (xyz, codes, idx, scale, beta, embed), bound, N, H, W,
-                  tile_px, M, q_cut, xyz.device)
+                  (xyz, codes, idx, scale, beta, embed), bound, H, W,
+                  tile_px, M, q_cut)
     decode_prep.launches += 1
+    return out
+
+
+def batch_decode_prep(xyz, codes, idx, scale, beta, embed, bound, B: int,
+                      H: int, W: int, tile_px: int, M: int,
+                      q_cut: float) -> Prep:
+    """K7 -> as K5, from the N = B * n stacked rows of B frames (float32
+    ``xyz`` [N, 2], int32 ``codes`` [N, 3] and ``idx`` [N, 2]), the frames'
+    float32 ``scale`` and ``beta`` [B, 3] and combined codebooks ``embed``
+    [B * 64, 3], on a canvas of height ``H`` (B frames stacked, H a multiple
+    of B * tile_px).
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version. ``batch_decode_prep.launches`` counts the kernel's
+    launches."""
+    N = xyz.shape[0]
+    if B < 1 or N % B or H % (B * tile_px):
+        raise ValueError(f"K7 stacks B frames of equal size: B={B}, N={N} "
+                         f"rows, canvas height {H}, tile_px {tile_px}")
+    if xyz.device.type == "cpu":
+        return batch_decode_prep_plain(xyz, codes, idx, scale, beta, embed,
+                                       bound, B, H, W, tile_px, M, q_cut)
+    _check_inputs("K7", [("xyz", xyz, torch.float32, (N, 2)),
+                         ("codes", codes, torch.int32, (N, 3)),
+                         ("idx", idx, torch.int32, (N, 2)),
+                         ("scale", scale, torch.float32, (B, 3)),
+                         ("beta", beta, torch.float32, (B, 3)),
+                         ("embed", embed, torch.float32,
+                          (B * CODEBOOK * CODEBOOK, 3))])
+    out = _launch("splat_prep_decode_batch", "K7 splat_prep_decode_batch",
+                  (xyz, codes, idx, scale, beta, embed), bound, H, W,
+                  tile_px, M, q_cut, frames=B)
+    batch_decode_prep.launches += 1
     return out
 
 
 raw_prep.launches = 0
 decode_prep.launches = 0
+batch_decode_prep.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +366,22 @@ def fused_prep_cholesky(enc_xyz, chol_codes, quant_scale, quant_beta, bound,
         quant_beta.float().contiguous(), embed_combined.float().contiguous(),
         tuple(float(b) for b in bound), H, W, cfg.tile_px, m_span,
         float(cfg.q_cut)))
+
+
+def fused_prep_cholesky_batch(enc_xyz, chol_codes, quant_scale, quant_beta,
+                              bound, vq_idx, embed_combined, B: int,
+                              H_total: int, W: int, cfg, m_span: int):
+    """Batched Cholesky decode front (K7) over the H_total = B * H stacked
+    canvas: the B frames' N = B * n code rows (``enc_xyz`` [N, 2] float16
+    codes), scale and beta [B, 3], combined codebooks [B * 64, 3] ->
+    (feat, keys, trunc, n_total)."""
+    return _finish(batch_decode_prep(
+        enc_xyz.float().contiguous(), chol_codes.int().contiguous(),
+        vq_idx.int().contiguous(),
+        quant_scale.reshape(B, 3).float().contiguous(),
+        quant_beta.reshape(B, 3).float().contiguous(),
+        embed_combined.float().contiguous(), tuple(float(b) for b in bound),
+        B, H_total, W, cfg.tile_px, m_span, float(cfg.q_cut)))
 
 
 def fused_decode_supported(N: int, H: int, W: int, cfg) -> bool:
@@ -324,3 +424,23 @@ def fused_decode_cholesky(enc_xyz, chol_codes, quant_scale, quant_beta,
         enc_xyz, chol_codes, quant_scale, quant_beta, bound, vq_idx,
         embed_combined, H, W, cfg, m_span)
     return rasterize_from_keys_chw(feat, keys, trunc, n_total, H, W, cfg, I0)
+
+
+def fused_decode_cholesky_batch(enc_xyz_b, chol_codes_b, scale_b, beta_b,
+                                bound, vq_idx_b, embed_b, H: int, W: int,
+                                cfg):
+    """Batched decode: K7 over B stacked frames, one sort, K1 on the
+    [3, B * H, W] canvas. Inputs carry a leading [B] frame dimension
+    (``embed_b`` [B, 64, 3]); ``cfg`` is the batched raster config, with
+    the instance budget scaled to B * n. Flat stream only; the key width
+    comes from B * n. Returns (img [3, B * H, W], alpha [B * H, W], aux),
+    unclamped."""
+    B, n = enc_xyz_b.shape[0], enc_xyz_b.shape[1]
+    N = B * n
+    I0, m_span = _flat_caps(N, cfg)
+    feat, keys, trunc, n_total = fused_prep_cholesky_batch(
+        enc_xyz_b.reshape(N, 2), chol_codes_b.reshape(N, 3), scale_b,
+        beta_b, bound, vq_idx_b.reshape(N, 2), embed_b.reshape(B * 64, 3),
+        B, H * B, W, cfg, m_span)
+    return rasterize_from_keys_chw(feat, keys, trunc, n_total, H * B, W, cfg,
+                                   I0)

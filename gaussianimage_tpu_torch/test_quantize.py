@@ -18,8 +18,14 @@ breakdown, with and without entropy coding; write ``test.npy`` and
   time of 20 entropy-coded decodes in three parts: the host rANS decode,
   the host-to-device copy of the code arrays and the device decode.
 
-The whole-dataset batched decode probe (``batched_dataset_decode_fps``)
-needs the batched decode front K7, which is not ported yet (ROADMAP.md).
+- The whole-dataset decode probe (``batched_dataset_decode_fps``): every
+  image of the largest same-size group stacked, ``scan_len`` dataset
+  decodes a burst, routed by ``batched.prefer_batched`` (one stacked pass
+  through K7, or a loop of single-frame decodes through K4; the loop
+  wherever the stacked stream would pass the flat layout), on the
+  default config with the fused prep on, as in the JAX package. Each
+  decode adds a sub-ulp amount to the quantizer scale, as the JAX probe
+  does, so that no two are the same computation.
 
 Run:  python -m gaussianimage_tpu_torch.test_quantize -d data/ \\
         --data_name photos --model_path <QAT checkpoint root> \\
@@ -38,6 +44,8 @@ import numpy as np
 import torch
 
 from gaussianimage_tpu_torch import resolve_device
+from gaussianimage_tpu_torch.batched import decode_many, prefer_batched
+from gaussianimage_tpu_torch.codec import ResidualVQState
 from gaussianimage_tpu_torch.datasets import iterate_dataset
 from gaussianimage_tpu_torch.models import make_model
 from gaussianimage_tpu_torch.ops import RasterizeConfig
@@ -96,6 +104,7 @@ class CodecEvaluator2d:
     def test(self):
         model, dev = self.model, self.device
         enc = model.compress_wo_ec()
+        self.enc = enc  # for the whole-dataset decode probe
         enc_dev = {k: torch.as_tensor(v, device=dev) for k, v in enc.items()}
         out = model.decompress_wo_ec(enc_dev)["render"]
 
@@ -161,6 +170,79 @@ class CodecEvaluator2d:
         return data
 
 
+def stack_frames(models, encs, device):
+    """The (params_b, extra_b, enc_b) of batched.py's decodes: each quantize
+    model's parameters and VQ state and each frame's code arrays stacked on
+    dim 0, on ``device``."""
+    named = [dict(m.named_parameters()) for m in models]
+    params_b = {k: torch.stack([p[k].detach() for p in named])
+                for k in named[0]}
+    extra_b = {"vq": ResidualVQState(*(torch.stack(leaves) for leaves in zip(
+        *(m.vq_state() for m in models))))}
+    enc_b = {k: torch.as_tensor(np.stack([np.asarray(e[k]) for e in encs]),
+                                device=device)
+             for k in encs[0]}
+    return params_b, extra_b, enc_b
+
+
+@torch.no_grad()
+def batched_dataset_decode_fps(evaluators, reps: int = 3,
+                               scan_len: int = 16):
+    """Whole-dataset decode: every image of the largest same-size group
+    stacked and decoded by ``decode_many`` (the strategy ``prefer_batched``
+    picks), ``scan_len`` dataset decodes queued per burst,
+    one untimed burst and then ``reps`` timed with CUDA events (the host
+    clock on the CPU). Returns (frames per pass, frames per second,
+    strategy); (n, None, None) for a group of fewer than two."""
+    groups = {}
+    for ev in evaluators:
+        groups.setdefault((ev.H, ev.W), []).append(ev)
+    evs = max(groups.values(), key=len)
+    if len(evs) < 2:
+        return len(evs), None, None
+    ev0 = evs[0]
+    model = ev0.model
+    model_f = make_model(
+        model.name, device=ev0.device, num_points=model.cfg.num_points,
+        H=ev0.H, W=ev0.W, loss_type="L2", quantize=True,
+        raster=model.cfg.raster._replace(fused_prep=True))
+    params_b, extra_b, enc_b = stack_frames([ev.model for ev in evs],
+                                            [ev.enc for ev in evs], ev0.device)
+    scale_key = next(k for k in params_b if k.endswith("_quant_scale"))
+    strategy = ("batched" if prefer_batched(ev0.H, ev0.W, len(evs),
+                                            model.cfg.num_points)
+                else "scan")
+
+    def burst():
+        acc = torch.zeros((), device=ev0.device)
+        for i in range(1, scan_len + 1):
+            p = dict(params_b)
+            p[scale_key] = p[scale_key] + 1e-30 * i
+            img = decode_many(model_f, p, extra_b, enc_b,
+                              force=strategy)["render"]
+            acc += img[:, 0, 0, 0].sum()
+        return acc
+
+    burst()
+    dev = ev0.device
+    if dev.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            burst()
+        end.record()
+        end.synchronize()
+        seconds = start.elapsed_time(end) / 1000.0
+    else:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            burst()
+        seconds = time.perf_counter() - t0
+    dt = seconds / (reps * scan_len)
+    return len(evs), len(evs) / dt, strategy
+
+
 def parse_args(argv):
     p = argparse.ArgumentParser(
         description="GaussianImage codec evaluation (PyTorch + CUDA port)")
@@ -186,7 +268,7 @@ def main(argv):
     folder = f"{args.model_name}_{args.iterations}_{args.num_points}"
     root = Path(args.checkpoint_root) / args.data_name / folder
     logwriter = LogWriter(root, train=False)
-    rows, results = [], []
+    rows, results, evaluators = [], [], []
     for image_name, img in iterate_dataset(args.data_name, args.dataset):
         model_path = (Path(args.model_path) / image_name /
                       "gaussian_model.best.npz" if args.model_path else None)
@@ -195,6 +277,7 @@ def main(argv):
                               model_path=model_path, args=args,
                               log_dir=root / image_name, device=device)
         d = ev.test()
+        evaluators.append(ev)
         results.append({"image": image_name, **d})
         rows.append([d["psnr"], d["ms-ssim"], d["bpp"], d["rendering_fps"],
                      d["position_bpp"], d["cholesky_bpp"],
@@ -207,6 +290,11 @@ def main(argv):
         "Average: PSNR:{:.4f}, MS-SSIM:{:.4f}, bpp:{:.4f}, FPS:{:.4f}, "
         "position_bpp:{:.4f}, cholesky_bpp:{:.4f}, feature_dc_bpp:{:.4f}"
         .format(*np.asarray(rows).mean(axis=0)))
+    b, fps, strategy = batched_dataset_decode_fps(evaluators)
+    if fps is not None:
+        logwriter.write(
+            "Dataset decode ({} frames/pass, {} strategy): {:.1f} FPS"
+            .format(b, strategy, fps))
     return results
 
 

@@ -3,7 +3,9 @@
 - ``save_checkpoint`` / ``load_checkpoint``: the JAX package's format
   (:31-46), one flat .npz with ``params/<name>`` and ``extra/<name>`` keys,
   so every checkpoint the JAX package wrote loads unchanged, and a
-  checkpoint written here loads there.
+  checkpoint written here loads there. ``checkpoint_trees`` splits a
+  model into those two trees: its parameters, and its VQ state as
+  ``extra/vq/<name>`` (a QAT checkpoint).
 - ``save_train_state`` / ``load_train_state``: the mid-fit resume snapshot.
   Its format is the port's own, not the JAX package's leaf-indexed npz:
   one ``torch.save`` file with the model's and the optimizer's
@@ -40,6 +42,16 @@ def save_checkpoint(path, params: Dict, extra: Dict | None = None) -> None:
     """params / extra: name -> tensor or array."""
     os.makedirs(os.path.dirname(str(path)) or ".", exist_ok=True)
     np.savez(str(path), **_flatten({"params": params, "extra": extra or {}}))
+
+
+def checkpoint_trees(model: torch.nn.Module):
+    """(params, extra) of ``model`` in the JAX package's checkpoint schema:
+    its parameters by name, and its VQ buffers ``vq.<name>`` as
+    ``{"vq": {<name>: ...}}``, the JAX package's ``extra["vq"]``
+    ResidualVQState."""
+    vq = {k.split(".", 1)[1]: v for k, v in model.named_buffers()
+          if k.startswith("vq.")}
+    return dict(model.named_parameters()), ({"vq": vq} if vq else {})
 
 
 def load_checkpoint(path) -> Dict[str, Dict[str, np.ndarray]]:

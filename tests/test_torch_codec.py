@@ -201,8 +201,10 @@ def test_vq_compress_decompress_matches_jax():
     np.testing.assert_array_equal(
         ResidualVQ().decompress(st, idx).numpy(),
         np.asarray(JVQ().decompress(jst, jidx)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ResidualVQ()(st, torch.from_numpy(x), training=True)
+    # the training call (ported): the same indices, and an EMA step
+    _, tidx, _, new = ResidualVQ()(st, torch.from_numpy(x), training=True)
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    assert bool(new.initted) and not torch.equal(new.embed, st.embed)
 
 
 # --------------------------------------------- the china@10k checkpoint
@@ -356,13 +358,16 @@ def test_codec_evaluator_schema_and_routing(tmp_path, n, h, w, sigma, probe):
 
 
 def test_quantize_model_training_is_not_ported():
+    """QAT is ported since this test was written: the quantize model's
+    loss is the QAT loss (the render's plus the VQ's, with the VQ's next
+    state), and the warm start initialises the codebooks."""
     m = make_model("GaussianImage_Cholesky", device="cpu", num_points=8, H=16,
                    W=16, quantize=True)
     gt = torch.zeros(1, 3, 16, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        m.loss(gt)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        m.init_quantizer_data()
+    m.init_quantizer_data()
+    assert bool(m.vq.initted)
+    loss, aux = m.loss(gt)
+    assert torch.isfinite(loss) and "vq_state" in aux["pkg"]
     names = dict(m.named_parameters())
     assert "cholesky_quant_scale" in names and "cholesky_quant_beta" in names
     assert sorted(k for k in m.state_dict() if k.startswith("vq.")) == [

@@ -34,6 +34,8 @@ def test_port_imports_no_jax():
         "import gaussianimage_tpu_torch.codec.rans\n"
         "import gaussianimage_tpu_torch.codec.bitstream\n"
         "import gaussianimage_tpu_torch.models.quantize_mixin\n"
+        "import gaussianimage_tpu_torch.train_quantize\n"
+        "import gaussianimage_tpu_torch.batched\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'gaussianimage_tpu' "
         "or m.startswith('gaussianimage_tpu.'))\n"
@@ -73,6 +75,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     with pytest.raises(RuntimeError, match="--device cpu"):
         test_quantize.main(["--data_name", "synthetic", "--num_points",
                             "10"])
+    from gaussianimage_tpu_torch import train_quantize
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train_quantize.main(["--data_name", "synthetic", "--num_points",
+                             "10"])
 
 
 def test_training_and_other_models_are_not_ported():
