@@ -68,6 +68,34 @@ Phases, one JSON line each (with ``elapsed_s``):
 8. generic   50 steps of the model's train_step under a non-L2 loss
              (Fusion2 = 0.7 L1 + 0.3 (1 - SSIM)), which renders through
              the differentiable rasterizer: K1 forward, K2 backward;
+8b. rs_fit   ``SimpleTrainer2d`` with ``GaussianImage_RS`` fits the flower
+             photo at N = 10,000 for 5000 iterations with the CLI defaults
+             (the RS projection, then K3), its checkpoint in a temp dir:
+             test PSNR >= 38.5 dB, no NaN loss, n_dropped 0 in every chunk,
+             >= 5000 K3 launches;
+8c. rs_serve ``render_fast`` of that fit under serving(10000) (K6b, a sort,
+             K1): the image against the fit's ``render()`` under the default
+             config (IMG_TOL / MAX_EDGE_PX), n_dropped 0 on every timed
+             render (a twin that drops would be routed to the default model,
+             as the codec CLI routes it, and the phase says so); wall ms,
+             host operator calls and launches per frame;
+8d. rs_qat   ``QuantizeTrainer2d`` with ``GaussianImage_RS`` from that
+             checkpoint, 2000 QAT iterations at lr 1e-3: no NaN loss,
+             n_dropped 0, >= 2000 K1 and K2 launches and no K3; the best
+             state's K6a decode against its evaluation render;
+8e. rs_kernel K6b on the RS fit's parameters and K6a on the RS QAT codes
+             under serving(10000), each against its plain version (sorted
+             keys, trunc and n_total integer-exact, feature rows to 1e-6),
+             and K6b's stream (gids, starts) equal to the generic binning;
+8f. rs_codec the codec CLI ``test_quantize --model_name GaussianImage_RS`` on
+             that QAT state, as a two-image dataset (the flower photo and
+             state twice, so the dataset decode stacks two frames): decode
+             probes on the serving twin, >= 300 K6a launches per image, the
+             K6a image against the generic decode, the round trip below
+             1e-6, bpp 1.4285 with its scaling_bpp + rotation_bpp =
+             cholesky_bpp, the codec PSNR equal to the QAT's best test
+             PSNR, the "Dataset decode" line (the generic stacked path: RS
+             has no batch kernel) and the ms per frame of both strategies;
 9. timing    each kernel and its plain version, the render, a training
              step over a 250-step burst, with each kernel's bound from this
              run's pair counts; torch.profiler traces of 20 launches of
@@ -119,15 +147,22 @@ BATCHES = (2, 4, 6)  # frames per batched decode; 6 x 10k is the flat limit
 FRAME_PSNR_TOL = 1e-3
 QAT_ITERS = 5000
 QAT_BEST_PSNR = 26.9  # the TPU run's log: best 27.19 at iteration 5000
-QAT_BPP = 1.4285
+QAT_BPP = 1.4285   # both models: float16 means, 3 x 6-bit codes, 2 x 3-bit VQ
+RS = "GaussianImage_RS"
+RS_QAT_ITERS = 2000
 # FP32 issue slots per row of the fused prep (an FMA as one): two tanhf
 # (~20 each), seven IEEE divisions (~10 each) and four square roots (~8
 # each) and ~70 adds, multiplies, floors and compares; K4 adds its
 # dequantization and codebook index (~10); and per key slot ~6 integer
 # operations
 # K7 adds the frame's integer division (~20)
+# K6b and K6a swap the Cholesky covariance (~5) for the RS one: sinf and
+# cosf (~30 each with their range reduction), ~10 multiplies and adds, and
+# in K6b the sigmoid's expf and IEEE division (~20); K6a its angle's
+# dequantization (~3)
 PREP_ROW_SLOTS = {"splat_prep_raw": 212, "splat_prep_decode": 222,
-                  "splat_prep_decode_batch": 242}
+                  "splat_prep_decode_batch": 242, "splat_prep_rs_raw": 297,
+                  "splat_prep_rs_decode": 290}
 PREP_KEY_SLOTS = 6
 K1_TOL = 1e-5      # max |diff| of the render, K1 against its plain version
 ROW_TOL = 1e-4     # gradient rows: |diff| <= ROW_TOL x the column's max |.|
@@ -278,6 +313,7 @@ def main() -> None:
     from gaussianimage_tpu_torch import test_quantize, train, train_quantize
     from gaussianimage_tpu_torch.models import make_model
     from gaussianimage_tpu_torch.models.cholesky import CHOLESKY_BOUND
+    from gaussianimage_tpu_torch.models.rs import SCALING_BOUND
     from gaussianimage_tpu_torch.ops import RasterizeConfig, _build
     from gaussianimage_tpu_torch.ops import rasterize_sum as rs
     from gaussianimage_tpu_torch.ops import splat_prep as prep
@@ -293,7 +329,9 @@ def main() -> None:
                 "rasterize_sum_l2": rs.sum_l2,
                 "splat_prep_raw": prep.raw_prep,
                 "splat_prep_decode": prep.decode_prep,
-                "splat_prep_decode_batch": prep.batch_decode_prep}
+                "splat_prep_decode_batch": prep.batch_decode_prep,
+                "splat_prep_rs_raw": prep.rs_raw_prep,
+                "splat_prep_rs_decode": prep.rs_decode_prep}
 
     def reset_counts():
         for fn in counters.values():
@@ -907,6 +945,261 @@ def main() -> None:
           launches=generic_counts, loss_first=float(gen_losses[0]),
           loss_last=float(gen_losses[-1]))
 
+    # -- the RS phases: fit, serve, QAT, the RS fronts, the codec CLI -------
+    rs_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_rs_"))
+    try:
+        # rs_fit: SimpleTrainer2d with GaussianImage_RS on the flower photo
+        gt_flower = image_path_to_array(FLOWER_PHOTO)
+        reset_counts()
+        rs_trainer = train.SimpleTrainer2d(
+            gt_flower, "flower", num_points=SERVE_N, model_name=RS,
+            iterations=FIT_ITERS, args=train.parse_args([]),
+            log_dir=rs_dir / "fit" / "flower", device=dev)
+        rs_fit = rs_trainer.train()
+        rs_fit_counts = read_counts()
+        rs_losses = np.asarray(rs_trainer._hist["loss"])
+        rs_hist = dict(zip(rs_trainer._hist["iter"],
+                           rs_trainer._hist["psnr"]))
+        if rs_fit_counts["rasterize_sum_l2"] < FIT_ITERS:
+            fail(f"the RS fit launched K3 {rs_fit_counts['rasterize_sum_l2']}"
+                 f" times, fewer than its {FIT_ITERS} steps")
+        if not np.isfinite(rs_losses).all() or len(rs_losses) != FIT_ITERS:
+            fail(f"RS fit: {len(rs_losses)} losses, "
+                 f"{int((~np.isfinite(rs_losses)).sum())} not finite")
+        if any(rs_trainer.chunk_dropped) or rs_fit["n_dropped"] != 0:
+            fail(f"instances dropped during the RS fit: "
+                 f"{rs_trainer.chunk_dropped}, test {rs_fit['n_dropped']}")
+        if not rs_fit["psnr"] >= FIT_PSNR:
+            fail(f"RS fit test PSNR {rs_fit['psnr']} < {FIT_PSNR}")
+        phase("rs_fit", model=RS, iterations=FIT_ITERS,
+              launches=rs_fit_counts,
+              training_psnr_every_1000={i: rs_hist[i] for i in
+                                        range(1000, FIT_ITERS + 1, 1000)},
+              test_psnr=rs_fit["psnr"], ms_ssim=rs_fit["ms_ssim"],
+              training_s=rs_fit["training_time"],
+              ms_per_step_incl_reseed=1e3 * rs_fit["training_time"]
+              / FIT_ITERS, fps=rs_fit["fps"],
+              n_dropped_chunks_max=max(rs_trainer.chunk_dropped))
+        rs_fitted = rs_trainer.model
+
+        # rs_serve: render_fast under serving(10000), counts read around it
+        rs_s = make_model(RS, device=dev, num_points=SERVE_N, H=512, W=768,
+                          raster=serve_cfg)
+        rs_s.load_state_dict(rs_fitted.state_dict())
+        rs_nd = []
+
+        def rs_serve_one():
+            img, aux = rs_serving.render_fast(with_aux=True)
+            rs_nd.append(aux["n_dropped"])
+            return img
+
+        reset_counts()
+        # the codec CLI's routing: the serving twin unless it drops
+        rs_serving = rs_s
+        rs_img = rs_serve_one()
+        if int(rs_nd[0]) != 0:
+            rs_serving = rs_fitted
+            rs_img = rs_serve_one()
+        rs_serve_ms = burst_ms(torch, rs_serve_one, reps=30)
+        rs_serve_counts = read_counts()
+        rs_nd_timed = torch.stack(rs_nd[1:]).cpu()
+        with torch.no_grad():
+            rs_ref = rs_fitted.render()["render"]
+        rs_serve_img = img_check("RS render_fast against render()", rs_img,
+                                 rs_ref)
+        if rs_serve_counts["splat_prep_rs_raw"] == 0 or rs_serve_counts[
+                "rasterize_sum_fwd"] == 0:
+            fail(f"RS render_fast launched {rs_serve_counts}")
+        if int(rs_nd_timed.max()) != 0:
+            fail(f"RS render_fast dropped instances on a timed render: "
+                 f"{rs_nd_timed.tolist()}")
+        with torch.no_grad():
+            rs_render_ms = burst_ms(torch, rs_fitted.render, reps=30)
+            rs_serve_prof = profile_of(
+                torch, lambda: [rs_serving.render_fast()
+                                for _ in range(train.FPS_FRAMES)],
+                train.FPS_FRAMES, ported)
+        phase("rs_serve", config="RasterizeConfig.serving(10000)",
+              route="serving" if rs_serving is rs_s else "default",
+              serving_twin_n_dropped=int(rs_nd[0]),
+              launches=rs_serve_counts, renders=len(rs_nd) - 1,
+              n_dropped_timed_max=int(rs_nd_timed.max()),
+              vs_render=rs_serve_img,
+              psnr=10 * math.log10(1.0 / float(torch.mean(
+                  (rs_img - gt_f[None]) ** 2))),
+              render_fast_ms=rs_serve_ms, render_default_ms=rs_render_ms,
+              render_fast_profile=rs_serve_prof)
+
+        # rs_qat: QuantizeTrainer2d with GaussianImage_RS from that fit
+        reset_counts()
+        rs_qt = train_quantize.QuantizeTrainer2d(
+            gt_flower, "flower", num_points=SERVE_N, model_name=RS,
+            iterations=RS_QAT_ITERS,
+            model_path=rs_dir / "fit" / "flower" / "gaussian_model.npz",
+            args=train_quantize.parse_args(["--lr", "1e-3"]),
+            log_dir=rs_dir / "qat" / "flower", device=dev)
+        rs_qat = rs_qt.train()
+        rs_qat_counts = read_counts()
+        rs_qlosses = np.asarray(rs_qt.losses)
+        if (not np.isfinite(rs_qlosses).all()
+                or len(rs_qlosses) != RS_QAT_ITERS):
+            fail(f"RS QAT: {len(rs_qlosses)} losses, "
+                 f"{int((~np.isfinite(rs_qlosses)).sum())} not finite")
+        if any(rs_qt.chunk_dropped):
+            fail(f"instances dropped during RS QAT: {rs_qt.chunk_dropped}")
+        if (rs_qat_counts["rasterize_sum_fwd"] < RS_QAT_ITERS
+                or rs_qat_counts["rasterize_sum_bwd"] < RS_QAT_ITERS
+                or rs_qat_counts["rasterize_sum_l2"] != 0):
+            fail(f"RS QAT launched {rs_qat_counts}: want >= {RS_QAT_ITERS} "
+                 "K1 and K2, no K3")
+        # the best state (the trainer's model holds it): its K6a decode
+        enc_rs = rs_qt.model.compress_wo_ec()
+        rs_twin = make_model(RS, device=dev, num_points=SERVE_N, H=512,
+                             W=768, quantize=True,
+                             raster=RasterizeConfig(fused_prep=True))
+        rs_twin.load_state_dict(rs_qt.model.state_dict())
+        k6a_before = prep.rs_decode_prep.launches
+        with torch.no_grad():
+            rs_dec_q = rs_twin.decompress_wo_ec(
+                {k: torch.as_tensor(v, device=dev) for k, v in enc_rs.items()})
+            rs_eval_q = rs_qt.model.render_quantize(training=False)["render"]
+        if prep.rs_decode_prep.launches == k6a_before:
+            fail("the RS QAT state's decode did not take K6a")
+        rs_qat_decode = img_check("the RS QAT state's K6a decode against its "
+                                  "evaluation render", rs_dec_q["render"],
+                                  rs_eval_q)
+        rs_qat_prof = profile_of(
+            torch, lambda: [rs_qt.model.train_step(rs_qt.optimizer,
+                                                   rs_qt.gt_image)
+                            for _ in range(20)], 20, ported)
+        phase("rs_qat", iterations=RS_QAT_ITERS, launches=rs_qat_counts,
+              best_training_psnr=rs_qat["best_training_psnr"],
+              test_psnr=rs_qat["psnr"], best_test_psnr=rs_qat["best_psnr"],
+              best_ms_ssim=rs_qat["best_ms_ssim"],
+              bpp_measured=rs_qat["best_bpp"],
+              decode_vs_eval_render=rs_qat_decode,
+              n_dropped_chunks_max=max(rs_qt.chunk_dropped),
+              training_s=rs_qat["training_time"],
+              ms_per_step=1e3 * rs_qat["training_time"] / RS_QAT_ITERS,
+              fps=rs_qat["fps"], step_profile=rs_qat_prof)
+
+        # rs_kernel: K6b on the fit's parameters, K6a on the QAT codes
+        k6b_args = (rs_s._xyz.detach(), rs_s._scaling.detach(),
+                    rs_s._rotation.detach(), rs_s._features_dc.detach(),
+                    SCALING_BOUND, Hf, Wf, serve_cfg.tile_px, m_s, q_s)
+        out6b = prep.rs_raw_prep(*k6b_args)
+        torch.cuda.synchronize()
+        k6b = prep_check("K6b", out6b, prep.rs_raw_prep_plain(*k6b_args))
+        gids6, starts6, _ = rs.stream_from_keys(out6b[1].reshape(-1),
+                                                SERVE_N, Hf, Wf, serve_cfg,
+                                                I_s)
+        _, sp_rs = stream_inputs(rs_s)
+        k6b["stream_vs_generic"] = {
+            "instances": int(sp_rs.starts[sp_rs.T]),
+            "instances_differ": int((gids6 != sp_rs.gids).sum()),
+            "starts_equal": bool(torch.equal(starts6, sp_rs.starts))}
+        if (k6b["stream_vs_generic"]["instances_differ"]
+                or not k6b["stream_vs_generic"]["starts_equal"]):
+            fail(f"K6b's stream differs from the generic binning: "
+                 f"{k6b['stream_vs_generic']}")
+        rq = rs_qt.model
+        k6a_args = (torch.as_tensor(enc_rs["xyz"], device=dev).float(),
+                    torch.as_tensor(enc_rs["quant_scaling"], device=dev),
+                    torch.as_tensor(enc_rs["quant_rotation"], device=dev),
+                    torch.as_tensor(enc_rs["feature_dc_index"], device=dev),
+                    rq.scaling_quant_scale.detach(),
+                    rq.scaling_quant_beta.detach(),
+                    rq.rotation_quant_scale.detach(),
+                    rq.rotation_quant_beta.detach(),
+                    rq.features_vq.combined_codebook(
+                        rq.vq_state()).contiguous(),
+                    SCALING_BOUND, 512, 768, serve_cfg.tile_px, m_s, q_s)
+        out6a = prep.rs_decode_prep(*k6a_args)
+        torch.cuda.synchronize()
+        k6a = prep_check("K6a", out6a, prep.rs_decode_prep_plain(*k6a_args))
+        phase("rs_kernel", k6b=k6b, k6a=k6a)
+
+        # rs_codec: the codec CLI on that state, the flower photo and its
+        # state twice as a two-image dataset, counts read around it
+        data2, q2 = rs_dir / "data", rs_dir / "qat2"
+        data2.mkdir()
+        for name in ("test01", "test02"):
+            shutil.copy(FLOWER_PHOTO, data2 / f"{name}.png")
+            (q2 / name).mkdir(parents=True)
+            shutil.copy(rs_dir / "qat" / "flower" / "gaussian_model.best.npz",
+                        q2 / name / "gaussian_model.best.npz")
+        reset_counts()
+        rs_codec = test_quantize.main([
+            "--data_name", "test", "--dataset", str(data2), "--model_name",
+            RS, "--model_path", str(q2), "--num_points", str(SERVE_N),
+            "--iterations", str(RS_QAT_ITERS), "--checkpoint_root",
+            str(rs_dir / "codec")])
+        rs_codec_counts = read_counts()
+        rs_root_txt = (rs_dir / "codec" / "test" /
+                       f"{RS}_{RS_QAT_ITERS}_{SERVE_N}" / "test.txt"
+                       ).read_text()
+        rdd = re.search(r"Dataset decode \((\d+) frames/pass, (\w+) "
+                        r"strategy\): ([0-9.]+) FPS", rs_root_txt)
+        if rdd is None:
+            fail("the RS codec CLI printed no Dataset decode line")
+        for r in rs_codec:
+            if (r["probe_model"] != "serving"
+                    or not r["ec_roundtrip_err"] < 1e-6
+                    or round(r["bpp"], 4) != QAT_BPP
+                    or abs(r["scaling_bpp"] + r["rotation_bpp"]
+                           - r["cholesky_bpp"]) > 1e-9
+                    or abs(r["psnr"] - rs_qat["best_psnr"]) > 1e-3):
+                fail(f"RS codec {r['image']}: probe on the "
+                     f"{r['probe_model']} model (serving twin n_dropped "
+                     f"{r['serving_n_dropped']}), round trip "
+                     f"{r['ec_roundtrip_err']}, bpp {r['bpp']} (want "
+                     f"{QAT_BPP}), scaling {r['scaling_bpp']} + rotation "
+                     f"{r['rotation_bpp']} vs {r['cholesky_bpp']}, psnr "
+                     f"{r['psnr']} vs the QAT's {rs_qat['best_psnr']}")
+        if rs_codec_counts["splat_prep_rs_decode"] < MIN_K4 * len(rs_codec):
+            fail(f"the RS codec run launched K6a "
+                 f"{rs_codec_counts['splat_prep_rs_decode']} times, fewer "
+                 f"than {MIN_K4} per image")
+        # the K6a image against the generic decode (outside the counted run)
+        ev_rs = test_quantize.CodecEvaluator2d(
+            gt_flower, "flower", num_points=SERVE_N, model_name=RS,
+            model_path=q2 / "test01" / "gaussian_model.best.npz",
+            log_dir=rs_dir / "codec_check", device=dev)
+        enc_rs_np = ev_rs.model.compress_wo_ec()
+        enc_rs_dev = {k: torch.as_tensor(v, device=dev)
+                      for k, v in enc_rs_np.items()}
+        rs_k6a_img = ev_rs.model_s.decompress_wo_ec(enc_rs_dev)
+        rs_gen_img = ev_rs.model.decompress_wo_ec(enc_rs_dev)["render"]
+        rs_k6a_vs_gen = img_check("the RS K6a decode against the generic "
+                                  "decode", rs_k6a_img["render"], rs_gen_img)
+        rs_k6a_vs_gen["n_dropped"] = int(rs_k6a_img["raster_aux"]["n_dropped"])
+        # the dataset decode's two strategies on the two frames
+        model_rs_f = make_model(RS, device=dev, num_points=SERVE_N, H=512,
+                                W=768, quantize=True,
+                                raster=RasterizeConfig(fused_prep=True))
+        rs_stack = test_quantize.stack_frames(
+            [ev_rs.model, ev_rs.model], [enc_rs_np, enc_rs_np], dev)
+        rs_strategy_ms = {
+            st: burst_ms(torch, lambda: bt.decode_many(
+                model_rs_f, *rs_stack, force=st), reps=20) / 2
+            for st in bt.STRATEGIES}
+        keys = ("psnr", "ms-ssim", "bpp", "bpp_ec", "position_bpp",
+                "scaling_bpp", "rotation_bpp", "cholesky_bpp",
+                "feature_dc_bpp", "ec_roundtrip_err", "rendering_fps",
+                "rendering_fps_ec", "rendering_time_ec_rans",
+                "rendering_time_ec_h2d", "rendering_time_ec_device",
+                "serving_n_dropped", "probe_model")
+        phase("rs_codec", launches=rs_codec_counts,
+              images={r["image"]: {m: r[m] for m in keys} for r in rs_codec},
+              k6a_vs_generic=rs_k6a_vs_gen,
+              dataset_decode={"line": rdd.group(0),
+                              "frames_per_pass": int(rdd.group(1)),
+                              "strategy": rdd.group(2),
+                              "fps": float(rdd.group(3))},
+              ms_per_frame_b2=rs_strategy_ms)
+    finally:
+        shutil.rmtree(rs_dir, ignore_errors=True)
+
     # -- timing ---------------------------------------------------------------
     ms, plain = {}, {}
     ms["rasterize_sum_fwd"] = burst_ms(
@@ -935,6 +1228,14 @@ def main() -> None:
         torch, lambda: prep.batch_decode_prep(*k7_main), reps=50)
     plain["splat_prep_decode_batch"] = burst_ms(
         torch, lambda: prep.batch_decode_prep_plain(*k7_main), reps=20)
+    ms["splat_prep_rs_raw"] = burst_ms(
+        torch, lambda: prep.rs_raw_prep(*k6b_args), reps=50)
+    ms["splat_prep_rs_decode"] = burst_ms(
+        torch, lambda: prep.rs_decode_prep(*k6a_args), reps=50)
+    plain["splat_prep_rs_raw"] = burst_ms(
+        torch, lambda: prep.rs_raw_prep_plain(*k6b_args), reps=20)
+    plain["splat_prep_rs_decode"] = burst_ms(
+        torch, lambda: prep.rs_decode_prep_plain(*k6a_args), reps=20)
     with torch.no_grad():
         render_ms = burst_ms(torch, flower.render, reps=30)
     step_opt = fitted.make_optimizer()
@@ -959,7 +1260,9 @@ def main() -> None:
                                               Hf, Wf),
         "splat_prep_raw": lambda: prep.raw_prep(*k5_args),
         "splat_prep_decode": lambda: prep.decode_prep(*k4_args),
-        "splat_prep_decode_batch": lambda: prep.batch_decode_prep(*k7_main)}
+        "splat_prep_decode_batch": lambda: prep.batch_decode_prep(*k7_main),
+        "splat_prep_rs_raw": lambda: prep.rs_raw_prep(*k6b_args),
+        "splat_prep_rs_decode": lambda: prep.rs_decode_prep(*k6a_args)}
     # one trace of 20 launches of each kernel; traced again if the profiler
     # missed a kernel
     for _ in range(2):
@@ -996,8 +1299,14 @@ def main() -> None:
     # tanhf's two MUFU ops a row are folded into the row's slots)
     rows = SERVE_N + 1
     out_bytes = rows * (4 * sc.FW + 4 * m_s + 8)
+    # K6b reads xyz, scaling, rotation and colors (32 B a row), K6a xyz,
+    # two scaling codes, a rotation code and two indices (28 B) plus its
+    # four quantizer floats and the codebook once
     for k, in_bytes in (("splat_prep_raw", 32 * SERVE_N),
-                        ("splat_prep_decode", 28 * SERVE_N + 4 * (6 + 192))):
+                        ("splat_prep_decode", 28 * SERVE_N + 4 * (6 + 192)),
+                        ("splat_prep_rs_raw", 32 * SERVE_N),
+                        ("splat_prep_rs_decode",
+                         28 * SERVE_N + 4 * (6 + 192))):
         work[k] = (rows * (PREP_ROW_SLOTS[k] + PREP_KEY_SLOTS * m_s), 0,
                    in_bytes + out_bytes)
     # K7 on the china + flower stack (the photos dataset's batch): 2N rows
@@ -1028,13 +1337,18 @@ def main() -> None:
                 "splat_prep_raw": "gaussianimage_tpu/ops/splat_prep.py:249",
                 "splat_prep_decode": "gaussianimage_tpu/ops/splat_prep.py:157",
                 "splat_prep_decode_batch":
-                    "gaussianimage_tpu/ops/splat_prep.py:195"}
+                    "gaussianimage_tpu/ops/splat_prep.py:195",
+                "splat_prep_rs_raw": "gaussianimage_tpu/ops/splat_prep.py:471",
+                "splat_prep_rs_decode":
+                    "gaussianimage_tpu/ops/splat_prep.py:434"}
     sources = {"rasterize_sum_fwd": "rasterize_sum_fwd.cu",
                "rasterize_sum_bwd": "rasterize_sum_bwd.cu",
                "rasterize_sum_l2": "rasterize_sum_bwd.cu",
                "splat_prep_raw": "splat_prep.cu",
                "splat_prep_decode": "splat_prep.cu",
-               "splat_prep_decode_batch": "splat_prep.cu"}
+               "splat_prep_decode_batch": "splat_prep.cu",
+               "splat_prep_rs_raw": "splat_prep.cu",
+               "splat_prep_rs_decode": "splat_prep.cu"}
     # each kernel's launches in the run of the path that drives it
     launches = {"rasterize_sum_fwd": eval_counts["rasterize_sum_fwd"],
                 "rasterize_sum_bwd": generic_counts["rasterize_sum_bwd"],
@@ -1042,12 +1356,17 @@ def main() -> None:
                 "splat_prep_raw": serve_counts["splat_prep_raw"],
                 "splat_prep_decode": codec_counts["splat_prep_decode"],
                 "splat_prep_decode_batch":
-                    batched_counts["splat_prep_decode_batch"]}
+                    batched_counts["splat_prep_decode_batch"],
+                "splat_prep_rs_raw": rs_serve_counts["splat_prep_rs_raw"],
+                "splat_prep_rs_decode":
+                    rs_codec_counts["splat_prep_rs_decode"]}
     errs = {"rasterize_sum_fwd": k1_err, "rasterize_sum_bwd": k2_err,
             "rasterize_sum_l2": k3_err,
             "splat_prep_raw": k5["max_abs_err"],
             "splat_prep_decode": k4["max_abs_err"],
-            "splat_prep_decode_batch": k7_err}
+            "splat_prep_decode_batch": k7_err,
+            "splat_prep_rs_raw": k6b["max_abs_err"],
+            "splat_prep_rs_decode": k6a["max_abs_err"]}
     emit({"kernels": [{
         "name": k,
         "route": "cuda",

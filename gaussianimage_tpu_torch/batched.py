@@ -15,7 +15,10 @@ strategies:
 
 - ``batched``: ``decompress_wo_ec_batch``, one stacked pass; with the
   fused prep the dequantization, projection, packing and keys of all B
-  frames are one K7 launch (``models/cholesky.py::fused_decode_batch``);
+  Cholesky frames are one K7 launch
+  (``models/cholesky.py::fused_decode_batch``); a model without that
+  method (RS) dequantizes and projects each frame on the generic path and
+  rasterizes the stack once;
 - ``scan``: a loop of single-frame decodes (the JAX package's ``lax.map``).
 
 ``prefer_batched`` picks one by the frame size, the number of frames and
@@ -83,8 +86,9 @@ def _frame(tree, b: int):
 
 
 def render_batch(model, params_b: Dict[str, torch.Tensor]) -> Dict:
-    """Render B parameter sets (``_xyz``, ``_cholesky``, ``_features_dc``
-    stacked on dim 0) in one rasterizer pass. Returns {"render":
+    """Render B parameter sets (the model's parameters, each stacked on
+    dim 0: ``splat(params=...)`` reads one frame) in one rasterizer pass.
+    Returns {"render":
     [B, 3, H, W], "alpha_map": [B, 1, H, W], "raster_aux": aux}."""
     B = params_b["_xyz"].shape[0]
     splats = [model.splat(params=_frame(params_b, b)) for b in range(B)]

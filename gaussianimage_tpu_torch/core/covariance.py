@@ -3,7 +3,9 @@ core/covariance.py:23-90).
 
 - ``cov2d_from_cholesky`` consumes lower-triangular Cholesky elements
   ``(l11, l21, l22)`` (raw params plus the model's ``[0.5, 0, 0.5]`` bound)
-  and treats the covariance as being in *pixel* units.
+  and treats the covariance as being in *pixel* units;
+  ``cov2d_from_scale_rot`` builds it from two scales and a rotation angle
+  (the RS model).
 - Means live in NDC ``[-1, 1]`` and map to pixel centers with the gsplat
   convention ``px = 0.5 * ((x + 1) * W - 1)``.
 
@@ -34,6 +36,22 @@ def cov2d_from_cholesky(chol: torch.Tensor) -> torch.Tensor:
     L = [[l11, 0], [l21, l22]], Sigma = L L^T."""
     l11, l21, l22 = chol[..., 0], chol[..., 1], chol[..., 2]
     return torch.stack([l11 * l11, l11 * l21, l21 * l21 + l22 * l22], dim=-1)
+
+
+def cov2d_from_scale_rot(scales: torch.Tensor, theta: torch.Tensor
+                         ) -> torch.Tensor:
+    """Covariance [N, 3] from scales [N, 2] and a rotation angle [N] or
+    [N, 1]: Sigma = R diag(s)^2 R^T with R = [[cos, -sin], [sin, cos]],
+    each product left to right as in the JAX package."""
+    if theta.dim() == scales.dim():
+        theta = theta[..., 0]
+    c, s = torch.cos(theta), torch.sin(theta)
+    sx2 = scales[..., 0] * scales[..., 0]
+    sy2 = scales[..., 1] * scales[..., 1]
+    s11 = c * c * sx2 + s * s * sy2
+    s12 = c * s * (sx2 - sy2)
+    s22 = s * s * sx2 + c * c * sy2
+    return torch.stack([s11, s12, s22], dim=-1)
 
 
 def conic_from_cov2d(cov: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

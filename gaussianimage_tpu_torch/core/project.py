@@ -1,5 +1,5 @@
 """Gaussian projection (counterpart of gaussianimage_tpu/core/project.py:
-10-55, itself the equivalent of gsplat's ``project_gaussians_2d``).
+10-90, itself the equivalent of gsplat's ``project_gaussians_2d``).
 
 A small elementwise map in plain PyTorch. Returns the reference's 5-tuple
 ``(xys [N,2] px, depths [N], radii [N], conics [N,3], num_tiles_hit [N])``:
@@ -16,6 +16,7 @@ import torch
 from gaussianimage_tpu_torch.core.covariance import (
     conic_from_cov2d,
     cov2d_from_cholesky,
+    cov2d_from_scale_rot,
     ndc_to_pixel,
     radius_from_cov2d,
 )
@@ -50,3 +51,13 @@ def project_gaussians_2d(means: torch.Tensor, cholesky: torch.Tensor,
     by the model's cholesky bound."""
     return _finish_projection(means, cov2d_from_cholesky(cholesky), H, W,
                               tile_bounds)
+
+
+def project_gaussians_2d_scale_rot(means: torch.Tensor, scales: torch.Tensor,
+                                   rotation: torch.Tensor, H: int, W: int,
+                                   tile_bounds: Tuple[int, int, int]
+                                   ) -> Projected:
+    """means [N, 2] in NDC; scales [N, 2] (positive); rotation [N, 1] or [N]
+    in radians."""
+    return _finish_projection(means, cov2d_from_scale_rot(scales, rotation),
+                              H, W, tile_bounds)

@@ -1,10 +1,12 @@
 from gaussianimage_tpu_torch.models.base import ModelConfig
 from gaussianimage_tpu_torch.models.cholesky import GaussianImageCholesky
+from gaussianimage_tpu_torch.models.rs import GaussianImageRS
 
-MODEL_REGISTRY = {"GaussianImage_Cholesky": GaussianImageCholesky}
+MODEL_REGISTRY = {"GaussianImage_Cholesky": GaussianImageCholesky,
+                  "GaussianImage_RS": GaussianImageRS}
 
 # models of the JAX package that the port does not have yet (ROADMAP.md)
-NOT_PORTED = ("GaussianImage_RS", "GaussianImage_Cholesky_wMask", "3DGS")
+NOT_PORTED = ("GaussianImage_Cholesky_wMask", "3DGS")
 
 
 def make_model(model_name: str, device=None, **config_kwargs):
@@ -21,5 +23,5 @@ def make_model(model_name: str, device=None, **config_kwargs):
                                       device=device)
 
 
-__all__ = ["ModelConfig", "GaussianImageCholesky", "make_model",
-           "MODEL_REGISTRY"]
+__all__ = ["ModelConfig", "GaussianImageCholesky", "GaussianImageRS",
+           "make_model", "MODEL_REGISTRY"]

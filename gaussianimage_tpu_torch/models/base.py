@@ -17,6 +17,7 @@ from torch import nn
 
 from gaussianimage_tpu_torch.ops import (RasterizeConfig,
                                          rasterize_gaussians_sum_l2)
+from gaussianimage_tpu_torch.ops.splat_prep import fused_decode_supported
 from gaussianimage_tpu_torch.opt import Adan, step_lr
 from gaussianimage_tpu_torch.utils.losses import loss_fn
 
@@ -53,6 +54,9 @@ class GaussianModelBase(nn.Module):
     fused_l2 = True
     # error-driven relocation support (core/reseed.py)
     reseed_ok = False
+    # render_fast / the decode may take the fused splat prep, which fixes
+    # opacity at 1; a model whose splat changes the opacity leaves it off
+    fused_prep_ok = False
 
     def __init__(self, config: ModelConfig):
         super().__init__()
@@ -73,6 +77,13 @@ class GaussianModelBase(nn.Module):
         pkg = self.render()
         img = pkg["render"]
         return (img, pkg["raster_aux"]) if with_aux else img
+
+    def _fused_ok(self) -> bool:
+        """The model takes the fused splat prep, and its gate
+        (``fused_decode_supported``) allows it at this size and config."""
+        cfg = self.cfg
+        return self.fused_prep_ok and fused_decode_supported(
+            self._xyz.shape[0], cfg.H, cfg.W, cfg.raster)
 
     def forward(self, **kw):
         return self.render(**kw)

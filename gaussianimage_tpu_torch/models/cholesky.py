@@ -43,8 +43,6 @@ VIZ_SEED = 1234  # fixed random colors of the Gaussian-shape visualization
 
 class GaussianImageCholesky(QuantizeMixin, GaussianModelBase):
     name = "GaussianImage_Cholesky"
-    # the fused splat prep fixes opacity at 1; a subclass whose splat
-    # changes the opacity must opt out
     fused_prep_ok = True
 
     def __init__(self, config: ModelConfig, device=None):
@@ -134,20 +132,6 @@ class GaussianImageCholesky(QuantizeMixin, GaussianModelBase):
         opac = torch.ones(means.shape[0], 1, dtype=torch.float32,
                           device=means.device)
         return xys, radii, conics, colors, opac
-
-    def _rasterize_quantized(self, means, geo, colors):
-        """The QAT forward's and the generic decode's render: the generic
-        differentiable rasterizer (K1 forward, K2 backward)."""
-        cfg = self.cfg
-        xys, radii, conics, colors, opac = self._quantized_splat(
-            means, geo, colors)
-        return rasterize_gaussians_sum(xys, conics, colors, opac, cfg.H,
-                                       cfg.W, radii=radii, config=cfg.raster)
-
-    def _fused_ok(self) -> bool:
-        cfg = self.cfg
-        return self.fused_prep_ok and fused_decode_supported(
-            self._xyz.shape[0], cfg.H, cfg.W, cfg.raster)
 
     @torch.no_grad()
     def decompress_wo_ec(self, enc, params=None, vq=None):

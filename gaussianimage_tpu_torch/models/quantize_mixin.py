@@ -33,6 +33,7 @@ from gaussianimage_tpu_torch.codec import (ResidualVQ, ResidualVQState,
 from gaussianimage_tpu_torch.codec.bitstream import (compress_categorical,
                                                      decompress_categorical,
                                                      np_bits)
+from gaussianimage_tpu_torch.ops import rasterize_gaussians_sum
 from gaussianimage_tpu_torch.utils.losses import loss_fn
 
 VQ_SPEC = dict(dim=3, codebook_size=8, num_quantizers=2, kmeans_iters=5,
@@ -64,7 +65,7 @@ class _VQBuffers(nn.Module):
 class QuantizeMixin:
     """Requires: ``self.cfg``, ``self._xyz``, ``get_features()`` and the
     hooks ``_uq_channels()``, ``_uq_raw_values()`` and
-    ``_rasterize_quantized(means, geo, colors)``."""
+    ``_quantized_splat(means, geo, colors)``."""
 
     @property
     def features_vq(self) -> ResidualVQ:
@@ -144,6 +145,15 @@ class QuantizeMixin:
         colors, _, vq_loss, vq_state = self.features_vq(
             self.vq_state(), self.get_features(), training=training)
         return means, geo, colors, vq_loss, vq_state
+
+    def _rasterize_quantized(self, means, geo, colors):
+        """The QAT forward's and the generic decode's render: the generic
+        differentiable rasterizer (K1 forward, K2 backward)."""
+        cfg = self.cfg
+        xys, radii, conics, colors, opac = self._quantized_splat(
+            means, geo, colors)
+        return rasterize_gaussians_sum(xys, conics, colors, opac, cfg.H,
+                                       cfg.W, radii=radii, config=cfg.raster)
 
     def render_quantize(self, training: bool = True) -> Dict:
         """The quantized render [1, 3, H, W], clipped to [0, 1], with the

@@ -68,6 +68,14 @@ KERNELS = {
             # K7: as K4, with n_per after N
             "splat_prep_decode_batch": ([_p] * 6 + [_i] * 9 + [_f] * 4
                                         + [_p, _p, _p, _p], _i),
+            # K6b: xyz, scaling, rotation, colors, then as K5 from N on
+            # with two bound floats (b0, b1)
+            "splat_prep_rs_raw": ([_p] * 4 + [_i] * 8 + [_f] * 3
+                                  + [_p, _p, _p, _p], _i),
+            # K6a: xyz, scodes, rcodes, idx, s_scale, s_beta, r_scale,
+            # r_beta, embed, then as K6b from N on
+            "splat_prep_rs_decode": ([_p] * 9 + [_i] * 8 + [_f] * 3
+                                     + [_p, _p, _p, _p], _i),
         },
     ),
 }

@@ -1,4 +1,4 @@
-// K4, K5 and K7: the fused splat prep for Hopper (sm_90a), one pass from a
+// K4-K7: the fused splat prep for Hopper (sm_90a), one pass from a
 // Gaussian's parameters to its packed feature row, its binning keys and its
 // counts.
 //
@@ -17,7 +17,16 @@
 // scale, beta and combined codebook (embed[f * 64 + idx0 * 8 + idx1]), maps
 // its y with the frame's height and then adds f * H, and clips its tile
 // rows to its frame's band [f * rows, f * rows + rows - 1].
-// All three then run splat_prep_common.cuh's project_pack_bin: pixel mapping,
+// K6b splat_prep_rs_raw replaces ::_rs_raw_kernel (:471): the RS serving
+// render's front from raw parameters,
+//   means = tanh(_xyz), s = |_scaling + bound|, theta = sigmoid(_rotation)
+//   * 2 pi (torch's CUDA sigmoid, torch_sigmoid), Sigma = rs_cov(s, theta).
+// K6a splat_prep_rs_decode replaces ::_rs_decode_kernel (:434): the RS
+// decode's front from code arrays,
+//   means = tanh(f16 xyz codes), s = |code * scale + beta + bound|,
+//   theta = code * scale + beta (the codec quantizes the activated angle,
+//   so no sigmoid), colors from the combined codebook as in K4.
+// All five then run splat_prep_common.cuh's project_pack_bin: pixel mapping,
 // conic with the 1e-6 det floor, 3-sigma radius, the exact q <= q_cut axis
 // extents, the [N+1, 16] feature row, M packed keys (tile << id_bits) | row
 // with dead slots at INT32_MAX, and the (trunc, live) counts.
@@ -25,6 +34,8 @@
 // Bound on the H100: bytes. At N = 10,000 and M = 9 a launch reads 28-32 B
 // and writes 64 + 4M + 8 B per row, about 1.4 MB (0.4 us at 3.35 TB/s),
 // against about 2M FP32 slots (0.06 us); K7 at B frames moves B times that.
+// K6a/K6b add sinf, cosf (and K6b expf) to a row: about 3M slots, still
+// under the byte time.
 // Launch latency dominates. K7's per-frame tables (2 * 3 B + 64 * 3 B
 // floats) are read through the cache.
 //
@@ -138,6 +149,66 @@ splat_prep_decode_batch_kernel(const float* __restrict__ xyz,
       col[2], g, band, feat, keys, stats);
 }
 
+// K6b. scaling [N, 2] before the bound, rotation [N, 1] before the sigmoid.
+__global__ void __launch_bounds__(kThreads)
+splat_prep_rs_raw_kernel(const float* __restrict__ xyz,
+                         const float* __restrict__ scaling,
+                         const float* __restrict__ rotation,
+                         const float* __restrict__ colors, float b0, float b1,
+                         Geom g, float* __restrict__ feat,
+                         int* __restrict__ keys, int* __restrict__ stats) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= g.n_rows) return;
+  const bool valid = r < g.N;
+  const int i = valid ? r : 0;
+  const float mx = tanhf(xyz[2 * i]);
+  const float my = tanhf(xyz[2 * i + 1]);
+  const float sx = fabsf(__fadd_rn(scaling[2 * i], b0));
+  const float sy = fabsf(__fadd_rn(scaling[2 * i + 1], b1));
+  const float theta = __fmul_rn(torch_sigmoid(rotation[i]), kTwoPi);
+  float s11, s12, s22;
+  rs_cov(sx, sy, theta, s11, s12, s22);
+  project_pack_bin<false>(r, valid, mx, my, s11, s12, s22, colors[3 * i],
+                          colors[3 * i + 1], colors[3 * i + 2], g, Band{},
+                          feat, keys, stats);
+}
+
+// K6a. scodes [N, 2], rcodes [N, 1]; s_scale, s_beta [2]; r_scale, r_beta
+// [1]; dequantized as the generic path does: code * scale + beta.
+__global__ void __launch_bounds__(kThreads)
+splat_prep_rs_decode_kernel(const float* __restrict__ xyz,
+                            const int* __restrict__ scodes,
+                            const int* __restrict__ rcodes,
+                            const int* __restrict__ idx,
+                            const float* __restrict__ s_scale,
+                            const float* __restrict__ s_beta,
+                            const float* __restrict__ r_scale,
+                            const float* __restrict__ r_beta,
+                            const float* __restrict__ embed, float b0,
+                            float b1, Geom g, float* __restrict__ feat,
+                            int* __restrict__ keys, int* __restrict__ stats) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= g.n_rows) return;
+  const bool valid = r < g.N;
+  const int i = valid ? r : 0;
+  const float mx = tanhf(xyz[2 * i]);
+  const float my = tanhf(xyz[2 * i + 1]);
+  const float sx = fabsf(__fadd_rn(
+      __fadd_rn(__fmul_rn((float)scodes[2 * i], s_scale[0]), s_beta[0]), b0));
+  const float sy = fabsf(__fadd_rn(
+      __fadd_rn(__fmul_rn((float)scodes[2 * i + 1], s_scale[1]), s_beta[1]),
+      b1));
+  const float theta =
+      __fadd_rn(__fmul_rn((float)rcodes[i], r_scale[0]), r_beta[0]);
+  float s11, s12, s22;
+  rs_cov(sx, sy, theta, s11, s12, s22);
+  int comb = idx[2 * i] * 8 + idx[2 * i + 1];
+  if (comb < 0 || comb >= 64) comb = 0;
+  project_pack_bin<false>(r, valid, mx, my, s11, s12, s22, embed[3 * comb],
+                          embed[3 * comb + 1], embed[3 * comb + 2], g,
+                          Band{}, feat, keys, stats);
+}
+
 Geom make_geom(int N, int H, int W, int tile_px, int tiles_x, int tiles_y,
                int M, int id_bits, float q_cut) {
   Geom g;
@@ -208,5 +279,37 @@ extern "C" int splat_prep_decode_batch(
                                    stream>>>(xyz, codes, idx, scale, beta,
                                              embed, b0, b1, b2, n_per,
                                              rows_pf, g, feat, keys, stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6b. xyz [N, 2], scaling [N, 2], rotation [N, 1], colors [N, 3] f32; the
+// bound (b0, b1); outputs as K5's.
+extern "C" int splat_prep_rs_raw(const float* xyz, const float* scaling,
+                                 const float* rotation, const float* colors,
+                                 int N, int H, int W, int tile_px, int tiles_x,
+                                 int tiles_y, int M, int id_bits, float q_cut,
+                                 float b0, float b1, float* feat, int* keys,
+                                 int* stats, cudaStream_t stream) {
+  if (N < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Geom g = make_geom(N, H, W, tile_px, tiles_x, tiles_y, M, id_bits, q_cut);
+  splat_prep_rs_raw_kernel<<<blocks_for(g.n_rows), kThreads, 0, stream>>>(
+      xyz, scaling, rotation, colors, b0, b1, g, feat, keys, stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6a. xyz [N, 2] f32 (the f16 codes, widened), scodes [N, 2], rcodes
+// [N, 1] and idx [N, 2] i32, s_scale, s_beta [2], r_scale, r_beta [1],
+// embed [64, 3] f32; the bound (b0, b1); outputs as K5's.
+extern "C" int splat_prep_rs_decode(
+    const float* xyz, const int* scodes, const int* rcodes, const int* idx,
+    const float* s_scale, const float* s_beta, const float* r_scale,
+    const float* r_beta, const float* embed, int N, int H, int W, int tile_px,
+    int tiles_x, int tiles_y, int M, int id_bits, float q_cut, float b0,
+    float b1, float* feat, int* keys, int* stats, cudaStream_t stream) {
+  if (N < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Geom g = make_geom(N, H, W, tile_px, tiles_x, tiles_y, M, id_bits, q_cut);
+  splat_prep_rs_decode_kernel<<<blocks_for(g.n_rows), kThreads, 0, stream>>>(
+      xyz, scodes, rcodes, idx, s_scale, s_beta, r_scale, r_beta, embed, b0,
+      b1, g, feat, keys, stats);
   return static_cast<int>(cudaGetLastError());
 }

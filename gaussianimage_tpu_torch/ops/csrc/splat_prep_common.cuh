@@ -1,9 +1,10 @@
-// Device code shared by the fused splat-prep kernels K4, K5 and K7
+// Device code shared by the fused splat-prep kernels K4-K7
 // (splat_prep.cu): the projection, the packed feature row, the binning keys
 // and the counts of one Gaussian, from its mean in NDC, its covariance and
 // its color. Counterpart of gaussianimage_tpu/ops/splat_prep.py
 // _project_pack_bin (:61) and _pack_bin (:110), which replicate
-// core/covariance.py, rasterize_sum._axis_radii and tiles._expand_instances.
+// core/covariance.py, rasterize_sum._axis_radii and tiles._expand_instances;
+// and the RS model's covariance (_rs_cov, :421) and angle activation.
 //
 // Arithmetic: the JAX expression, rounded op by op (__fmul_rn, __fadd_rn,
 // __fdiv_rn, __fsqrt_rn: no FMA contraction, no fast math), with floorf and
@@ -21,6 +22,33 @@ namespace sprep {
 constexpr int kFW = 16;                // floats per packed feature row
 constexpr int kIntMax = 0x7fffffff;    // dead key slot
 constexpr int kThreads = 256;
+constexpr float kTwoPi = 6.28318530717958647692f;  // float(2 pi), as torch
+                                                    // and JAX round it
+
+// torch.sigmoid of a float32 tensor on CUDA: 1 / (1 + exp(-x)) in float,
+// with expf and an IEEE division (ATen/native/cuda/
+// UnarySpecialOpsKernel.cu, sigmoid_kernel_cuda), so that the RS angle
+// sigmoid(r) * 2 pi agrees bit for bit with the plain version and the
+// generic path on the card.
+__device__ __forceinline__ float torch_sigmoid(float x) {
+  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
+}
+
+// The RS covariance Sigma = R(theta) diag(sx, sy)^2 R(theta)^T, as
+// core/covariance.py's cov2d_from_scale_rot computes it: full-precision
+// cosf and sinf, each product left to right, no contraction.
+__device__ __forceinline__ void rs_cov(float sx, float sy, float theta,
+                                       float& s11, float& s12, float& s22) {
+  const float c = cosf(theta);
+  const float s = sinf(theta);
+  const float sx2 = __fmul_rn(sx, sx);
+  const float sy2 = __fmul_rn(sy, sy);
+  const float cc = __fmul_rn(c, c);
+  const float ss = __fmul_rn(s, s);
+  s11 = __fadd_rn(__fmul_rn(cc, sx2), __fmul_rn(ss, sy2));
+  s12 = __fmul_rn(__fmul_rn(c, s), __fsub_rn(sx2, sy2));
+  s22 = __fadd_rn(__fmul_rn(ss, sx2), __fmul_rn(cc, sy2));
+}
 
 // Static geometry of one prep launch. n_rows = N + 1: row N is the zero
 // sentinel row the stream's dead slots read. H is the height the pixel
@@ -44,7 +72,7 @@ struct Band {
 // stats[r] = trunc, stats[n_rows + r] = live instances. Rows r >= N
 // (valid == false) write a zero row, dead keys and zero counts.
 // kBand (K7 only) adds band.y_off to y after the pixel mapping and clips
-// the tile rows to [band.lo, band.hi]; without it (K4, K5) the code is the
+// the tile rows to [band.lo, band.hi]; without it (K4-K6) the code is the
 // single-frame expression, and `band` is not read.
 template <bool kBand>
 __device__ __forceinline__ void project_pack_bin(

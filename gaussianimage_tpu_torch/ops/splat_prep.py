@@ -6,14 +6,14 @@ instance-expansion glue of the generic path.
 Per Gaussian it emits:
 
 - ``feat`` [N+1, 16]: the premultiplied feature row ``pack_feat`` builds
-  (opacity 1 on the Cholesky model), row N the zero sentinel;
+  (opacity 1 on the Cholesky and RS models), row N the zero sentinel;
 - ``keys`` [M, N+1] int32: its M packed sort keys ``(tile << id_bits) | id``
   in slot-major order, dead slots at INT32_MAX, as ``tiles._sorted_stream``
   packs them, so one sort and the window bounds finish the binning
   (``rasterize_sum.rasterize_from_keys_chw``);
 - ``stats`` [2, N+1] int32: its (trunc, live) counts, summed for n_dropped.
 
-Three CUDA kernels in ``csrc/splat_prep.cu`` share one device function
+Five CUDA kernels in ``csrc/splat_prep.cu`` share one device function
 (``csrc/splat_prep_common.cuh``):
 
 - K5 ``raw_prep``: from raw parameters (tanh means, the Cholesky bound),
@@ -24,10 +24,18 @@ Three CUDA kernels in ``csrc/splat_prep.cu`` share one device function
 - K7 ``batch_decode_prep``: K4 over B frames stacked on one tall canvas,
   each row with its frame's scale, beta and codebook, its y shifted into
   its frame and its keys clipped to its frame's tile-row band, the batched
-  decode's front (``fused_decode_cholesky_batch``, batched.py).
+  decode's front (``fused_decode_cholesky_batch``, batched.py);
+- K6b ``rs_raw_prep``: the RS model's raw front (scales ``abs(s + bound)``,
+  the angle ``sigmoid(r) * 2 pi``, Sigma = R diag(s)^2 R^T), the RS
+  serving render's (``fused_render_rs``);
+- K6a ``rs_decode_prep``: the RS decode front from code arrays (the
+  dequantized scales through ``abs(. + bound)``, the dequantized angle as
+  it stands: the codec quantizes the activated rotation), the RS decode's
+  (``fused_decode_rs``).
 
 Beside each is a plain PyTorch version of the same math, op for op
-(``raw_prep_plain``, ``decode_prep_plain``, ``batch_decode_prep_plain``).
+(``raw_prep_plain``, ``decode_prep_plain``, ``batch_decode_prep_plain``,
+``rs_raw_prep_plain``, ``rs_decode_prep_plain``).
 A wrapper takes it for CPU tensors only; a CUDA tensor launches the kernel
 or raises. The math replicates core/covariance.py,
 rasterize_sum._axis_radii and tiles._expand_instances, so the prep's
@@ -36,13 +44,13 @@ autograd projection.
 
 The JAX kernel's row blocks (``_BLK_CAP``) and its [1, blk] lane layout fit
 the TPU's VMEM and vector lanes; neither carries over, nor does K7's
-one-hot selection of the per-frame tables (an exact gather here). The RS
-fronts (K6a/b) are not ported yet (ROADMAP.md).
+one-hot selection of the per-frame tables (an exact gather here).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Tuple
 
 import torch
@@ -53,6 +61,7 @@ from gaussianimage_tpu_torch.ops.rasterize_sum import rasterize_from_keys_chw
 from gaussianimage_tpu_torch.ops.tiles import INT32_MAX
 
 CODEBOOK = 8  # residual-VQ codebook size: the combined table has 8 x 8 rows
+TWO_PI = 2.0 * math.pi  # the RS angle's range: sigmoid(r) * TWO_PI
 
 Prep = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -69,7 +78,7 @@ def prep_geometry(N: int, H: int, W: int, tile_px: int):
 
 
 # ---------------------------------------------------------------------------
-# plain versions of K5 and K4
+# plain versions of K4-K7
 # ---------------------------------------------------------------------------
 
 
@@ -155,6 +164,16 @@ def _cov_from_chol(l11, l21, l22):
     return l11 * l11, l11 * l21, l21 * l21 + l22 * l22
 
 
+def _cov_from_scale_rot(sx, sy, theta):
+    """core/covariance.py's cov2d_from_scale_rot on [N] rows."""
+    c = torch.cos(theta)
+    s = torch.sin(theta)
+    sx2 = sx * sx
+    sy2 = sy * sy
+    return (c * c * sx2 + s * s * sy2, c * s * (sx2 - sy2),
+            s * s * sx2 + c * c * sy2)
+
+
 def raw_prep_plain(xyz, chol, colors, bound, H: int, W: int, tile_px: int,
                    M: int, q_cut: float) -> Prep:
     """Plain PyTorch version of K5: raw ``_xyz`` [N, 2], ``_cholesky``
@@ -201,6 +220,37 @@ def batch_decode_prep_plain(xyz, codes, idx, scale, beta, embed, bound,
                              W, tile_px, M, q_cut, frame=frame, B=B)
 
 
+def rs_raw_prep_plain(xyz, scaling, rotation, colors, bound, H: int, W: int,
+                      tile_px: int, M: int, q_cut: float) -> Prep:
+    """Plain PyTorch version of K6b: raw ``_xyz`` [N, 2], ``_scaling``
+    [N, 2] (before the bound), ``_rotation`` [N, 1] and colors [N, 3] ->
+    as K5."""
+    means = torch.tanh(xyz)
+    theta = torch.sigmoid(rotation[:, 0]) * TWO_PI
+    cov = _cov_from_scale_rot(torch.abs(scaling[:, 0] + bound[0]),
+                              torch.abs(scaling[:, 1] + bound[1]), theta)
+    return _project_pack_bin(means[:, 0], means[:, 1], *cov, colors, H, W,
+                             tile_px, M, q_cut)
+
+
+def rs_decode_prep_plain(xyz, scodes, rcodes, idx, s_scale, s_beta, r_scale,
+                         r_beta, embed, bound, H: int, W: int, tile_px: int,
+                         M: int, q_cut: float) -> Prep:
+    """Plain PyTorch version of K6a: the f16 means widened to f32 [N, 2],
+    scaling codes [N, 2] and rotation codes [N, 1] int32, VQ indices
+    [N, 2] int32, the quantizers' scale and beta ([2] scaling, [1]
+    rotation) and the combined codebook [64, 3] -> as K5. The rotation is
+    dequantized to radians and used as it stands."""
+    means = torch.tanh(xyz)
+    s = scodes.float() * s_scale + s_beta
+    theta = rcodes[:, 0].float() * r_scale[0] + r_beta[0]
+    cov = _cov_from_scale_rot(torch.abs(s[:, 0] + bound[0]),
+                              torch.abs(s[:, 1] + bound[1]), theta)
+    colors = embed[(idx[:, 0] * CODEBOOK + idx[:, 1]).long()]
+    return _project_pack_bin(means[:, 0], means[:, 1], *cov, colors, H, W,
+                             tile_px, M, q_cut)
+
+
 # ---------------------------------------------------------------------------
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
@@ -226,9 +276,10 @@ def _check_inputs(kernel: str, named):
 def _launch(fn_name: str, kernel: str, inputs, bound, H, W, tile_px, M,
             q_cut, frames=None) -> Prep:
     """Launch ``fn_name`` on the N rows of ``inputs[0]`` and a canvas of
-    height H. Its C function takes the rows and the height (N, H) (K4, K5),
+    height H. Its C function takes the rows and the height (N, H) (K4-K6),
     or with ``frames`` = B (K7) the rows, the rows of a frame and a
-    frame's height (N, N / B, H / B)."""
+    frame's height (N, N / B, H / B); then the geometry and the floats of
+    ``bound`` (three for Cholesky, two for RS)."""
     N, dev = inputs[0].shape[0], inputs[0].device
     dims = (N, H) if frames is None else (N, N // frames, H // frames)
     tiles_x, tiles_y, id_bits = prep_geometry(N, H, W, tile_px)
@@ -327,9 +378,67 @@ def batch_decode_prep(xyz, codes, idx, scale, beta, embed, bound, B: int,
     return out
 
 
+def rs_raw_prep(xyz, scaling, rotation, colors, bound, H: int, W: int,
+                tile_px: int, M: int, q_cut: float) -> Prep:
+    """K6b -> as K5, from float32 ``xyz`` [N, 2], ``scaling`` [N, 2]
+    (before the bound), ``rotation`` [N, 1] (before the sigmoid) and
+    ``colors`` [N, 3]; ``bound`` two floats.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version. ``rs_raw_prep.launches`` counts the kernel's launches."""
+    if xyz.device.type == "cpu":
+        return rs_raw_prep_plain(xyz, scaling, rotation, colors, bound, H, W,
+                                 tile_px, M, q_cut)
+    N = xyz.shape[0]
+    _check_inputs("K6b", [("xyz", xyz, torch.float32, (N, 2)),
+                          ("scaling", scaling, torch.float32, (N, 2)),
+                          ("rotation", rotation, torch.float32, (N, 1)),
+                          ("colors", colors, torch.float32, (N, 3))])
+    out = _launch("splat_prep_rs_raw", "K6b splat_prep_rs_raw",
+                  (xyz, scaling, rotation, colors), bound, H, W, tile_px, M,
+                  q_cut)
+    rs_raw_prep.launches += 1
+    return out
+
+
+def rs_decode_prep(xyz, scodes, rcodes, idx, s_scale, s_beta, r_scale,
+                   r_beta, embed, bound, H: int, W: int, tile_px: int,
+                   M: int, q_cut: float) -> Prep:
+    """K6a -> as K5, from float32 ``xyz`` [N, 2] (the f16 codes, widened),
+    int32 scaling codes ``scodes`` [N, 2], rotation codes ``rcodes``
+    [N, 1] and ``idx`` [N, 2], the float32 quantizer tables ``s_scale``,
+    ``s_beta`` [2] and ``r_scale``, ``r_beta`` [1], and the combined
+    codebook ``embed`` [64, 3]; ``bound`` two floats.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version. ``rs_decode_prep.launches`` counts the kernel's launches."""
+    if xyz.device.type == "cpu":
+        return rs_decode_prep_plain(xyz, scodes, rcodes, idx, s_scale,
+                                    s_beta, r_scale, r_beta, embed, bound, H,
+                                    W, tile_px, M, q_cut)
+    N = xyz.shape[0]
+    _check_inputs("K6a", [("xyz", xyz, torch.float32, (N, 2)),
+                          ("scodes", scodes, torch.int32, (N, 2)),
+                          ("rcodes", rcodes, torch.int32, (N, 1)),
+                          ("idx", idx, torch.int32, (N, 2)),
+                          ("s_scale", s_scale, torch.float32, (2,)),
+                          ("s_beta", s_beta, torch.float32, (2,)),
+                          ("r_scale", r_scale, torch.float32, (1,)),
+                          ("r_beta", r_beta, torch.float32, (1,)),
+                          ("embed", embed, torch.float32,
+                           (CODEBOOK * CODEBOOK, 3))])
+    out = _launch("splat_prep_rs_decode", "K6a splat_prep_rs_decode",
+                  (xyz, scodes, rcodes, idx, s_scale, s_beta, r_scale,
+                   r_beta, embed), bound, H, W, tile_px, M, q_cut)
+    rs_decode_prep.launches += 1
+    return out
+
+
 raw_prep.launches = 0
 decode_prep.launches = 0
 batch_decode_prep.launches = 0
+rs_raw_prep.launches = 0
+rs_decode_prep.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -382,6 +491,32 @@ def fused_prep_cholesky_batch(enc_xyz, chol_codes, quant_scale, quant_beta,
         quant_beta.reshape(B, 3).float().contiguous(),
         embed_combined.float().contiguous(), tuple(float(b) for b in bound),
         B, H_total, W, cfg.tile_px, m_span, float(cfg.q_cut)))
+
+
+def fused_raw_prep_rs(xyz, scaling_raw, rot_raw, colors, bound, H: int,
+                      W: int, cfg, m_span: int):
+    """Raw-parameter RS front (K6b) -> (feat, keys, trunc, n_total)."""
+    return _finish(rs_raw_prep(
+        xyz.float().contiguous(), scaling_raw.float().contiguous(),
+        rot_raw.float().reshape(-1, 1).contiguous(),
+        colors.float().contiguous(), tuple(float(b) for b in bound), H, W,
+        cfg.tile_px, m_span, float(cfg.q_cut)))
+
+
+def fused_prep_rs(enc_xyz, scaling_codes, rot_codes, s_scale, s_beta,
+                  r_scale, r_beta, bound, vq_idx, embed_combined, H: int,
+                  W: int, cfg, m_span: int):
+    """RS decode front (K6a): code arrays -> (feat, keys, trunc, n_total).
+    ``enc_xyz`` [N, 2] holds the float16 codes."""
+    return _finish(rs_decode_prep(
+        enc_xyz.float().contiguous(), scaling_codes.int().contiguous(),
+        rot_codes.int().reshape(-1, 1).contiguous(),
+        vq_idx.int().contiguous(), s_scale.float().reshape(2).contiguous(),
+        s_beta.float().reshape(2).contiguous(),
+        r_scale.float().reshape(1).contiguous(),
+        r_beta.float().reshape(1).contiguous(),
+        embed_combined.float().contiguous(), tuple(float(b) for b in bound),
+        H, W, cfg.tile_px, m_span, float(cfg.q_cut)))
 
 
 def fused_decode_supported(N: int, H: int, W: int, cfg) -> bool:
@@ -444,3 +579,25 @@ def fused_decode_cholesky_batch(enc_xyz_b, chol_codes_b, scale_b, beta_b,
         B, H * B, W, cfg, m_span)
     return rasterize_from_keys_chw(feat, keys, trunc, n_total, H * B, W, cfg,
                                    I0)
+
+
+def fused_render_rs(xyz, scaling_raw, rot_raw, colors, bound, H: int, W: int,
+                    cfg):
+    """RS forward render from raw parameters: K6b, one sort, K1. Returns
+    (img [3, H, W], alpha [H, W], aux), unclamped."""
+    I0, m_span = _flat_caps(xyz.shape[0], cfg)
+    feat, keys, trunc, n_total = fused_raw_prep_rs(
+        xyz, scaling_raw, rot_raw, colors, bound, H, W, cfg, m_span)
+    return rasterize_from_keys_chw(feat, keys, trunc, n_total, H, W, cfg, I0)
+
+
+def fused_decode_rs(enc_xyz, scaling_codes, rot_codes, s_scale, s_beta,
+                    r_scale, r_beta, bound, vq_idx, embed_combined, H: int,
+                    W: int, cfg):
+    """RS decode from code arrays: K6a, one sort, K1. Returns
+    (img [3, H, W], alpha [H, W], aux), unclamped."""
+    I0, m_span = _flat_caps(enc_xyz.shape[0], cfg)
+    feat, keys, trunc, n_total = fused_prep_rs(
+        enc_xyz, scaling_codes, rot_codes, s_scale, s_beta, r_scale, r_beta,
+        bound, vq_idx, embed_combined, H, W, cfg, m_span)
+    return rasterize_from_keys_chw(feat, keys, trunc, n_total, H, W, cfg, I0)

@@ -7,7 +7,8 @@ breakdown, with and without entropy coding; write ``test.npy`` and
 - The image and its PSNR come from the default model's decode (the generic
   path), as in the JAX package.
 - The decode probe runs on the ``RasterizeConfig.serving`` twin, whose
-  decode is the fused splat prep K4 and then K1, unless that twin drops
+  decode is the fused splat prep (K4 for Cholesky, K6a for RS) and then
+  K1, unless that twin drops
   instances on this scene (its ``n_dropped`` is read first); then on the
   default model, as the JAX package routes it. It queues ``FPS_FRAMES``
   decodes back to back, twice after a warm-up burst, and divides by 200,
@@ -20,8 +21,9 @@ breakdown, with and without entropy coding; write ``test.npy`` and
 
 - The whole-dataset decode probe (``batched_dataset_decode_fps``): every
   image of the largest same-size group stacked, ``scan_len`` dataset
-  decodes a burst, routed by ``batched.prefer_batched`` (one stacked pass
-  through K7, or a loop of single-frame decodes through K4; the loop
+  decodes a burst, routed by ``batched.prefer_batched`` (one stacked pass,
+  through K7 for Cholesky and the generic stacked decode for RS, or a loop
+  of single-frame decodes through K4 or K6a; the loop
   wherever the stacked stream would pass the flat layout), on the
   default config with the fused prep on, as in the JAX package. Each
   decode adds a sub-ulp amount to the quantizer scale, as the JAX probe
@@ -29,7 +31,11 @@ breakdown, with and without entropy coding; write ``test.npy`` and
 
 Run:  python -m gaussianimage_tpu_torch.test_quantize -d data/ \\
         --data_name photos --model_path <QAT checkpoint root> \\
-        --num_points 10000 [--device cpu]
+        --num_points 10000 [--model_name GaussianImage_RS] [--device cpu]
+
+The lines report the covariance's bits as ``cholesky_bpp``, as the JAX
+package does for both models; ``test.npy`` also holds RS's ``scaling_bpp``
+and ``rotation_bpp``.
 """
 
 from __future__ import annotations

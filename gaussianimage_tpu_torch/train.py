@@ -4,8 +4,9 @@ trainer and CLI (counterpart of gaussianimage_tpu/train.py:60-372,479-511).
 A fit (``--iterations > 0``) initialises the model (adaptive by default),
 optionally warm-starts from ``--model_path`` or resumes from the image's
 ``resume.pt``, and runs a plain Python loop of training steps on the card:
-for GaussianImage_Cholesky under L2 each step is one fused render + L2 +
-backward kernel (K3) and one Adan update. The JAX package scans 250 steps
+for GaussianImage_Cholesky and GaussianImage_RS (``--model_name``) under
+L2 each step is the model's projection, one fused render + L2 + backward
+kernel (K3) and one Adan update. The JAX package scans 250 steps
 per compiled call; here the chunk is bookkeeping only: reseed rounds fire
 at the first chunk boundary at or after each scheduled iteration, the
 stream overflow (``n_dropped``) is read once per chunk, and the per-step
@@ -21,7 +22,8 @@ its keys. ``--iterations 0 --model_path <checkpoint>`` evaluates a fitted
 checkpoint.
 
 Run:  python -m gaussianimage_tpu_torch.train --data_name photos \\
-        --dataset data/ --iterations 50000 --num_points 10000 [--device cpu]
+        --dataset data/ --iterations 50000 --num_points 10000 \\
+        [--model_name GaussianImage_RS] [--device cpu]
 
 A ``--model_path`` directory is searched for ``<image>/gaussian_model.npz``,
 then ``gaussian_model.npz``.
@@ -264,8 +266,9 @@ class SimpleTrainer2d:
 
     @torch.no_grad()
     def _dump_viz(self, it: int) -> None:
-        """Render, alpha heat map, Gaussian-shape render and center overlay
-        PNGs under ``viz/``."""
+        """Render and alpha heat map PNGs under ``viz/``, and where the
+        model's render gives them the Gaussian-shape render (Cholesky) and
+        the center overlay."""
         out = self.model.render(render_viz=True)
         viz_dir = self.log_dir / "viz"
         viz_dir.mkdir(parents=True, exist_ok=True)
@@ -276,15 +279,18 @@ class SimpleTrainer2d:
         heat = _colormap_viridis(alpha / max(float(alpha.max()), 1e-6))
         save_image_array(heat.transpose(2, 0, 1)[None],
                          viz_dir / f"iter_{it:06d}_alpha.png")
-        save_image_array(out["gauss_render"].cpu().numpy()[..., :ch, :cw],
-                         viz_dir / f"iter_{it:06d}_gauss.png")
-        overlay = render[0].transpose(1, 2, 0).copy()
-        xy = out["xys"].cpu().numpy().astype(np.int32)
-        ok = ((xy[:, 0] >= 0) & (xy[:, 0] < overlay.shape[1])
-              & (xy[:, 1] >= 0) & (xy[:, 1] < overlay.shape[0]))
-        overlay[xy[ok, 1], xy[ok, 0]] = np.array([1.0, 0.0, 0.0])
-        save_image_array(overlay.transpose(2, 0, 1)[None],
-                         viz_dir / f"iter_{it:06d}_overlay.png")
+        if "gauss_render" in out:
+            save_image_array(
+                out["gauss_render"].cpu().numpy()[..., :ch, :cw],
+                viz_dir / f"iter_{it:06d}_gauss.png")
+        if "xys" in out:
+            overlay = render[0].transpose(1, 2, 0).copy()
+            xy = out["xys"].cpu().numpy().astype(np.int32)
+            ok = ((xy[:, 0] >= 0) & (xy[:, 0] < overlay.shape[1])
+                  & (xy[:, 1] >= 0) & (xy[:, 1] < overlay.shape[0]))
+            overlay[xy[ok, 1], xy[ok, 0]] = np.array([1.0, 0.0, 0.0])
+            save_image_array(overlay.transpose(2, 0, 1)[None],
+                             viz_dir / f"iter_{it:06d}_overlay.png")
 
     # -- the fit -------------------------------------------------------------
     def fit(self) -> None:

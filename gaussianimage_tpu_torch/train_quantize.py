@@ -2,7 +2,9 @@
 gaussianimage_tpu/train_quantize.py; reference train_quantize.py:40-97):
 load a fitted (stage-1) checkpoint, set the uniform quantizers' ranges and
 the VQ codebooks from its weights, train QAT iterations (float16 means,
-6-bit Cholesky, 2x8 residual VQ on the colors), keep the parameters of the
+6-bit uniform quantizers on the covariance parameters: the Cholesky
+elements, or RS's raw scaling and activated rotation; 2x8 residual VQ on
+the colors), keep the parameters of the
 step with the best training PSNR on the device, and write the last and the
 best checkpoints, ``training.npy`` with the bpp, and ``train.txt``.
 
@@ -18,7 +20,8 @@ chunk there).
 Run:  python -m gaussianimage_tpu_torch.train_quantize -d data/ \\
         --data_name photos --num_points 10000 --iterations 50000 \\
         --model_path results/photos/GaussianImage_Cholesky_50000_10000 \\
-        --checkpoint_root <out> [--device cpu]
+        --checkpoint_root <out> [--model_name GaussianImage_RS] \\
+        [--device cpu]
 
 ``--model_path`` is the stage-1 checkpoint root, with one
 ``<image>/gaussian_model.npz`` per image.

@@ -93,7 +93,7 @@ def test_training_and_other_models_are_not_ported():
         train.main(["--data_name", "synthetic", "--iterations", "10",
                     "--device", "cpu", "--profile", "unused"])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_model("GaussianImage_RS", num_points=4, H=8, W=8)
+        make_model("GaussianImage_Cholesky_wMask", num_points=4, H=8, W=8)
     with pytest.raises(ValueError, match="unknown model"):
         make_model("NoSuchModel", num_points=4, H=8, W=8)
 
