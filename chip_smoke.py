@@ -96,13 +96,30 @@ Phases, one JSON line each (with ``elapsed_s``):
              cholesky_bpp, the codec PSNR equal to the QAT's best test
              PSNR, the "Dataset decode" line (the generic stacked path: RS
              has no batch kernel) and the ms per frame of both strategies;
+8g. gs3d_fit ``SimpleTrainer2d`` with ``3DGS`` (Fusion2, sh_degree 3, the
+             CLI defaults) fits the flower photo at N = 10,000 for 2000
+             iterations in a temp dir: no NaN loss, >= 2000 K8 and K9
+             launches and no K1, K2 or K3, test PSNR >= GS_FIT_PSNR and
+             >= the initial state's test PSNR + GS_FIT_GAIN; the
+             training PSNR every 500 iterations and n_dropped per chunk
+             (reported, not gated); then the CLI's evaluation
+             (``--iterations 0 --model_name 3DGS``) of its checkpoint, as a
+             two-image dataset of the flower photo: each PSNR equal to the
+             fit's within 1e-4 dB, the FPS probes through K8, no K9;
+8h. gs3d_kernel K8 and K9 on the 3DGS model's initial state and on the fit's,
+             768x512, tile 32 (and on the fit, tile 16, the kernels' other
+             build): K8's rgb and T_fin against its plain version
+             to BLEND_TOL and the chunks consumed equal in every tile; K9's
+             gradient rows (a cotangent from a fixed seed) to ROW_TOL of
+             each column's largest magnitude, and bit-identical twice;
 9. timing    each kernel and its plain version, the render, a training
              step over a 250-step burst, with each kernel's bound from this
              run's pair counts; torch.profiler traces of 20 launches of
              each kernel give its device time per launch, and traces of
              one FPS-probe burst and of 50 training steps the device time
              by kernel, launches and host operator calls per frame or
-             step, and the device busy share.
+             step, and the device busy share; the same for the 3DGS step
+             and its FPS-probe render (K8).
 
 Then the raw ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -174,6 +191,19 @@ FLIP_ROW_TOL = 1e-2
 FIT_ITERS = 5000
 FIT_PSNR = 38.5
 GENERIC_STEPS = 50
+GS = "3DGS"
+GS_ITERS = 2000
+# the 2000-iteration 3DGS flower fit's test PSNR floor: 1 dB under the
+# first reading on the H100 (PERF.md); no TPU anchor exists
+GS_FIT_PSNR = 1.769
+# and it must gain this much on the test PSNR of its own initial state (on
+# an H100: 2.0713 dB at the initial state, 2.7692 after 2000 steps)
+GS_FIT_GAIN = 0.3
+# the blend bound charges the alpha and compositing terms to the pairs
+# with q <= 2 log(o / alpha_min) + this margin, the quadratic form and the
+# compare alone to the rest
+GS_Q_MARGIN = 0.01
+BLEND_TOL = 1e-5   # K8's rgb and T_fin against its plain version
 
 # H100 SXM published peaks (dense, no sparsity) at the full 700 W limit
 PEAK_BYTES_S = 3.35e12
@@ -233,6 +263,33 @@ def pair_work(rs, feat, gids, starts, H, W, q_cut):
     return pairs, gated
 
 
+def blend_pair_work(torch, rs, feat, sp, nch, H, W, cfg):
+    """(pairs, near pairs, on pairs) that K8 and K9 evaluate on this data:
+    (slot, pixel) pairs of the chunks each tile consumed, with the pixel
+    inside the image; those within the row's threshold q <= 2 log(o /
+    alpha_min) + GS_Q_MARGIN, the only pairs whose gate needs the
+    exponential; and those whose o exp(-q/2) reaches alpha_min (the pairs
+    that composite)."""
+    T = sp.tiles_x * (-(-H // cfg.tile_px))
+    used = torch.minimum(sp.counts[:T].long(),
+                         nch.long() * cfg.block_inst)
+    tile = torch.repeat_interleave(torch.arange(T, device=used.device), used)
+    first = torch.cumsum(used, 0) - used
+    slot = (sp.starts[:T].long()[tile] - first[tile]
+            + torch.arange(tile.numel(), device=used.device))
+    starts_c = torch.cat([used.new_zeros(1), torch.cumsum(used, 0)]).int()
+    pairs = near = on = 0
+    for pr in rs.window_pairs(feat, sp.gids[slot].contiguous(), starts_c, H,
+                              W, cfg.tile_px):
+        o = pr.rows[:, 8:9]
+        raw = o * torch.exp(-0.5 * pr.q)
+        q_max = 2.0 * torch.log(o / cfg.alpha_min) + GS_Q_MARGIN
+        pairs += int(pr.inside.sum())
+        near += int((pr.inside & (pr.q <= q_max)).sum())
+        on += int((pr.inside & (raw >= cfg.alpha_min)).sum())
+    return pairs, near, on
+
+
 def bound(instr: float, mufu: float, nbytes: float):
     """(bound ms, bound_by): the larger of the FP32 issue-slot and MUFU
     times at the card's peak and the byte time at its memory rate."""
@@ -250,8 +307,10 @@ def row_err(torch, got, want):
 
 
 def _us_per_launch(kernels, name):
-    # kernel ``<name>_kernel``: K4's name is a prefix of K7's
-    hits = [e for e in kernels if f"{name}_kernel(" in e.key]
+    # kernel ``<name>_kernel``, templated or not: K4's name is a prefix of
+    # K7's
+    hits = [e for e in kernels if f"{name}_kernel(" in e.key
+            or f"{name}_kernel<" in e.key]
     n = sum(e.count for e in hits)
     return sum(e.self_device_time_total for e in hits) / n if n else None
 
@@ -315,6 +374,7 @@ def main() -> None:
     from gaussianimage_tpu_torch.models.cholesky import CHOLESKY_BOUND
     from gaussianimage_tpu_torch.models.rs import SCALING_BOUND
     from gaussianimage_tpu_torch.ops import RasterizeConfig, _build
+    from gaussianimage_tpu_torch.ops import rasterize_blend as blend
     from gaussianimage_tpu_torch.ops import rasterize_sum as rs
     from gaussianimage_tpu_torch.ops import splat_prep as prep
     from gaussianimage_tpu_torch.ops import stream_common as sc
@@ -331,7 +391,11 @@ def main() -> None:
                 "splat_prep_decode": prep.decode_prep,
                 "splat_prep_decode_batch": prep.batch_decode_prep,
                 "splat_prep_rs_raw": prep.rs_raw_prep,
-                "splat_prep_rs_decode": prep.rs_decode_prep}
+                "splat_prep_rs_decode": prep.rs_decode_prep,
+                "rasterize_blend_fwd": blend.blend_fwd,
+                "rasterize_blend_bwd": blend.blend_bwd}
+    sum_kernels = ("rasterize_sum_fwd", "rasterize_sum_bwd",
+                   "rasterize_sum_l2")
 
     def reset_counts():
         for fn in counters.values():
@@ -1200,6 +1264,142 @@ def main() -> None:
     finally:
         shutil.rmtree(rs_dir, ignore_errors=True)
 
+    # -- the 3DGS phases: a fit, its evaluation, K8 and K9 --------------------
+    gs_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_3dgs_"))
+    try:
+        # gs3d_fit: SimpleTrainer2d with 3DGS on the flower photo
+        gs_trainer = train.SimpleTrainer2d(
+            gt_flower, "flower", num_points=SERVE_N, model_name=GS,
+            iterations=GS_ITERS, args=train.parse_args(["--model_name", GS]),
+            log_dir=gs_dir / "fit" / "flower", device=dev)
+        gs_init_psnr = gs_trainer.test()[0]
+        reset_counts()
+        gs_fit = gs_trainer.train()
+        gs_fit_counts = read_counts()
+        gs_losses = np.asarray(gs_trainer._hist["loss"])
+        gs_hist = dict(zip(gs_trainer._hist["iter"],
+                           gs_trainer._hist["psnr"]))
+        if not np.isfinite(gs_losses).all() or len(gs_losses) != GS_ITERS:
+            fail(f"3DGS fit: {len(gs_losses)} losses, "
+                 f"{int((~np.isfinite(gs_losses)).sum())} not finite")
+        if (gs_fit_counts["rasterize_blend_fwd"] < GS_ITERS
+                or gs_fit_counts["rasterize_blend_bwd"] < GS_ITERS
+                or any(gs_fit_counts[k] for k in sum_kernels)):
+            fail(f"the 3DGS fit launched {gs_fit_counts}: want >= {GS_ITERS} "
+                 "K8 and K9, no K1, K2 or K3")
+        if not (gs_fit["psnr"] >= GS_FIT_PSNR
+                and gs_fit["psnr"] >= gs_init_psnr + GS_FIT_GAIN):
+            fail(f"3DGS fit test PSNR {gs_fit['psnr']}: want >= "
+                 f"{GS_FIT_PSNR} and >= the initial state's {gs_init_psnr} "
+                 f"+ {GS_FIT_GAIN}")
+        # its evaluation through the CLI, the flower photo twice
+        data3 = gs_dir / "data"
+        data3.mkdir()
+        for name in ("test01", "test02"):
+            shutil.copy(FLOWER_PHOTO, data3 / f"{name}.png")
+        reset_counts()
+        gs_eval = train.main([
+            "--data_name", "test", "--dataset", str(data3), "--model_name",
+            GS, "--iterations", "0", "--model_path",
+            str(gs_dir / "fit" / "flower"), "--num_points", str(SERVE_N),
+            "--checkpoint_root", str(gs_dir / "eval")])
+        gs_eval_counts = read_counts()
+        gs_eval_txt = (gs_dir / "eval" / "test" / f"{GS}_0_{SERVE_N}" /
+                       "test01" / "train.txt").read_text()
+        if any(abs(r["psnr"] - gs_fit["psnr"]) > 1e-4 for r in gs_eval):
+            fail(f"the 3DGS evaluation read {[r['psnr'] for r in gs_eval]}, "
+                 f"the fit {gs_fit['psnr']} (within 1e-4 dB)")
+        probe_frames = (1 + train.TIMED_BURSTS) * train.FPS_FRAMES
+        if (gs_eval_counts["rasterize_blend_fwd"] < len(gs_eval) * probe_frames
+                or gs_eval_counts["rasterize_blend_bwd"]
+                or any(gs_eval_counts[k] for k in sum_kernels)):
+            fail(f"the 3DGS evaluation launched {gs_eval_counts}: want >= "
+                 f"{probe_frames} K8 per image, no K9, K1, K2 or K3")
+        phase("gs3d_fit", model=GS, sh_degree=gs_trainer.model.cfg.sh_degree,
+              loss_type=gs_trainer.model.cfg.loss_type, iterations=GS_ITERS,
+              launches=gs_fit_counts,
+              training_psnr_every_500={i: gs_hist[i] for i in
+                                       range(500, GS_ITERS + 1, 500)},
+              test_psnr=gs_fit["psnr"], psnr_floor=GS_FIT_PSNR,
+              init_test_psnr=gs_init_psnr, psnr_gain_floor=GS_FIT_GAIN,
+              ms_ssim=gs_fit["ms_ssim"], training_s=gs_fit["training_time"],
+              ms_per_step=1e3 * gs_fit["training_time"] / GS_ITERS,
+              fps=gs_fit["fps"], n_dropped_chunks=gs_trainer.chunk_dropped,
+              n_dropped_test=gs_fit["n_dropped"],
+              evaluation={"launches": gs_eval_counts,
+                          "psnr": [r["psnr"] for r in gs_eval],
+                          "fps": [r["fps"] for r in gs_eval],
+                          "train_txt": gs_eval_txt.strip().splitlines()[-2:]})
+
+        # gs3d_kernel: K8 and K9 on the initial state and the fit's
+        gs_init = make_model(GS, device=dev, num_points=SERVE_N, H=512,
+                             W=768)
+        gs_init.init_params(torch.Generator(device=dev).manual_seed(1))
+        gs_fitted = gs_trainer.model
+        ls8 = blend.log_stop(gs_fitted.blend_cfg)
+        g9 = torch.as_tensor(np.random.default_rng(2).standard_normal(
+            (4, Hf, Wf)).astype(np.float32), device=dev)
+        gs_cases = {}
+        # the model's 32-pixel tiles, and the kernels' 16-pixel variant (the
+        # BlendConfig default) on the fit; the last case is timed below
+        for name, model, bcfg in (
+                ("init", gs_init, gs_fitted.blend_cfg),
+                ("fit_tile16", gs_fitted,
+                 gs_fitted.blend_cfg._replace(tile_px=16)),
+                ("fit", gs_fitted, gs_fitted.blend_cfg)):
+            bkw = dict(tile_px=bcfg.tile_px, block_inst=bcfg.block_inst,
+                       alpha_clip=bcfg.alpha_clip, alpha_min=bcfg.alpha_min)
+            with torch.no_grad():
+                xys, depths, radii, conics, rgbs, opac = model.project()
+                order, sp8 = blend.blend_stream(xys, depths, radii, Hf, Wf,
+                                                bcfg)
+                feat8 = blend.blend_feat(xys, conics, rgbs, opac, order)
+            out8, nch8 = blend.blend_fwd(feat8, sp8.gids, sp8.starts, Hf, Wf,
+                                         log_stop=ls8, **bkw)
+            torch.cuda.synchronize()
+            out8p, nch8p = blend.blend_fwd_plain(feat8, sp8.gids, sp8.starts,
+                                                 Hf, Wf, log_stop=ls8, **bkw)
+            e8 = float((out8[:4] - out8p[:4]).abs().max())
+            bad = (nch8 != nch8p).nonzero()[:, 0].tolist()
+            if not (math.isfinite(e8) and e8 <= BLEND_TOL) or bad:
+                fail(f"K8 disagrees with its plain version on the {name} "
+                     f"state: rgb and T_fin max |diff| {e8} (<= {BLEND_TOL});"
+                     f" {len(bad)} tiles consumed other chunk counts: "
+                     f"{bad[:20]}")
+            logt8 = out8[4].contiguous()
+            dg9 = blend.blend_bwd(feat8, sp8.gids, sp8.starts, logt8, nch8,
+                                  g9, Hf, Wf, **bkw)
+            dg9_again = blend.blend_bwd(feat8, sp8.gids, sp8.starts, logt8,
+                                        nch8, g9, Hf, Wf, **bkw)
+            torch.cuda.synchronize()
+            dg9p = blend.blend_bwd_plain(feat8, sp8.gids, sp8.starts, logt8,
+                                         nch8, g9, Hf, Wf, **bkw)
+            n8 = int(sp8.starts[sp8.T])
+            e9 = float(row_err(torch, dg9[:n8], dg9p[:n8]).max())
+            if not (torch.isfinite(dg9).all() and e9 <= ROW_TOL):
+                fail(f"K9 disagrees with its plain version on the {name} "
+                     f"state: worst row {e9} > {ROW_TOL} of the column max")
+            if not torch.equal(dg9, dg9_again):
+                fail(f"two runs of K9 on the {name} state differ")
+            pairs8, near8, on8 = blend_pair_work(torch, rs, feat8, sp8,
+                                                 nch8, Hf, Wf, bcfg)
+            gs_cases[name] = {
+                "tile_px": bcfg.tile_px, "k8_max_abs_err": e8,
+                "k8_bit_equal": bool(torch.equal(out8, out8p)),
+                "chunks_equal": True,
+                "chunks": int(nch8.sum()), "chunks_max": int(nch8.max()),
+                "tiles_walked": int((nch8 > 0).sum()),
+                "k9_worst_row": e9,
+                "k9_max_abs_err": float((dg9[:n8] - dg9p[:n8]).abs().max()),
+                "k9_bit_identical_twice": True, "instances": n8,
+                "max_count": int(sp8.counts.max()),
+                "n_dropped": int(sp8.n_dropped), "pairs": pairs8,
+                "near_pairs": near8, "on_pairs": on8}
+        phase("gs3d_kernel", blend_tol=BLEND_TOL, row_tol=ROW_TOL,
+              cases=gs_cases)
+    finally:
+        shutil.rmtree(gs_dir, ignore_errors=True)
+
     # -- timing ---------------------------------------------------------------
     ms, plain = {}, {}
     ms["rasterize_sum_fwd"] = burst_ms(
@@ -1236,6 +1436,21 @@ def main() -> None:
         torch, lambda: prep.rs_raw_prep_plain(*k6b_args), reps=20)
     plain["splat_prep_rs_decode"] = burst_ms(
         torch, lambda: prep.rs_decode_prep_plain(*k6a_args), reps=20)
+    # K8 and K9 on the 3DGS fit's stream, 32-pixel tiles (the last
+    # gs3d_kernel case)
+    k8_args = (feat8, sp8.gids, sp8.starts, Hf, Wf)
+    k9_args = (feat8, sp8.gids, sp8.starts, logt8, nch8, g9, Hf, Wf)
+    ms["rasterize_blend_fwd"] = burst_ms(
+        torch, lambda: blend.blend_fwd(*k8_args, log_stop=ls8, **bkw),
+        reps=50)
+    ms["rasterize_blend_bwd"] = burst_ms(
+        torch, lambda: blend.blend_bwd(*k9_args, **bkw), reps=50)
+    plain["rasterize_blend_fwd"] = burst_ms(
+        torch, lambda: blend.blend_fwd_plain(*k8_args, log_stop=ls8, **bkw),
+        reps=3, warmup=1)
+    plain["rasterize_blend_bwd"] = burst_ms(
+        torch, lambda: blend.blend_bwd_plain(*k9_args, **bkw), reps=3,
+        warmup=1)
     with torch.no_grad():
         render_ms = burst_ms(torch, flower.render, reps=30)
     step_opt = fitted.make_optimizer()
@@ -1251,6 +1466,21 @@ def main() -> None:
             fitted.train_step(step_opt, gt_fit)
 
     step_prof = profile_of(torch, steps50, 50, ported)
+    # the 3DGS step (Fusion2 through K8 and K9) and its FPS-probe render
+    gs_opt = gs_fitted.make_optimizer()
+    gs_gt = gs_trainer.gt_image
+    gs_step_ms = burst_ms(torch, lambda: gs_fitted.train_step(gs_opt, gs_gt),
+                          reps=100, warmup=5)
+
+    def gs_steps50():
+        for _ in range(50):
+            gs_fitted.train_step(gs_opt, gs_gt)
+
+    gs_step_prof = profile_of(torch, gs_steps50, 50, ported)
+    with torch.no_grad():
+        gs_render_prof = profile_of(
+            torch, lambda: train.render_burst(gs_fitted), train.FPS_FRAMES,
+            ported)
     launch = {
         "rasterize_sum_fwd": lambda: rs.sum_fwd(feat, sp.gids, sp.starts,
                                                 Hf, Wf),
@@ -1262,12 +1492,17 @@ def main() -> None:
         "splat_prep_decode": lambda: prep.decode_prep(*k4_args),
         "splat_prep_decode_batch": lambda: prep.batch_decode_prep(*k7_main),
         "splat_prep_rs_raw": lambda: prep.rs_raw_prep(*k6b_args),
-        "splat_prep_rs_decode": lambda: prep.rs_decode_prep(*k6a_args)}
-    # one trace of 20 launches of each kernel; traced again if the profiler
-    # missed a kernel
+        "splat_prep_rs_decode": lambda: prep.rs_decode_prep(*k6a_args),
+        "rasterize_blend_fwd": lambda: blend.blend_fwd(*k8_args, log_stop=ls8,
+                                                       **bkw),
+        "rasterize_blend_bwd": lambda: blend.blend_bwd(*k9_args, **bkw)}
+    # one trace of 20 launches of each kernel, all kernels twice over (the
+    # profiler can miss the first launches of a trace; the time per launch
+    # averages the launches it saw); traced again if it missed a kernel
     for _ in range(2):
-        us = profile_of(torch, lambda: [fn() for fn in launch.values()
-                                        for _ in range(20)], 20,
+        us = profile_of(torch, lambda: [fn() for _ in range(2)
+                                        for fn in launch.values()
+                                        for _ in range(20)], 40,
                         tuple(launch))["ported_us_per_launch"]
         device_ms = {k: None if v is None else v / 1e3 for k, v in us.items()}
         if None not in device_ms.values():
@@ -1317,6 +1552,25 @@ def main() -> None:
                  + PREP_KEY_SLOTS * m_s), 0,
         28 * 2 * SERVE_N + 4 * 2 * (6 + 192)
         + rows7 * (4 * sc.FW + 4 * m_s + 8))
+    # K8 and K9 on the fit's consumed chunks, counted as K1's are: FP32
+    # issue slots per (slot, pixel) pair for the quadratic form (7, plus 1
+    # for the per-column terms a thread's 4 pixels share) and its compare
+    # with the row's threshold 2 log(o / alpha_min) (9); per near pair (see
+    # blend_pair_work) -q/2, expf's 4 FP32 instructions around its MUFU
+    # ex2, o w, the clip and the gate (8 + 1 ex2), then K8's exp(logT)
+    # (4 + 1 ex2), log1pf (~7 + 1 lg2), vis, three multiply-adds and the
+    # logT add (19 + 2), or K9's log1pf, its two exps (T_k and 1 / (1 -
+    # alpha)), G.c, dalpha, dq and the nine sums with their share of the
+    # warp reductions (~60 + 3)
+    gs_pairs, gs_near = (gs_cases["fit"]["pairs"],
+                         gs_cases["fit"]["near_pairs"])
+    blend_bytes = 4 * (feat8.numel() + n8 + sp8.starts.numel()
+                       + nch8.numel())
+    work["rasterize_blend_fwd"] = (9 * gs_pairs + 27 * gs_near, 3 * gs_near,
+                                   blend_bytes + 4 * 5 * plane)
+    work["rasterize_blend_bwd"] = (9 * gs_pairs + 68 * gs_near, 4 * gs_near,
+                                   blend_bytes + 4 * 5 * plane
+                                   + 4 * 16 * n8)
     bounds = {k: bound(*v) for k, v in work.items()}
     phase("timing", device=torch.cuda.get_device_name(0), nvidia_smi=smi,
           kernel_ms=ms, kernel_device_ms=device_ms, plain_ms=plain,
@@ -1328,7 +1582,12 @@ def main() -> None:
           pairs=pairs, gated_pairs=gated, instances=n_live,
           render_ms=render_ms, train_step_ms=step_ms,
           fps_probe={k: r["fps"] for k, r in by_image.items()},
-          render_profile=render_prof, train_step_profile=step_prof)
+          render_profile=render_prof, train_step_profile=step_prof,
+          gs3d_pairs=gs_pairs, gs3d_near_pairs=gs_near,
+          gs3d_on_pairs=gs_cases["fit"]["on_pairs"],
+          gs3d_train_step_ms=gs_step_ms,
+          gs3d_train_step_profile=gs_step_prof,
+          gs3d_fps_probe_render_profile=gs_render_prof)
 
     print(smi, flush=True)
     replaces = {"rasterize_sum_fwd": "gaussianimage_tpu/ops/rasterize_sum.py:205",
@@ -1340,7 +1599,11 @@ def main() -> None:
                     "gaussianimage_tpu/ops/splat_prep.py:195",
                 "splat_prep_rs_raw": "gaussianimage_tpu/ops/splat_prep.py:471",
                 "splat_prep_rs_decode":
-                    "gaussianimage_tpu/ops/splat_prep.py:434"}
+                    "gaussianimage_tpu/ops/splat_prep.py:434",
+                "rasterize_blend_fwd":
+                    "gaussianimage_tpu/ops/rasterize_blend.py:129",
+                "rasterize_blend_bwd":
+                    "gaussianimage_tpu/ops/rasterize_blend.py:191"}
     sources = {"rasterize_sum_fwd": "rasterize_sum_fwd.cu",
                "rasterize_sum_bwd": "rasterize_sum_bwd.cu",
                "rasterize_sum_l2": "rasterize_sum_bwd.cu",
@@ -1348,7 +1611,9 @@ def main() -> None:
                "splat_prep_decode": "splat_prep.cu",
                "splat_prep_decode_batch": "splat_prep.cu",
                "splat_prep_rs_raw": "splat_prep.cu",
-               "splat_prep_rs_decode": "splat_prep.cu"}
+               "splat_prep_rs_decode": "splat_prep.cu",
+               "rasterize_blend_fwd": "rasterize_blend.cu",
+               "rasterize_blend_bwd": "rasterize_blend.cu"}
     # each kernel's launches in the run of the path that drives it
     launches = {"rasterize_sum_fwd": eval_counts["rasterize_sum_fwd"],
                 "rasterize_sum_bwd": generic_counts["rasterize_sum_bwd"],
@@ -1359,14 +1624,20 @@ def main() -> None:
                     batched_counts["splat_prep_decode_batch"],
                 "splat_prep_rs_raw": rs_serve_counts["splat_prep_rs_raw"],
                 "splat_prep_rs_decode":
-                    rs_codec_counts["splat_prep_rs_decode"]}
+                    rs_codec_counts["splat_prep_rs_decode"],
+                "rasterize_blend_fwd": gs_fit_counts["rasterize_blend_fwd"],
+                "rasterize_blend_bwd": gs_fit_counts["rasterize_blend_bwd"]}
     errs = {"rasterize_sum_fwd": k1_err, "rasterize_sum_bwd": k2_err,
             "rasterize_sum_l2": k3_err,
             "splat_prep_raw": k5["max_abs_err"],
             "splat_prep_decode": k4["max_abs_err"],
             "splat_prep_decode_batch": k7_err,
             "splat_prep_rs_raw": k6b["max_abs_err"],
-            "splat_prep_rs_decode": k6a["max_abs_err"]}
+            "splat_prep_rs_decode": k6a["max_abs_err"],
+            "rasterize_blend_fwd": max(c["k8_max_abs_err"]
+                                       for c in gs_cases.values()),
+            "rasterize_blend_bwd": max(c["k9_max_abs_err"]
+                                       for c in gs_cases.values())}
     emit({"kernels": [{
         "name": k,
         "route": "cuda",

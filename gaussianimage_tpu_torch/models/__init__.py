@@ -1,12 +1,14 @@
 from gaussianimage_tpu_torch.models.base import ModelConfig
 from gaussianimage_tpu_torch.models.cholesky import GaussianImageCholesky
+from gaussianimage_tpu_torch.models.gs3d import Gaussian3D
 from gaussianimage_tpu_torch.models.rs import GaussianImageRS
 
 MODEL_REGISTRY = {"GaussianImage_Cholesky": GaussianImageCholesky,
-                  "GaussianImage_RS": GaussianImageRS}
+                  "GaussianImage_RS": GaussianImageRS,
+                  "3DGS": Gaussian3D}
 
 # models of the JAX package that the port does not have yet (ROADMAP.md)
-NOT_PORTED = ("GaussianImage_Cholesky_wMask", "3DGS")
+NOT_PORTED = ("GaussianImage_Cholesky_wMask",)
 
 
 def make_model(model_name: str, device=None, **config_kwargs):
@@ -24,4 +26,4 @@ def make_model(model_name: str, device=None, **config_kwargs):
 
 
 __all__ = ["ModelConfig", "GaussianImageCholesky", "GaussianImageRS",
-           "make_model", "MODEL_REGISTRY"]
+           "Gaussian3D", "make_model", "MODEL_REGISTRY"]

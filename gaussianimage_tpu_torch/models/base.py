@@ -38,6 +38,7 @@ class ModelConfig:
     quantize: bool = False  # the codec's quantizers and VQ state (QAT)
     no_clamp: bool = False
     init_mode: str = "uniform"  # "uniform" (reference) | "adaptive"
+    sh_degree: int = 3  # 3DGS only
     raster: RasterizeConfig = RasterizeConfig()
 
     @property
@@ -57,6 +58,8 @@ class GaussianModelBase(nn.Module):
     # render_fast / the decode may take the fused splat prep, which fixes
     # opacity at 1; a model whose splat changes the opacity leaves it off
     fused_prep_ok = False
+    # the loss the trainer fits this model under
+    train_loss = "L2"
 
     def __init__(self, config: ModelConfig):
         super().__init__()

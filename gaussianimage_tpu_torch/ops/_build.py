@@ -55,6 +55,19 @@ KERNELS = {
                                   _f, _f, _i, _p], _i),
         },
     ),
+    "rasterize_blend": (
+        "rasterize_blend.cu",
+        {
+            # K8: feat, n_rows, gids, starts, out, nch_used, H, W, tiles_x,
+            # tiles_y, tile_px, alpha_clip, alpha_min, log_stop, stream
+            "rasterize_blend_fwd": ([_p, _i, _p, _p, _p, _p] + [_i] * 5
+                                    + [_f] * 3 + [_p], _i),
+            # K9: feat, n_rows, gids, starts, logt, nch_used, g, dgfeat, H,
+            # W, tiles_x, tiles_y, tile_px, alpha_clip, alpha_min, stream
+            "rasterize_blend_bwd": ([_p, _i, _p, _p, _p, _p, _p, _p]
+                                    + [_i] * 5 + [_f] * 2 + [_p], _i),
+        },
+    ),
     "splat_prep": (
         "splat_prep.cu",
         {

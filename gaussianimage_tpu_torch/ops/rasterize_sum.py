@@ -316,19 +316,23 @@ def l2_cotangent(img: torch.Tensor, gt: torch.Tensor, H: int, W: int,
 # ---------------------------------------------------------------------------
 
 
-def _check_launch(kernel: str, feat, gids, starts, tile_px, images=()):
+def _check_launch(kernel: str, feat, gids, starts, tile_px, images=(),
+                  tiles=(_KERNEL_TILE,)):
     """Device, type, layout and shape checks of a kernel launch; raises on
-    anything the kernels do not take."""
+    anything the kernels do not take. ``images`` are (name, tensor, shape)
+    of float32 tensors, or (name, tensor, shape, dtype); ``tiles`` the tile
+    sides the kernel is built for."""
     if feat.device.type != "cuda":
         raise ValueError(f"{kernel} runs on CUDA or CPU tensors, got "
                          f"{feat.device}")
-    if tile_px != _KERNEL_TILE:
+    if tile_px not in tiles:
         raise NotImplementedError(
-            f"{kernel} is built for {_KERNEL_TILE}x{_KERNEL_TILE} tiles, got "
+            f"{kernel} is built for tile_px in {tiles}, got "
             f"tile_px={tile_px}")
     named = [("feat", feat, torch.float32), ("gids", gids, torch.int32),
              ("starts", starts, torch.int32)]
-    named += [(n, x, torch.float32) for n, x, _ in images]
+    named += [(im[0], im[1], im[3] if len(im) > 3 else torch.float32)
+              for im in images]
     for name, x, dtype in named:
         if x.device != feat.device:
             raise ValueError(f"{name} is on {x.device}, feat on {feat.device}")
@@ -336,7 +340,7 @@ def _check_launch(kernel: str, feat, gids, starts, tile_px, images=()):
             raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, x, shape in images:
+    for name, x, shape, *_ in images:
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
     if feat.dim() != 2 or feat.shape[1] != sc.FW or feat.shape[0] < 1:

@@ -14,7 +14,8 @@ radix sort + tile bin edges) on tensors.
 Within a tile the stream keeps input order (rank is monotonic in input
 position), so gids, window bounds and the overflow count are integer-equal
 to the JAX package's on the same inputs. The JAX package's depth ``order``
-argument serves only the alpha-blend rasterizer (3DGS) and is not ported.
+argument is not ported: its blend rasterizer bins depth-ordered inputs
+instead, and so does the port's (ops/rasterize_blend.py).
 """
 
 from __future__ import annotations

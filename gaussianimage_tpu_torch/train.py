@@ -6,13 +6,15 @@ optionally warm-starts from ``--model_path`` or resumes from the image's
 ``resume.pt``, and runs a plain Python loop of training steps on the card:
 for GaussianImage_Cholesky and GaussianImage_RS (``--model_name``) under
 L2 each step is the model's projection, one fused render + L2 + backward
-kernel (K3) and one Adan update. The JAX package scans 250 steps
-per compiled call; here the chunk is bookkeeping only: reseed rounds fire
-at the first chunk boundary at or after each scheduled iteration, the
-stream overflow (``n_dropped``) is read once per chunk, and the per-step
-metrics are read back once per chunk. ``scalars.jsonl`` gets every
-``--log_every``-th step, viz PNGs come every ``--viz_every`` iterations,
-and a resume snapshot every ``--ckpt_every``.
+kernel (K3) and one Adan update; the 3DGS baseline (``--model_name 3DGS``,
+``--sh_degree``) trains under Fusion2, as the JAX trainer does, through
+the depth-sorted blend (K8 forward, K9 backward). The JAX package scans
+250 steps per compiled call; here the chunk is bookkeeping only: reseed
+rounds fire at the first chunk boundary at or after each scheduled
+iteration, the stream overflow (``n_dropped``) is read once per chunk, and
+the per-step metrics are read back once per chunk. ``scalars.jsonl`` gets
+every ``--log_every``-th step, viz PNGs come every ``--viz_every``
+iterations, and a resume snapshot every ``--ckpt_every``.
 
 Every run ends as the JAX trainer's does: ``test()`` (n_dropped warning,
 PSNR, MS-SSIM, ``*_fitting.png`` under ``--save_imgs``), the 100-frame FPS
@@ -23,7 +25,8 @@ checkpoint.
 
 Run:  python -m gaussianimage_tpu_torch.train --data_name photos \\
         --dataset data/ --iterations 50000 --num_points 10000 \\
-        [--model_name GaussianImage_RS] [--device cpu]
+        [--model_name GaussianImage_RS | --model_name 3DGS --sh_degree 3]
+        [--device cpu]
 
 A ``--model_path`` directory is searched for ``<image>/gaussian_model.npz``,
 then ``gaussian_model.npz``.
@@ -44,7 +47,8 @@ import torch
 from gaussianimage_tpu_torch import resolve_device
 from gaussianimage_tpu_torch.core.reseed import default_schedule, reseed_state
 from gaussianimage_tpu_torch.datasets import iterate_dataset
-from gaussianimage_tpu_torch.models import make_model
+from gaussianimage_tpu_torch.models import MODEL_REGISTRY, make_model
+from gaussianimage_tpu_torch.models.base import GaussianModelBase
 from gaussianimage_tpu_torch.utils import LogWriter, ms_ssim, ssim
 from gaussianimage_tpu_torch.utils.checkpoint import (
     load_checkpoint,
@@ -170,9 +174,13 @@ class SimpleTrainer2d:
         self.save_imgs = bool(getattr(args, "save_imgs", False))
         self.model = make_model(
             model_name, device=self.device, num_points=num_points, H=self.H,
-            W=self.W, loss_type="L2", lr=getattr(args, "lr", 1e-3),
+            W=self.W,
+            loss_type=MODEL_REGISTRY.get(model_name, GaussianModelBase)
+            .train_loss,
+            lr=getattr(args, "lr", 1e-3),
             opt_type=getattr(args, "opt_type", "adan"),
             no_clamp=bool(getattr(args, "no_clamp", False)),
+            sh_degree=getattr(args, "sh_degree", 3),
             init_mode=getattr(args, "init_mode", "adaptive"))
 
         self.log_dir = Path(log_dir) if log_dir is not None else Path(
@@ -416,6 +424,8 @@ def parse_args(argv):
     p.add_argument("--data_name", type=str, default="kodak")
     p.add_argument("--iterations", type=int, default=50000)
     p.add_argument("--model_name", type=str, default="GaussianImage_Cholesky")
+    p.add_argument("--sh_degree", type=int, default=3,
+                   help="SH degree of the 3DGS colors (0-4)")
     p.add_argument("--num_points", type=int, default=50000)
     p.add_argument("--model_path", type=str, default=None)
     p.add_argument("--seed", type=int, default=1)

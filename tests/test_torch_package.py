@@ -36,6 +36,9 @@ def test_port_imports_no_jax():
         "import gaussianimage_tpu_torch.models.quantize_mixin\n"
         "import gaussianimage_tpu_torch.train_quantize\n"
         "import gaussianimage_tpu_torch.batched\n"
+        "import gaussianimage_tpu_torch.ops.rasterize_blend\n"
+        "import gaussianimage_tpu_torch.models.gs3d\n"
+        "import gaussianimage_tpu_torch.blend_caps_probe\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'gaussianimage_tpu' "
         "or m.startswith('gaussianimage_tpu.'))\n"
@@ -82,7 +85,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 
 
 def test_training_and_other_models_are_not_ported():
-    """Fitting is ported; --profile and the other models are not yet."""
+    """Fitting and the 3DGS baseline are ported; --profile and wMask are
+    not yet."""
     from gaussianimage_tpu_torch import train
     from gaussianimage_tpu_torch.models import make_model
 
@@ -94,6 +98,9 @@ def test_training_and_other_models_are_not_ported():
                     "--device", "cpu", "--profile", "unused"])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make_model("GaussianImage_Cholesky_wMask", num_points=4, H=8, W=8)
+    gs = make_model("3DGS", device="cpu", num_points=4, H=8, W=8)
+    assert type(gs).__name__ == "Gaussian3D" and gs.cfg.sh_degree == 3
+    assert tuple(gs._features_rest.shape) == (4, 15, 3)
     with pytest.raises(ValueError, match="unknown model"):
         make_model("NoSuchModel", num_points=4, H=8, W=8)
 
