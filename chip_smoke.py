@@ -112,6 +112,17 @@ Phases, one JSON line each (with ``elapsed_s``):
              to BLEND_TOL and the chunks consumed equal in every tile; K9's
              gradient rows (a cotangent from a fixed seed) to ROW_TOL of
              each column's largest magnitude, and bit-identical twice;
+8i. gs3d_serve ``render_fast`` of the 3DGS initial state and of the fit under
+             ``RasterizeConfig(fused_prep=True)`` (K10, a sort, K8): one K10
+             and one K8 launch a frame and nothing else; on the initial
+             state the image against ``render()`` within the JAX suite's
+             envelope (max < 5e-4, a share < 1e-3 of pixels above 5e-5);
+             on both states, reported: n_dropped of both paths, the rows
+             whose keys differ from the generic binning's, the image error
+             before the first tile the stream cap cuts; K10 against its
+             plain version (feature rows to 1e-6, sorted keys and counts
+             exact) on both states and on seeded models at sh_degree 0, 1,
+             2 and 4;
 9. timing    each kernel and its plain version, the render, a training
              step over a 250-step burst, with each kernel's bound from this
              run's pair counts; torch.profiler traces of 20 launches of
@@ -119,7 +130,8 @@ Phases, one JSON line each (with ``elapsed_s``):
              one FPS-probe burst and of 50 training steps the device time
              by kernel, launches and host operator calls per frame or
              step, and the device busy share; the same for the 3DGS step
-             and its FPS-probe render (K8).
+             and its FPS-probe render (K8), and for 3DGS ``render_fast``
+             (K10, K8) beside ``render()``.
 
 Then the raw ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -177,9 +189,15 @@ RS_QAT_ITERS = 2000
 # cosf (~30 each with their range reduction), ~10 multiplies and adds, and
 # in K6b the sigmoid's expf and IEEE division (~20); K6a its angle's
 # dequantization (~3)
+# K10 (3DGS, sh_degree 3): the quaternion's norm and four divisions (~55),
+# the rotation (~35), three expf (~25), Sigma (~40), the view transform and
+# projection (~45), the Jacobian and J W (~60), cov2d (~50), the conic and
+# radius (~45), the view direction (~45), 16 SH bases over three channels
+# (~140), the clamps and the opacity's sigmoid (~25), and the tail's bbox,
+# floors and compares (~75)
 PREP_ROW_SLOTS = {"splat_prep_raw": 212, "splat_prep_decode": 222,
                   "splat_prep_decode_batch": 242, "splat_prep_rs_raw": 297,
-                  "splat_prep_rs_decode": 290}
+                  "splat_prep_rs_decode": 290, "splat_prep_blend3d": 640}
 PREP_KEY_SLOTS = 6
 K1_TOL = 1e-5      # max |diff| of the render, K1 against its plain version
 ROW_TOL = 1e-4     # gradient rows: |diff| <= ROW_TOL x the column's max |.|
@@ -204,6 +222,12 @@ GS_FIT_GAIN = 0.3
 # compare alone to the rest
 GS_Q_MARGIN = 0.01
 BLEND_TOL = 1e-5   # K8's rgb and T_fin against its plain version
+# 3DGS render_fast (K10) against render(): the JAX suite's envelope
+# (tests/test_gs3d.py:279-284), max |diff| and the share of pixels above
+# ENV_PX
+ENV_MAX = 5e-4
+ENV_PX = 5e-5
+ENV_SHARE = 1e-3
 
 # H100 SXM published peaks (dense, no sparsity) at the full 700 W limit
 PEAK_BYTES_S = 3.35e12
@@ -377,7 +401,9 @@ def main() -> None:
     from gaussianimage_tpu_torch.ops import rasterize_blend as blend
     from gaussianimage_tpu_torch.ops import rasterize_sum as rs
     from gaussianimage_tpu_torch.ops import splat_prep as prep
+    from gaussianimage_tpu_torch.ops import splat_prep3d as p3
     from gaussianimage_tpu_torch.ops import stream_common as sc
+    from gaussianimage_tpu_torch.ops import tiles as tiles_mod
     from gaussianimage_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                           merge_matching,
                                                           params_from_numpy)
@@ -393,7 +419,8 @@ def main() -> None:
                 "splat_prep_rs_raw": prep.rs_raw_prep,
                 "splat_prep_rs_decode": prep.rs_decode_prep,
                 "rasterize_blend_fwd": blend.blend_fwd,
-                "rasterize_blend_bwd": blend.blend_bwd}
+                "rasterize_blend_bwd": blend.blend_bwd,
+                "splat_prep_blend3d": p3.blend3d_prep}
     sum_kernels = ("rasterize_sum_fwd", "rasterize_sum_bwd",
                    "rasterize_sum_l2")
 
@@ -1397,6 +1424,137 @@ def main() -> None:
                 "near_pairs": near8, "on_pairs": on8}
         phase("gs3d_kernel", blend_tol=BLEND_TOL, row_tol=ROW_TOL,
               cases=gs_cases)
+
+        # gs3d_serve: render_fast under fused_prep (K10, a sort, K8) on the
+        # initial state and on the fit's, counts read around it
+        gs_raster = RasterizeConfig(fused_prep=True)
+        gs_twins = {}
+        for name, model in (("init", gs_init), ("fit", gs_fitted)):
+            twin = make_model(GS, device=dev, num_points=SERVE_N, H=Hf, W=Wf,
+                              raster=gs_raster)
+            twin.load_state_dict(model.state_dict())
+            gs_twins[name] = twin
+        gs_bcfg = gs_twins["fit"].blend_cfg
+        if not p3.fused_blend_supported(SERVE_N, Hf, Wf, gs_bcfg):
+            fail("the 3DGS fused prep's gate refuses 768x512 at N = 10,000")
+        gs_nd = []
+
+        def gs_serve_one(name):
+            img, aux = gs_twins[name].render_fast(with_aux=True)
+            gs_nd.append(aux["n_dropped"])
+            return img, aux
+
+        reset_counts()
+        gs_fast = {name: gs_serve_one(name) for name in gs_twins}
+        gs_serve_ms = burst_ms(torch, lambda: gs_serve_one("fit"), reps=30)
+        gs_serve_counts = read_counts()
+        gs_frames = len(gs_nd)
+        want = {k: 0 for k in counters}
+        want["splat_prep_blend3d"] = want["rasterize_blend_fwd"] = gs_frames
+        if gs_serve_counts != want:
+            fail(f"3DGS render_fast launched {gs_serve_counts} over "
+                 f"{gs_frames} frames: want one K10 and one K8 a frame, "
+                 "nothing else")
+        I_g, m_g, _ = sc.stream_caps(SERVE_N, gs_bcfg)
+        id_bits_g = max(int(SERVE_N - 1).bit_length(), 1)
+        tiles_xg = -(-Wf // gs_bcfg.tile_px)
+
+        def cut_tile(keys):
+            """The first tile the stream cap cuts (its window loses slots,
+            every later tile all of them), or None if nothing is cut."""
+            skey = torch.sort(keys.flatten()).values
+            n_live = int((skey != 2 ** 31 - 1).sum())
+            return int(skey[I_g]) >> id_bits_g if n_live > I_g else None
+
+        gs_serve = {}
+        for name, model in (("init", gs_init), ("fit", gs_fitted)):
+            img_f, aux_f = gs_fast[name]
+            with torch.no_grad():
+                pkg = model.render()
+                xys, depths, radii, _, _, _ = model.project()
+            order, rows10 = gs_twins[name].prep_rows()
+            keys10 = p3.blend3d_prep(
+                *(r.contiguous() for r in rows10), gs_twins[name].cam,
+                model.cfg.sh_degree, Hf, Wf, gs_bcfg.tile_px, m_g)[1]
+            # the generic binning's keys per row in render()'s depth order
+            ol = blend._depth_order(depths).long()
+            tile_g, live_g, _ = tiles_mod._expand_instances(
+                xys.float()[ol], radii.float()[ol], tiles_xg,
+                -(-Hf // gs_bcfg.tile_px), gs_bcfg.tile_px, m_g)
+            rank = torch.arange(SERVE_N, dtype=torch.int32, device=dev)
+            keys_g = torch.where(live_g, (tile_g << id_bits_g) | rank,
+                                 torch.full_like(tile_g, 2 ** 31 - 1))
+            diff = (img_f - pkg["render"]).abs()[0]          # [3, H, W]
+            cuts = [c for c in (cut_tile(keys10), cut_tile(keys_g))
+                    if c is not None]
+            keep = torch.ones(Hf, Wf, dtype=torch.bool, device=dev)
+            if cuts:
+                tp = gs_bcfg.tile_px
+                ty = torch.arange(Hf, device=dev)[:, None] // tp
+                tx = torch.arange(Wf, device=dev)[None, :] // tp
+                keep = ty * tiles_xg + tx < min(cuts)
+            d_keep = diff.amax(dim=0)[keep]
+            case = {
+                "n_dropped": int(aux_f["n_dropped"]),
+                "n_dropped_render": int(pkg["raster_aux"]["n_dropped"]),
+                "max_count": int(aux_f["max_count"]),
+                "max_count_render": int(pkg["raster_aux"]["max_count"]),
+                "order_equal": bool(torch.equal(order, ol)),
+                "rows_keys_differ": int((keys10[:, :SERVE_N] != keys_g)
+                                        .any(dim=0).sum()),
+                "instances": int((keys10 != 2 ** 31 - 1).sum()),
+                "max_abs_diff": float(diff.max()),
+                "share_above_5e5": float((diff > ENV_PX).float().mean()),
+                "first_cut_tile": min(cuts) if cuts else None,
+                "pixels_before_cut": int(keep.sum()),
+                "max_abs_diff_before_cut": float(d_keep.max())
+                if d_keep.numel() else None,
+                "share_above_5e5_before_cut": float(
+                    (d_keep > ENV_PX).float().mean())
+                if d_keep.numel() else None}
+            if not torch.isfinite(img_f).all():
+                fail(f"3DGS render_fast on the {name} state is not finite")
+            if name == "init" and not (case["max_abs_diff"] < ENV_MAX and
+                                       case["share_above_5e5"] < ENV_SHARE):
+                fail(f"3DGS render_fast differs from render() on the "
+                     f"initial state: {case}; want max < {ENV_MAX} and a "
+                     f"share above {ENV_PX} < {ENV_SHARE}")
+            gs_serve[name] = case
+
+        # K10 against its plain version: the two states at sh_degree 3, and
+        # seeded models at 0, 1, 2 and 4 (SH bands, opacities and scales
+        # drawn from a seed: the init's bands are zero, its scales
+        # isotropic)
+        k10_cases = {"init": gs_twins["init"], "fit": gs_twins["fit"]}
+        k10 = {}
+        for deg in (3, 0, 1, 2, 4):
+            gm = make_model(GS, device=dev, num_points=SERVE_N, H=Hf, W=Wf,
+                            sh_degree=deg, raster=gs_raster)
+            gen = torch.Generator(device=dev).manual_seed(20 + deg)
+            gm.init_params(gen)
+            with torch.no_grad():
+                gm._features_rest.normal_(0.0, 0.3, generator=gen)
+                gm._opacity.normal_(-1.0, 1.5, generator=gen)
+                gm._scaling.add_(torch.randn(SERVE_N, 3, device=dev,
+                                             generator=gen), alpha=0.4)
+            k10_cases[f"seeded_sh{deg}"] = gm
+        for name, gm in k10_cases.items():
+            _, rows10 = gm.prep_rows()
+            args = (*(r.contiguous() for r in rows10), gm.cam,
+                    gm.cfg.sh_degree, Hf, Wf, gs_bcfg.tile_px, m_g)
+            out10 = p3.blend3d_prep(*args)
+            torch.cuda.synchronize()
+            k10[name] = prep_check(f"K10 ({name})", out10,
+                                   p3.blend3d_prep_plain(*args))
+            k10[name].update(span=m_g, sh_degree=gm.cfg.sh_degree)
+            if name == "fit":
+                k10_args = args
+        phase("gs3d_serve", config="RasterizeConfig(fused_prep=True)",
+              stream_cap=I_g, span=m_g, launches=gs_serve_counts,
+              frames=gs_frames,
+              n_dropped_timed_max=int(torch.stack(gs_nd[2:]).max()),
+              envelope={"max": ENV_MAX, "px": ENV_PX, "share": ENV_SHARE},
+              vs_render=gs_serve, k10=k10, render_fast_burst_ms=gs_serve_ms)
     finally:
         shutil.rmtree(gs_dir, ignore_errors=True)
 
@@ -1451,6 +1609,11 @@ def main() -> None:
     plain["rasterize_blend_bwd"] = burst_ms(
         torch, lambda: blend.blend_bwd_plain(*k9_args, **bkw), reps=3,
         warmup=1)
+    # K10 on the 3DGS fit's depth-ordered rows, sh_degree 3
+    ms["splat_prep_blend3d"] = burst_ms(
+        torch, lambda: p3.blend3d_prep(*k10_args), reps=50)
+    plain["splat_prep_blend3d"] = burst_ms(
+        torch, lambda: p3.blend3d_prep_plain(*k10_args), reps=20)
     with torch.no_grad():
         render_ms = burst_ms(torch, flower.render, reps=30)
     step_opt = fitted.make_optimizer()
@@ -1481,6 +1644,17 @@ def main() -> None:
         gs_render_prof = profile_of(
             torch, lambda: train.render_burst(gs_fitted), train.FPS_FRAMES,
             ported)
+        # the 3DGS serving render (K10, a sort, K8) beside render()
+        gs_fast_ms = burst_ms(torch, gs_twins["fit"].render_fast, reps=30)
+        gs_generic_ms = burst_ms(torch, gs_fitted.render, reps=30)
+        gs_fast_prof = profile_of(
+            torch, lambda: [gs_twins["fit"].render_fast()
+                            for _ in range(train.FPS_FRAMES)],
+            train.FPS_FRAMES, ported)
+        gs_generic_prof = profile_of(
+            torch, lambda: [gs_fitted.render()
+                            for _ in range(train.FPS_FRAMES)],
+            train.FPS_FRAMES, ported)
     launch = {
         "rasterize_sum_fwd": lambda: rs.sum_fwd(feat, sp.gids, sp.starts,
                                                 Hf, Wf),
@@ -1495,7 +1669,8 @@ def main() -> None:
         "splat_prep_rs_decode": lambda: prep.rs_decode_prep(*k6a_args),
         "rasterize_blend_fwd": lambda: blend.blend_fwd(*k8_args, log_stop=ls8,
                                                        **bkw),
-        "rasterize_blend_bwd": lambda: blend.blend_bwd(*k9_args, **bkw)}
+        "rasterize_blend_bwd": lambda: blend.blend_bwd(*k9_args, **bkw),
+        "splat_prep_blend3d": lambda: p3.blend3d_prep(*k10_args)}
     # one trace of 20 launches of each kernel, all kernels twice over (the
     # profiler can miss the first launches of a trace; the time per launch
     # averages the launches it saw); traced again if it missed a kernel
@@ -1571,6 +1746,14 @@ def main() -> None:
     work["rasterize_blend_bwd"] = (9 * gs_pairs + 68 * gs_near, 4 * gs_near,
                                    blend_bytes + 4 * 5 * plane
                                    + 4 * 16 * n8)
+    # K10 on the fit's rows at sh_degree 3: xyz, log scales, quaternion,
+    # opacity logit and 3K SH coefficients in (4 B each), the same outputs
+    # per row as K4-K7
+    k10_in = 4 * (3 + 3 + 4 + 1 + 3 * (gs_fitted.cfg.sh_degree + 1) ** 2)
+    work["splat_prep_blend3d"] = (
+        rows * (PREP_ROW_SLOTS["splat_prep_blend3d"]
+                + PREP_KEY_SLOTS * m_g), 0,
+        k10_in * SERVE_N + rows * (4 * sc.FW + 4 * m_g + 8))
     bounds = {k: bound(*v) for k, v in work.items()}
     phase("timing", device=torch.cuda.get_device_name(0), nvidia_smi=smi,
           kernel_ms=ms, kernel_device_ms=device_ms, plain_ms=plain,
@@ -1587,7 +1770,10 @@ def main() -> None:
           gs3d_on_pairs=gs_cases["fit"]["on_pairs"],
           gs3d_train_step_ms=gs_step_ms,
           gs3d_train_step_profile=gs_step_prof,
-          gs3d_fps_probe_render_profile=gs_render_prof)
+          gs3d_fps_probe_render_profile=gs_render_prof,
+          gs3d_render_fast_ms=gs_fast_ms, gs3d_render_ms=gs_generic_ms,
+          gs3d_render_fast_profile=gs_fast_prof,
+          gs3d_render_profile=gs_generic_prof)
 
     print(smi, flush=True)
     replaces = {"rasterize_sum_fwd": "gaussianimage_tpu/ops/rasterize_sum.py:205",
@@ -1603,7 +1789,9 @@ def main() -> None:
                 "rasterize_blend_fwd":
                     "gaussianimage_tpu/ops/rasterize_blend.py:129",
                 "rasterize_blend_bwd":
-                    "gaussianimage_tpu/ops/rasterize_blend.py:191"}
+                    "gaussianimage_tpu/ops/rasterize_blend.py:191",
+                "splat_prep_blend3d":
+                    "gaussianimage_tpu/ops/splat_prep3d.py:89"}
     sources = {"rasterize_sum_fwd": "rasterize_sum_fwd.cu",
                "rasterize_sum_bwd": "rasterize_sum_bwd.cu",
                "rasterize_sum_l2": "rasterize_sum_bwd.cu",
@@ -1613,7 +1801,8 @@ def main() -> None:
                "splat_prep_rs_raw": "splat_prep.cu",
                "splat_prep_rs_decode": "splat_prep.cu",
                "rasterize_blend_fwd": "rasterize_blend.cu",
-               "rasterize_blend_bwd": "rasterize_blend.cu"}
+               "rasterize_blend_bwd": "rasterize_blend.cu",
+               "splat_prep_blend3d": "splat_prep3d.cu"}
     # each kernel's launches in the run of the path that drives it
     launches = {"rasterize_sum_fwd": eval_counts["rasterize_sum_fwd"],
                 "rasterize_sum_bwd": generic_counts["rasterize_sum_bwd"],
@@ -1626,7 +1815,8 @@ def main() -> None:
                 "splat_prep_rs_decode":
                     rs_codec_counts["splat_prep_rs_decode"],
                 "rasterize_blend_fwd": gs_fit_counts["rasterize_blend_fwd"],
-                "rasterize_blend_bwd": gs_fit_counts["rasterize_blend_bwd"]}
+                "rasterize_blend_bwd": gs_fit_counts["rasterize_blend_bwd"],
+                "splat_prep_blend3d": gs_serve_counts["splat_prep_blend3d"]}
     errs = {"rasterize_sum_fwd": k1_err, "rasterize_sum_bwd": k2_err,
             "rasterize_sum_l2": k3_err,
             "splat_prep_raw": k5["max_abs_err"],
@@ -1637,7 +1827,9 @@ def main() -> None:
             "rasterize_blend_fwd": max(c["k8_max_abs_err"]
                                        for c in gs_cases.values()),
             "rasterize_blend_bwd": max(c["k9_max_abs_err"]
-                                       for c in gs_cases.values())}
+                                       for c in gs_cases.values()),
+            "splat_prep_blend3d": max(c["max_abs_err"]
+                                      for c in k10.values())}
     emit({"kernels": [{
         "name": k,
         "route": "cuda",

@@ -16,8 +16,11 @@ models/gs3d.py; reference gaussiansplatting_3d.py):
 
 ``init_params`` ignores the GT image, as the JAX model does: 3DGS starts
 from uniform positions, not from the image. No fused L2 and no reseeding.
-``render_fast`` under ``BlendConfig.fused_prep`` needs the fused 3DGS prep
-(K10), which is not ported yet: it raises there.
+``render_fast`` under ``BlendConfig.fused_prep`` (``make_model("3DGS",
+raster=RasterizeConfig(fused_prep=True))``) serves through the fused 3DGS
+prep: the depth order, one K10 launch over the depth-ordered rows, one sort
+of its keys and K8 (ops/splat_prep3d.py); without the flag, or where the
+gate refuses, it is ``render()``'s image.
 """
 
 from __future__ import annotations
@@ -31,13 +34,18 @@ from gaussianimage_tpu_torch import resolve_device
 from gaussianimage_tpu_torch.core.camera3d import project_gaussians
 from gaussianimage_tpu_torch.core.sh import num_sh_bases, spherical_harmonics
 from gaussianimage_tpu_torch.models.base import GaussianModelBase, ModelConfig
+from gaussianimage_tpu_torch.ops import stream_common as sc
 from gaussianimage_tpu_torch.ops.rasterize_blend import (
-    BlendConfig, rasterize_gaussians_blend)
+    BlendConfig, _depth_order, rasterize_blend_from_keys_chw,
+    rasterize_gaussians_blend)
+from gaussianimage_tpu_torch.ops.splat_prep3d import (camera,
+                                                      fused_blend_supported,
+                                                      fused_prep_blend3d)
 
-K10_NOT_PORTED = (
-    "3DGS render_fast under fused_prep needs the fused 3DGS prep K10 "
-    "(ops/splat_prep3d.py), which is not ported yet (ROADMAP.md); render() "
-    "and render_fast without fused_prep work")
+# the fixed camera: the view moved 8 back along z, the SH origin there
+VIEWMAT = ((1.0, 0.0, 0.0, 0.0), (0.0, 1.0, 0.0, 0.0), (0.0, 0.0, 1.0, 8.0),
+           (0.0, 0.0, 0.0, 1.0))
+TRANSLATION = (0.0, 0.0, -8.0)
 
 
 def random_quat(generator: torch.Generator, N: int, device=None
@@ -84,12 +92,14 @@ class Gaussian3D(GaussianModelBase):
         self._features_rest = nn.Parameter(
             torch.zeros(N, K - 1, 3, device=device))
         self.focal = 0.5 * float(config.W) / math.tan(0.5 * math.pi / 2.0)
-        # device buffers, so no render copies host data to the card
-        self.register_buffer("viewmat", torch.tensor(
-            [[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 1.0, 8.0],
-             [0, 0, 0, 1.0]], device=device), persistent=False)
+        # device buffers, so no render copies host data to the card; the
+        # fused prep takes the same camera as host floats
+        self.register_buffer("viewmat", torch.tensor(VIEWMAT, device=device),
+                             persistent=False)
         self.register_buffer("translation", torch.tensor(
-            [[0.0, 0.0, -8.0]], device=device), persistent=False)
+            [TRANSLATION], device=device), persistent=False)
+        self.cam = camera(VIEWMAT, self.focal, self.focal, config.W / 2,
+                          config.H / 2, TRANSLATION)
         self.register_buffer("background", torch.ones(3, device=device),
                              persistent=False)
         self.blend_cfg = BlendConfig(tile_px=32, max_tiles_per_gauss=36,
@@ -166,9 +176,46 @@ class Gaussian3D(GaussianModelBase):
         }
 
     @torch.no_grad()
+    def prep_rows(self):
+        """(order [N] int64, [xyz, scaling, rotation, opacity, coeffs]):
+        the depth order, render()'s, and K10's raw row inputs gathered into
+        it; coeffs [N, 3K] basis-major, the DC colors [N, 3] at degree 0."""
+        N = self._xyz.shape[0]
+        # t[:, 2] as camera3d.project_gaussians computes it (each product
+        # and sum rounded in its order), so the order is render()'s
+        xyz, V = self._xyz, self.viewmat
+        depth = (xyz[:, 0] * V[2, 0] + xyz[:, 1] * V[2, 1]
+                 + xyz[:, 2] * V[2, 2]) + V[2, 3]
+        order = _depth_order(depth).long()
+        if self.cfg.sh_degree > 0:
+            coeffs = self.get_features().reshape(N, -1)
+        else:
+            coeffs = self._features_dc[:, 0, :]
+        return order, [x[order] for x in (xyz, self._scaling, self._rotation,
+                                          self._opacity, coeffs)]
+
+    @torch.no_grad()
     def render_fast(self, with_aux: bool = False):
-        """render()'s image; under ``fused_prep`` it raises until the fused
-        3DGS prep (K10) is ported."""
-        if self.blend_cfg.fused_prep:
-            raise NotImplementedError(K10_NOT_PORTED)
-        return super().render_fast(with_aux)
+        """The serving render [1, 3, H, W], and with ``with_aux`` the
+        rasterizer's aux (n_dropped, max_count). Under ``fused_prep``,
+        where ``fused_blend_supported`` allows it: the depth order, the
+        rows gathered into it, one K10 launch, one sort of its keys and K8,
+        clamped at 1 as ``render()`` is. Its image equals render()'s up to
+        isolated pixels at a gate or a tile edge: render() normalises the
+        quaternion twice and the view direction with ``linalg.norm``, K10
+        as the JAX kernel does, so a few values differ in the last ulp.
+        Otherwise ``render()``."""
+        cfg = self.cfg
+        N = self._xyz.shape[0]
+        bcfg = self.blend_cfg
+        if not fused_blend_supported(N, cfg.H, cfg.W, bcfg):
+            return super().render_fast(with_aux)
+        I0, m_span, _ = sc.stream_caps(N, bcfg)
+        feat, keys, trunc, n_total = fused_prep_blend3d(
+            *self.prep_rows()[1], self.cam, cfg.sh_degree, cfg.H, cfg.W,
+            bcfg, m_span)
+        img, _, aux = rasterize_blend_from_keys_chw(
+            feat, keys, trunc, n_total, cfg.H, cfg.W, self.background, bcfg,
+            I0)
+        img = torch.minimum(img, img.new_ones(()))[None]
+        return (img, aux) if with_aux else img

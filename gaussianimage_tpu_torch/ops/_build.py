@@ -91,6 +91,14 @@ KERNELS = {
                                      + [_p, _p, _p, _p], _i),
         },
     ),
+    "splat_prep3d": (
+        "splat_prep3d.cu",
+        # K10: xyz, scaling, quat, opac, coeffs, N, H, W, tile_px, tiles_x,
+        # tiles_y, M, id_bits, sh_degree, the 20 camera floats, feat, keys,
+        # stats, stream
+        {"splat_prep_blend3d": ([_p] * 5 + [_i] * 9 + [_f] * 20
+                                + [_p, _p, _p, _p], _i)},
+    ),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,10 +1,13 @@
-// Device code shared by the fused splat-prep kernels K4-K7
-// (splat_prep.cu): the projection, the packed feature row, the binning keys
-// and the counts of one Gaussian, from its mean in NDC, its covariance and
-// its color. Counterpart of gaussianimage_tpu/ops/splat_prep.py
-// _project_pack_bin (:61) and _pack_bin (:110), which replicate
-// core/covariance.py, rasterize_sum._axis_radii and tiles._expand_instances;
-// and the RS model's covariance (_rs_cov, :421) and angle activation.
+// Device code shared by the fused splat-prep kernels K4-K7 (splat_prep.cu)
+// and K10 (splat_prep3d.cu): the conic and radius of a 2D covariance
+// (conic_radius); the sum path's head, from a mean in NDC and a covariance
+// to the pixel center, conic and binning extents (project_head); and the
+// tail every front ends with, the packed feature row with its colors and
+// opacity, the binning keys and the counts of one Gaussian (pack_bin).
+// Counterpart of gaussianimage_tpu/ops/splat_prep.py _project_pack_bin
+// (:61) and _pack_bin (:110), which replicate core/covariance.py,
+// rasterize_sum._axis_radii and tiles._expand_instances; and the RS model's
+// covariance (_rs_cov, :421) and angle activation.
 //
 // Arithmetic: the JAX expression, rounded op by op (__fmul_rn, __fadd_rn,
 // __fdiv_rn, __fsqrt_rn: no FMA contraction, no fast math), with floorf and
@@ -67,52 +70,78 @@ struct Band {
   float y_off, lo, hi;
 };
 
-// Row r's outputs: feat[r] (16 floats), its M keys keys[j * n_rows + r]
-// (slot-major, as the JAX kernel lays them out), and its counts
-// stats[r] = trunc, stats[n_rows + r] = live instances. Rows r >= N
-// (valid == false) write a zero row, dead keys and zero counts.
-// kBand (K7 only) adds band.y_off to y after the pixel mapping and clips
-// the tile rows to [band.lo, band.hi]; without it (K4-K6) the code is the
-// single-frame expression, and `band` is not read.
-template <bool kBand>
-__device__ __forceinline__ void project_pack_bin(
-    int r, bool valid, float mx, float my, float s11, float s12, float s22,
-    float c0, float c1, float c2, const Geom& g, Band band,
-    float* __restrict__ feat, int* __restrict__ keys,
-    int* __restrict__ stats) {
-  // pixel mapping: 0.5 * ((m + 1) * W - 1), then K7's frame offset
-  const float x = __fmul_rn(
-      0.5f, __fsub_rn(__fmul_rn(__fadd_rn(mx, 1.0f), (float)g.W), 1.0f));
-  float y = __fmul_rn(
-      0.5f, __fsub_rn(__fmul_rn(__fadd_rn(my, 1.0f), (float)g.H), 1.0f));
-  if (kBand) y = __fadd_rn(y, band.y_off);
-  // conic with the 1e-6 det floor
+// The conic (the 1e-6 det floor) and the 3-sigma radius of a 2D covariance:
+// core/covariance.py's conic_from_cov2d and radius_from_cov2d, shared by
+// the sum path's head (project_head) and the 3DGS front (K10).
+__device__ __forceinline__ void conic_radius(float s11, float s12, float s22,
+                                             float& ca, float& cb, float& cc,
+                                             float& radii) {
   const float det = __fsub_rn(__fmul_rn(s11, s22), __fmul_rn(s12, s12));
   const float inv_det = __fdiv_rn(1.0f, fmaxf(det, 1e-6f));
-  const float ca = __fmul_rn(s22, inv_det);
-  const float cb = __fmul_rn(-s12, inv_det);
-  const float cc = __fmul_rn(s11, inv_det);
+  ca = __fmul_rn(s22, inv_det);
+  cb = __fmul_rn(-s12, inv_det);
+  cc = __fmul_rn(s11, inv_det);
   // radius_from_cov2d: ceil(3 * sqrt(lambda_max))
   const float mid = __fmul_rn(0.5f, __fadd_rn(s11, s22));
   const float disc =
       __fsqrt_rn(fmaxf(__fsub_rn(__fmul_rn(mid, mid), det), 0.0f));
-  const float radii =
+  radii =
       ceilf(__fmul_rn(3.0f, __fsqrt_rn(fmaxf(__fadd_rn(mid, disc), 1e-12f))));
-  // _axis_radii: the q <= q_cut ellipse's extents, capped by radii
-  const float cdet =
-      fmaxf(__fsub_rn(__fmul_rn(ca, cc), __fmul_rn(cb, cb)), 1e-12f);
-  float rx = __fsqrt_rn(__fdiv_rn(__fmul_rn(g.q_cut, fmaxf(cc, 0.0f)), cdet));
-  float ry = __fsqrt_rn(__fdiv_rn(__fmul_rn(g.q_cut, fmaxf(ca, 0.0f)), cdet));
-  const bool live = radii > 0.0f;
-  rx = live ? fminf(rx, radii) : 0.0f;
-  ry = live ? fminf(ry, radii) : 0.0f;
+}
 
-  // ---- the feature row: x, y, conic, colors, opacity 1, zero pad -------
+// One sum-path row after its pixel mapping and covariance: the pixel
+// center, the conic and the binning half-extents.
+struct Splat {
+  float x, y, ca, cb, cc, rx, ry;
+};
+
+// The head of K4-K7 (JAX _project_pack_bin up to its _pack_bin call): the
+// pixel mapping, then K7's frame offset under kBand; the conic and radius;
+// the exact q <= q_cut axis extents, capped by the radius (_axis_radii).
+template <bool kBand>
+__device__ __forceinline__ Splat project_head(float mx, float my, float s11,
+                                              float s12, float s22,
+                                              const Geom& g, Band band) {
+  Splat o;
+  // pixel mapping: 0.5 * ((m + 1) * W - 1), then K7's frame offset
+  o.x = __fmul_rn(
+      0.5f, __fsub_rn(__fmul_rn(__fadd_rn(mx, 1.0f), (float)g.W), 1.0f));
+  o.y = __fmul_rn(
+      0.5f, __fsub_rn(__fmul_rn(__fadd_rn(my, 1.0f), (float)g.H), 1.0f));
+  if (kBand) o.y = __fadd_rn(o.y, band.y_off);
+  float radii;
+  conic_radius(s11, s12, s22, o.ca, o.cb, o.cc, radii);
+  const float cdet =
+      fmaxf(__fsub_rn(__fmul_rn(o.ca, o.cc), __fmul_rn(o.cb, o.cb)), 1e-12f);
+  const float rx =
+      __fsqrt_rn(__fdiv_rn(__fmul_rn(g.q_cut, fmaxf(o.cc, 0.0f)), cdet));
+  const float ry =
+      __fsqrt_rn(__fdiv_rn(__fmul_rn(g.q_cut, fmaxf(o.ca, 0.0f)), cdet));
+  const bool live = radii > 0.0f;
+  o.rx = live ? fminf(rx, radii) : 0.0f;
+  o.ry = live ? fminf(ry, radii) : 0.0f;
+  return o;
+}
+
+// The tail of every front (JAX _pack_bin): row r's outputs feat[r] (16
+// floats: x, y, conic, the three colors, the opacity, zero pad), its M keys
+// keys[j * n_rows + r] (slot-major, as the JAX kernel lays them out) from
+// the bbox half-extents rx, ry, and its counts stats[r] = trunc,
+// stats[n_rows + r] = live instances. Rows r >= N (valid == false) write a
+// zero row, dead keys and zero counts. kBand (K7 only) clips the tile rows
+// to [band.lo, band.hi]; without it `band` is not read.
+template <bool kBand>
+__device__ __forceinline__ void pack_bin(
+    int r, bool valid, const Splat& s, float c0, float c1, float c2,
+    float opac, const Geom& g, Band band, float* __restrict__ feat,
+    int* __restrict__ keys, int* __restrict__ stats) {
+  const float x = s.x, y = s.y, rx = s.rx, ry = s.ry;
+  // ---- the feature row -------------------------------------------------
   float4* row = reinterpret_cast<float4*>(feat + static_cast<size_t>(r) * kFW);
   if (valid) {
-    row[0] = make_float4(x, y, ca, cb);
-    row[1] = make_float4(cc, c0, c1, c2);
-    row[2] = make_float4(1.0f, 0.0f, 0.0f, 0.0f);
+    row[0] = make_float4(x, y, s.ca, s.cb);
+    row[1] = make_float4(s.cc, c0, c1, c2);
+    row[2] = make_float4(opac, 0.0f, 0.0f, 0.0f);
   } else {
     row[0] = row[1] = row[2] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
@@ -147,6 +176,18 @@ __device__ __forceinline__ void project_pack_bin(
   }
   stats[r] = area > g.M ? area - g.M : 0;
   stats[g.n_rows + r] = n_live;
+}
+
+// K4-K7: the head, then the tail with opacity 1 (the Cholesky and RS
+// models' fixed opacity).
+template <bool kBand>
+__device__ __forceinline__ void project_pack_bin(
+    int r, bool valid, float mx, float my, float s11, float s12, float s22,
+    float c0, float c1, float c2, const Geom& g, Band band,
+    float* __restrict__ feat, int* __restrict__ keys,
+    int* __restrict__ stats) {
+  pack_bin<kBand>(r, valid, project_head<kBand>(mx, my, s11, s12, s22, g, band),
+                  c0, c1, c2, 1.0f, g, band, feat, keys, stats);
 }
 
 }  // namespace sprep

@@ -31,9 +31,10 @@ for CPU tensors only, and a CUDA tensor launches the kernel or raises:
   never a division back to front.
 
 The gradient rows go back onto the Gaussians through
-``stream_common.scatter_stream_grads``, deterministically. The JAX
-package's serving path from fused-prep keys (``rasterize_blend_from_keys_chw``,
-K10) and its XLA oracle are not ported here.
+``stream_common.scatter_stream_grads``, deterministically. The serving
+path from the fused 3DGS prep's keys (K10, ops/splat_prep3d.py) is
+``rasterize_blend_from_keys_chw``: one sort, the window bounds, K8. The JAX
+package's XLA oracle is not ported.
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ from gaussianimage_tpu_torch.ops.rasterize_sum import (_check_launch,
                                                        _raise_on,
                                                        _stream_ptr,
                                                        _tile_image,
-                                                       _untile_image)
+                                                       _untile_image,
+                                                       stream_from_keys)
 
 _BK = 64             # the kernels' chunk of stream slots
 _TILES = (16, 32)    # the tile sides the kernels are built for
@@ -72,7 +74,7 @@ class BlendConfig(NamedTuple):
     early_stop_T: float = 1e-4  # a tile stops after the chunk where every
     #   pixel's transmittance is at or below this; 0 disables
     fused_prep: bool = False  # render_fast through the fused 3DGS prep
-    #   (K10, not ported)
+    #   (K10, ops/splat_prep3d.py); flat stream, packed keys only
 
 
 def log_stop(cfg: BlendConfig) -> float:
@@ -439,3 +441,40 @@ def rasterize_gaussians_blend(
     T_real = sp.tiles_x * (-(-H // cfg.tile_px))
     aux = {"n_dropped": sp.n_dropped, "max_count": sp.counts[:T_real].max()}
     return img.permute(1, 2, 0), 1.0 - tfin, aux
+
+
+def rasterize_blend_from_keys_chw(
+    feat: torch.Tensor,
+    keys: torch.Tensor,
+    trunc: torch.Tensor,
+    n_total: torch.Tensor,
+    H: int,
+    W: int,
+    background: Optional[torch.Tensor],
+    config: BlendConfig,
+    max_instances: int,
+) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """The serving blend from pre-packed inputs, the fused 3DGS prep's
+    (ops/splat_prep3d.py): ``feat`` [N+1, 16] depth-ordered rows and the
+    flat packed keys ``(tile << id_bits) | rank``. One non-stable sort cut
+    to I, the dead slots to row N, the window bounds, then K8. Returns
+    channel-major (img [3, H, W], alpha [H, W], aux), aux["n_dropped"] =
+    trunc + max(n_total - I, 0). Forward only: it raises if autograd would
+    need its gradient."""
+    if torch.is_grad_enabled() and feat.requires_grad:
+        raise RuntimeError("rasterize_blend_from_keys_chw is forward only; "
+                           "render() is the differentiable blend")
+    cfg = config
+    I = max_instances
+    gids, starts, counts = stream_from_keys(keys, feat.shape[0] - 1, H, W,
+                                            cfg, I)
+    out, _ = blend_fwd(feat, gids, starts, H, W, cfg.tile_px, cfg.block_inst,
+                       float(cfg.alpha_clip), float(cfg.alpha_min),
+                       log_stop(cfg))
+    if background is None:
+        background = torch.zeros(3, dtype=torch.float32, device=feat.device)
+    img = out[:3] + out[3][None] * background[:, None, None]
+    T_real = (-(-W // cfg.tile_px)) * (-(-H // cfg.tile_px))
+    n_dropped = (trunc + torch.clamp(n_total - I, min=0)).int()
+    aux = {"n_dropped": n_dropped, "max_count": counts[:T_real].max()}
+    return img, 1.0 - out[3], aux

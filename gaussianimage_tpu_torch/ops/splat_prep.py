@@ -13,8 +13,10 @@ Per Gaussian it emits:
   (``rasterize_sum.rasterize_from_keys_chw``);
 - ``stats`` [2, N+1] int32: its (trunc, live) counts, summed for n_dropped.
 
-Five CUDA kernels in ``csrc/splat_prep.cu`` share one device function
-(``csrc/splat_prep_common.cuh``):
+Five CUDA kernels in ``csrc/splat_prep.cu`` share one front
+(``csrc/splat_prep_common.cuh``: the head ``project_head``, then the tail
+``pack_bin`` with opacity 1; the 3DGS prep K10, ops/splat_prep3d.py, ends
+with the same tail and a real opacity):
 
 - K5 ``raw_prep``: from raw parameters (tanh means, the Cholesky bound),
   the serving render's front (``fused_render_cholesky``, ``render_fast``);
@@ -35,7 +37,8 @@ Five CUDA kernels in ``csrc/splat_prep.cu`` share one device function
 
 Beside each is a plain PyTorch version of the same math, op for op
 (``raw_prep_plain``, ``decode_prep_plain``, ``batch_decode_prep_plain``,
-``rs_raw_prep_plain``, ``rs_decode_prep_plain``).
+``rs_raw_prep_plain``, ``rs_decode_prep_plain``), over the plain head and
+tail (``conic_radius``, ``_project_head``, ``pack_bin``).
 A wrapper takes it for CPU tensors only; a CUDA tensor launches the kernel
 or raises. The math replicates core/covariance.py,
 rasterize_sum._axis_radii and tiles._expand_instances, so the prep's
@@ -82,39 +85,25 @@ def prep_geometry(N: int, H: int, W: int, tile_px: int):
 # ---------------------------------------------------------------------------
 
 
-def _project_pack_bin(mx, my, s11, s12, s22, colors, H: int, W: int,
-                      tile_px: int, M: int, q_cut: float,
-                      frame=None, B: int = 1) -> Prep:
-    """The shared front, op for op as splat_prep_common.cuh computes it:
-    pixel mapping, conic, radius, axis extents, feature rows, keys and
-    counts of the N Gaussians, plus the sentinel row N.
-
-    With ``frame`` ([N] int, K7) the canvas is B frames of height H stacked
-    vertically: y is mapped with H and then shifted by frame * H, and the
-    tile rows are clipped to the frame's band; the inside test stays
-    against the whole canvas."""
-    N = mx.shape[0]
-    dev = mx.device
-    tiles_x, tiles_y, id_bits = prep_geometry(N, H * B, W, tile_px)
-    x = 0.5 * ((mx + 1.0) * W - 1.0)
-    y = 0.5 * ((my + 1.0) * H - 1.0)
-    if frame is None:
-        row_lo = torch.zeros_like(y)
-        row_hi = torch.full_like(y, tiles_y - 1)
-    else:
-        ff = frame.float()
-        y = y + ff * float(H)
-        rows = tiles_y // B
-        row_lo = ff * float(rows)
-        row_hi = row_lo + float(rows - 1)
+def conic_radius(s11, s12, s22):
+    """(ca, cb, cc, radius) of a 2D covariance, op for op as
+    splat_prep_common.cuh's conic_radius: the conic with the 1e-6 det
+    floor and ceil(3 sqrt(lambda_max))."""
     det = s11 * s22 - s12 * s12
     inv_det = 1.0 / torch.maximum(det, det.new_full((), 1e-6))
-    ca = s22 * inv_det
-    cb = -s12 * inv_det
-    cc = s11 * inv_det
     mid = 0.5 * (s11 + s22)
     disc = torch.sqrt(torch.clamp(mid * mid - det, min=0.0))
     radii = torch.ceil(3.0 * torch.sqrt(torch.clamp(mid + disc, min=1e-12)))
+    return s22 * inv_det, -s12 * inv_det, s11 * inv_det, radii
+
+
+def _project_head(mx, my, s11, s12, s22, H: int, W: int, q_cut: float):
+    """The sum path's head, as project_head: (x, y, ca, cb, cc, rx, ry),
+    the pixel center, the conic and the q <= q_cut axis extents capped by
+    the radius."""
+    x = 0.5 * ((mx + 1.0) * W - 1.0)
+    y = 0.5 * ((my + 1.0) * H - 1.0)
+    ca, cb, cc, radii = conic_radius(s11, s12, s22)
     cdet = torch.clamp(ca * cc - cb * cb, min=1e-12)
     rx = torch.sqrt(q_cut * torch.clamp(cc, min=0.0) / cdet)
     ry = torch.sqrt(q_cut * torch.clamp(ca, min=0.0) / cdet)
@@ -122,7 +111,21 @@ def _project_pack_bin(mx, my, s11, s12, s22, colors, H: int, W: int,
     zero = torch.zeros_like(rx)
     rx = torch.where(live, torch.minimum(rx, radii), zero)
     ry = torch.where(live, torch.minimum(ry, radii), zero)
+    return x, y, ca, cb, cc, rx, ry
 
+
+def pack_bin(x, y, ca, cb, cc, rx, ry, colors, opac, tiles_x: int,
+             tiles_y: int, tile_px: int, M: int, id_bits: int, row_lo=None,
+             row_hi=None) -> Prep:
+    """The tail of every front, as pack_bin: the feature rows (x, y, conic,
+    ``colors`` [N, 3], opacity ``opac``: a float or [N]), the keys of the
+    bboxes of half-extents (rx, ry) and the counts, plus the sentinel row
+    N. ``row_lo`` / ``row_hi`` ([N], K7) clip the tile rows to a band."""
+    N = x.shape[0]
+    dev = x.device
+    if row_lo is None:
+        row_lo = torch.zeros_like(y)
+        row_hi = torch.full_like(y, tiles_y - 1)
     feat = torch.zeros(N + 1, sc.FW, dtype=torch.float32, device=dev)
     feat[:N, 0] = x
     feat[:N, 1] = y
@@ -130,7 +133,7 @@ def _project_pack_bin(mx, my, s11, s12, s22, colors, H: int, W: int,
     feat[:N, 3] = cb
     feat[:N, 4] = cc
     feat[:N, 5:8] = colors
-    feat[:N, 8] = 1.0
+    feat[:N, 8] = opac
 
     x0 = torch.clamp(torch.floor((x - rx) / tile_px), 0, tiles_x - 1)
     x1 = torch.clamp(torch.floor((x + rx) / tile_px), 0, tiles_x - 1)
@@ -152,12 +155,38 @@ def _project_pack_bin(mx, my, s11, s12, s22, colors, H: int, W: int,
     keys = torch.full((M, N + 1), INT32_MAX, dtype=torch.int32, device=dev)
     keys[:, :N] = torch.where(live_j, (tile.int() << id_bits) | row,
                               keys[:, :N])
+    zero = torch.zeros_like(area)
     stats = torch.zeros(2, N + 1, dtype=torch.int32, device=dev)
     stats[0, :N] = torch.where(inside, torch.clamp(area - M, min=0.0),
                                zero).int()
     stats[1, :N] = torch.where(inside, torch.clamp(area, max=float(M)),
                                zero).int()
     return feat, keys, stats
+
+
+def _project_pack_bin(mx, my, s11, s12, s22, colors, H: int, W: int,
+                      tile_px: int, M: int, q_cut: float,
+                      frame=None, B: int = 1) -> Prep:
+    """The sum path's front, as project_pack_bin: the head, then the tail
+    with opacity 1.
+
+    With ``frame`` ([N] int, K7) the canvas is B frames of height H stacked
+    vertically: y is mapped with H and then shifted by frame * H, and the
+    tile rows are clipped to the frame's band; the inside test stays
+    against the whole canvas."""
+    tiles_x, tiles_y, id_bits = prep_geometry(mx.shape[0], H * B, W,
+                                              tile_px)
+    x, y, ca, cb, cc, rx, ry = _project_head(mx, my, s11, s12, s22, H, W,
+                                             q_cut)
+    row_lo = row_hi = None
+    if frame is not None:
+        ff = frame.float()
+        y = y + ff * float(H)
+        rows = tiles_y // B
+        row_lo = ff * float(rows)
+        row_hi = row_lo + float(rows - 1)
+    return pack_bin(x, y, ca, cb, cc, rx, ry, colors, 1.0, tiles_x, tiles_y,
+                    tile_px, M, id_bits, row_lo, row_hi)
 
 
 def _cov_from_chol(l11, l21, l22):

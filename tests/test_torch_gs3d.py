@@ -3,9 +3,10 @@ rotation and the EWA projection, the 3-NN scale init, and the whole model
 (render, Fusion2 loss and gradients, 20 Adan steps) against the JAX
 package, whose blend kernels run in Pallas interpret mode; the fit and
 evaluation CLI with ``--model_name 3DGS`` and its checkpoint read back by
-the JAX package; ``render_fast`` under ``fused_prep`` refusing until K10 is
-ported; the caps probe's two fits. The model's scene is the JAX suite's (tests/test_gs3d.py:266):
-64x96, N = 384, from JAX's own ``init_state`` carried across as numpy.
+the JAX package; ``render_fast`` without ``fused_prep`` (with it: K10,
+tests/test_torch_splat_prep3d.py); the caps probe's two fits. The model's
+scene is the JAX suite's (tests/test_gs3d.py:266): 64x96, N = 384, from
+JAX's own ``init_state`` carried across as numpy.
 
 Tolerances:
 - SH (degrees 0-4), rotations, projections (every output) and the 3-NN
@@ -242,17 +243,17 @@ def test_model_render_loss_and_steps_match_jax(sh_degree):
 
 
 def test_render_fast_refuses_fused_prep_until_k10():
-    """Without fused_prep render_fast is render()'s image; with it, it
-    raises (the fused 3DGS prep, K10, is not ported) instead of falling
-    back."""
+    """Without fused_prep render_fast is render()'s image. With it,
+    render_fast no longer refuses: K10 is ported, and its path is held to
+    JAX and to render() in tests/test_torch_splat_prep3d.py."""
     _, _, model = _pair(3)
     with torch.no_grad():
         np.testing.assert_array_equal(model.render_fast().numpy(),
                                       model.render()["render"].numpy())
     fused = make_model("3DGS", device="cpu", num_points=N, H=H, W=W,
                        raster=RasterizeConfig(fused_prep=True))
-    with pytest.raises(NotImplementedError, match="K10"):
-        fused.render_fast()
+    fused.load_state_dict(model.state_dict())
+    assert fused.render_fast().shape == (1, 3, H, W)
 
 
 def test_cli_3dgs_fit_and_evaluation(tmp_path, monkeypatch):
