@@ -123,6 +123,36 @@ Phases, one JSON line each (with ``elapsed_s``):
              plain version (feature rows to 1e-6, sorted keys and counts
              exact) on both states and on seeded models at sh_degree 0, 1,
              2 and 4;
+8j. aligned_kernel on the committed flower@40k fit, whose stream (144,576
+             slots) passes flat_stream_limit and takes the aligned layout:
+             K11a (``blockize_stream``) and K11b (``unblockize_stream``)
+             bit-equal to their plain versions and K11b(K11a(x)) ==
+             feat[gids]; the aligned K1 to K1_TOL, K2 and K3 to ROW_TOL of
+             the column max (K3 with the clip-flip allowance of phase 3)
+             and K3 + the scatter twice bit-identical; the image, the SSE
+             and the scattered K2 / K3 gradients bit-equal to the flat
+             twin's (flat_stream_limit raised) with equal n_dropped;
+8k. aligned_slice the evaluation entry point ``--iterations 0`` on the
+             committed GaussianImage_Cholesky_50000_{20000,40000} fits of
+             both photos: test PSNR within 0.01 dB of the JAX package's
+             render of each checkpoint (ALIGNED_EVALS; the TPU runs' logs
+             reported beside), n_dropped 0, K11a and the aligned K1
+             launched; each render against ``render_fast`` under
+             ``RasterizeConfig.serving(N)`` (flat, K5) within IMG_TOL /
+             MAX_EDGE_PX, its n_dropped 0;
+8l. aligned_fit 50 K3 steps from the flower@40k state on the aligned
+             stream and on its flat twin: losses and parameters bit-equal;
+             50 Fusion2 steps at 40k (K11a, K1, K2, K11b); then
+             ``SimpleTrainer2d`` with the CLI's defaults at N = 50,000 (the
+             CLI's own default) on flower for 1000 iterations: no NaN loss,
+             >= 1000 aligned K3 and K11b launches, test PSNR >= the initial
+             state's + 1 dB, n_dropped per chunk reported;
+8m. gs3d_aligned the 3DGS baseline at 30,000 points (sh_degree 3, Fusion2):
+             on its initial state the aligned K8 bit-equal to its plain
+             version (chunks too) and K9 to ROW_TOL; image, chunks and
+             scattered K9 gradients bit-equal to the flat twin's, with
+             equal n_dropped; then 200 fit steps with no NaN, >= 200
+             aligned K9 launches; PSNR and n_dropped reported, not gated;
 9. timing    each kernel and its plain version, the render, a training
              step over a 250-step burst, with each kernel's bound from this
              run's pair counts; torch.profiler traces of 20 launches of
@@ -131,12 +161,19 @@ Phases, one JSON line each (with ``elapsed_s``):
              by kernel, launches and host operator calls per frame or
              step, and the device busy share; the same for the 3DGS step
              and its FPS-probe render (K8), and for 3DGS ``render_fast``
-             (K10, K8) beside ``render()``.
+             (K10, K8) beside ``render()``; K11a and K11b on the flower@40k
+             stream (and one PyTorch copy of K11b's relayout), and the
+             aligned K1-K3 (flower@40k) and K8 / K9 (3DGS@30k) with their
+             plain versions, device times and bounds, and the flat
+             branch's device times on the flat twins of the same states;
+             the training step of the 50,000-point fit (aligned) timed and
+             traced.
 
 Then the raw ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
-line, and last ``{"ok": true, "device": {...}}``. Any failed check exits
-non-zero before that last line. It needs a CUDA card and a checkout of the
-repository around it; without either it exits non-zero.
+line (the 13 kernels; K1-K3, K8 and K9 with their aligned branch's numbers
+under "aligned"), and last ``{"ok": true, "device": {...}}``. Any failed
+check exits non-zero before that last line. It needs a CUDA card and a
+checkout of the repository around it; without either it exits non-zero.
 """
 
 from __future__ import annotations
@@ -229,6 +266,24 @@ ENV_MAX = 5e-4
 ENV_PX = 5e-5
 ENV_SHARE = 1e-3
 
+# the aligned stream (above flat_stream_limit instances): the JAX
+# package's render of the committed 20k and 40k fits (on the CPU, through
+# its aligned stream; tests/test_torch_aligned.py), held to 0.01 dB as
+# FLOWER_PSNR is. The TPU runs' logs (each train.txt) read 0.003-0.029 dB
+# above the JAX package's own render of the same checkpoints, so they are
+# reported beside, not gated.
+ALIGNED_EVALS = {20000: {"flower": 44.7811, "china": 33.2452},
+                 40000: {"flower": 48.6119, "china": 39.5167}}
+ALIGNED_TPU_LOGS = {20000: {"flower": 44.7886, "china": 33.2482},
+                    40000: {"flower": 48.6414, "china": 39.5424}}
+ALIGNED_PSNR_TOL = 0.01
+TWIN_STEPS = 50          # K3 steps from the 40k state, aligned and flat twin
+ALIGNED_FIT_N = 50000    # the fit CLI's own default --num_points
+ALIGNED_FIT_ITERS = 1000
+ALIGNED_FIT_GAIN = 1.0   # dB over the initial state's test PSNR
+GS_ALIGNED_N = 30000     # the 3DGS sweep's smallest aligned point count
+GS_ALIGNED_STEPS = 200
+
 # H100 SXM published peaks (dense, no sparsity) at the full 700 W limit
 PEAK_BYTES_S = 3.35e12
 # 67 TFLOP/s FP32 outside the tensor cores counts an FMA as 2 flops: one
@@ -276,18 +331,19 @@ def burst_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     return s.elapsed_time(e) / reps
 
 
-def pair_work(rs, feat, gids, starts, H, W, q_cut):
-    """(pairs, gated pairs) the kernels evaluate on this data: (instance,
-    pixel) pairs of a window's slot and a pixel inside the image, and those
-    that pass the q <= q_cut gate."""
+def pair_work(rs, sc, feat, sp, H, W, q_cut):
+    """(pairs, gated pairs) the kernels evaluate on the stream ``sp`` (flat
+    or aligned): (instance, pixel) pairs of a window's live slot and a
+    pixel inside the image, and those that pass the q <= q_cut gate."""
     pairs = gated = 0
-    for pr in rs.window_pairs(feat, gids, starts, H, W):
+    for pr in rs.window_pairs(sc.gather_stream(sp.gids, feat), sp.starts,
+                              sp.counts, H, W):
         pairs += int(pr.inside.sum())
         gated += int((pr.inside & (pr.q <= q_cut)).sum())
     return pairs, gated
 
 
-def blend_pair_work(torch, rs, feat, sp, nch, H, W, cfg):
+def blend_pair_work(torch, rs, sc, feat, sp, nch, H, W, cfg):
     """(pairs, near pairs, on pairs) that K8 and K9 evaluate on this data:
     (slot, pixel) pairs of the chunks each tile consumed, with the pixel
     inside the image; those within the row's threshold q <= 2 log(o /
@@ -295,16 +351,10 @@ def blend_pair_work(torch, rs, feat, sp, nch, H, W, cfg):
     exponential; and those whose o exp(-q/2) reaches alpha_min (the pairs
     that composite)."""
     T = sp.tiles_x * (-(-H // cfg.tile_px))
-    used = torch.minimum(sp.counts[:T].long(),
-                         nch.long() * cfg.block_inst)
-    tile = torch.repeat_interleave(torch.arange(T, device=used.device), used)
-    first = torch.cumsum(used, 0) - used
-    slot = (sp.starts[:T].long()[tile] - first[tile]
-            + torch.arange(tile.numel(), device=used.device))
-    starts_c = torch.cat([used.new_zeros(1), torch.cumsum(used, 0)]).int()
+    used = torch.minimum(sp.counts[:T], nch[:T] * cfg.block_inst)
     pairs = near = on = 0
-    for pr in rs.window_pairs(feat, sp.gids[slot].contiguous(), starts_c, H,
-                              W, cfg.tile_px):
+    for pr in rs.window_pairs(sc.gather_stream(sp.gids, feat), sp.starts,
+                              used, H, W, cfg.tile_px):
         o = pr.rows[:, 8:9]
         raw = o * torch.exp(-0.5 * pr.q)
         q_max = 2.0 * torch.log(o / cfg.alpha_min) + GS_Q_MARGIN
@@ -420,17 +470,28 @@ def main() -> None:
                 "splat_prep_rs_decode": prep.rs_decode_prep,
                 "rasterize_blend_fwd": blend.blend_fwd,
                 "rasterize_blend_bwd": blend.blend_bwd,
-                "splat_prep_blend3d": p3.blend3d_prep}
+                "splat_prep_blend3d": p3.blend3d_prep,
+                "stream_blockize": sc.blockize_stream,
+                "stream_unblockize": sc.unblockize_stream}
+    # the aligned stream's launches of K1-K3, K8 and K9, which also count
+    # in the kernel's own counter above
+    aligned_counters = {"rasterize_sum_fwd": rs.sum_fwd_aligned,
+                        "rasterize_sum_bwd": rs.sum_bwd_aligned,
+                        "rasterize_sum_l2": rs.sum_l2_aligned,
+                        "rasterize_blend_fwd": blend.blend_fwd_aligned,
+                        "rasterize_blend_bwd": blend.blend_bwd_aligned}
+    all_counters = {**counters, **{f"{k}_aligned": fn for k, fn in
+                                   aligned_counters.items()}}
     sum_kernels = ("rasterize_sum_fwd", "rasterize_sum_bwd",
                    "rasterize_sum_l2")
 
     def reset_counts():
-        for fn in counters.values():
+        for fn in all_counters.values():
             fn.launches = 0
 
     def read_counts():
         torch.cuda.synchronize()
-        return {k: fn.launches for k, fn in counters.items()}
+        return {k: fn.launches for k, fn in all_counters.items()}
 
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"])
@@ -1408,7 +1469,7 @@ def main() -> None:
                      f"state: worst row {e9} > {ROW_TOL} of the column max")
             if not torch.equal(dg9, dg9_again):
                 fail(f"two runs of K9 on the {name} state differ")
-            pairs8, near8, on8 = blend_pair_work(torch, rs, feat8, sp8,
+            pairs8, near8, on8 = blend_pair_work(torch, rs, sc, feat8, sp8,
                                                  nch8, Hf, Wf, bcfg)
             gs_cases[name] = {
                 "tile_px": bcfg.tile_px, "k8_max_abs_err": e8,
@@ -1449,7 +1510,7 @@ def main() -> None:
         gs_serve_ms = burst_ms(torch, lambda: gs_serve_one("fit"), reps=30)
         gs_serve_counts = read_counts()
         gs_frames = len(gs_nd)
-        want = {k: 0 for k in counters}
+        want = {k: 0 for k in all_counters}
         want["splat_prep_blend3d"] = want["rasterize_blend_fwd"] = gs_frames
         if gs_serve_counts != want:
             fail(f"3DGS render_fast launched {gs_serve_counts} over "
@@ -1558,6 +1619,353 @@ def main() -> None:
     finally:
         shutil.rmtree(gs_dir, ignore_errors=True)
 
+    # -- the aligned stream (above flat_stream_limit instances) ---------------
+    def flat_twin_cfg(cfg):
+        """``cfg`` with the flat stream at any size: the aligned path's twin
+        on the same instances."""
+        return cfg._replace(flat_stream_limit=1 << 30)
+
+    def load_fit(n, image, **kw):
+        """The committed fit at ``n`` points of ``image`` (flower, china),
+        ``kw`` passed to make_model."""
+        ck_dir = ROOT / f"results/photos/GaussianImage_Cholesky_50000_{n}"
+        ck = load_checkpoint(ck_dir / image / "gaussian_model.npz")
+        m = make_model("GaussianImage_Cholesky", device=dev, num_points=n,
+                       H=Hf, W=Wf, **kw)
+        m.load_state_dict(params_from_numpy(ck["params"], dev))
+        return m
+
+    def scattered(dg, sp_, n_rows):
+        """Gradient rows (flat) or blocks (aligned) onto the packed rows."""
+        if sp_.aligned:
+            return sc.scatter_block_grads(dg, sp_.gids, n_rows, sp_.m_span)
+        return sc.scatter_stream_grads(dg, sp_.gids, n_rows, sp_.m_span)
+
+    # aligned_kernel: K11a, K11b and the aligned K1-K3 on flower@40k
+    f40 = load_fit(40000, "flower")
+    featA, spA = stream_inputs(f40)
+    f40_flat = load_fit(40000, "flower",
+                        raster=flat_twin_cfg(f40.cfg.raster))
+    featF, spF = stream_inputs(f40_flat)
+    if not spA.aligned or spF.aligned:
+        fail(f"flower@40k: aligned {spA.aligned}, its twin {spF.aligned}")
+    nA = featA.shape[0]
+    tpA = f40.cfg.raster.tile_px
+    blocksA = sc.blockize_stream(featA, spA.gids)
+    torch.cuda.synchronize()
+    blocksA_p = sc.blockize_stream_plain(featA, spA.gids)
+    k11a_equal = bool(torch.equal(blocksA, blocksA_p))
+    k11a_err = float((blocksA - blocksA_p).abs().max())
+    imgA = rs.sum_fwd_aligned(blocksA, spA.starts, spA.counts, Hf, Wf)
+    torch.cuda.synchronize()
+    imgA_p = rs.sum_fwd_aligned_plain(blocksA, spA.starts, spA.counts, Hf, Wf)
+    k1a_err = float((imgA - imgA_p).abs().max())
+    gA = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (4, Hf, Wf)).astype(np.float32) * 1e-5, device=dev)
+    dg2A = rs.sum_bwd_aligned(blocksA, spA.starts, spA.counts, gA, Hf, Wf)
+    torch.cuda.synchronize()
+    dg2A_p = rs.sum_bwd_aligned_plain(blocksA, spA.starts, spA.counts, gA,
+                                      Hf, Wf)
+    sse3A, dg3A = rs.sum_l2_aligned(blocksA, spA.starts, spA.counts, gt_f, Hf,
+                                    Wf)
+    torch.cuda.synchronize()
+    sse3A_p, dg3A_p = rs.sum_l2_aligned_plain(blocksA, spA.starts, spA.counts,
+                                              gt_f, Hf, Wf)
+    rowsK11b = sc.unblockize_stream(dg3A)
+    torch.cuda.synchronize()
+    k11b_equal = bool(torch.equal(rowsK11b,
+                                  sc.unblockize_stream_plain(dg3A)))
+    roundtrip = bool(torch.equal(sc.unblockize_stream(blocksA),
+                                 featA[spA.gids.long()]))
+    if not (k11a_equal and k11b_equal and roundtrip):
+        fail(f"K11a equal {k11a_equal}, K11b equal {k11b_equal}, "
+             f"K11b(K11a(x)) == feat[gids] {roundtrip}")
+    # the live slots' rows: slot -> its tile, for the clip-flip allowance
+    T40 = spA.tiles_x * (-(-Hf // tpA))
+    cntA = spA.counts[:T40].long()
+    tileA = torch.repeat_interleave(torch.arange(T40, device=dev), cntA)
+    slotA = (spA.starts[:T40].long()[tileA] - (torch.cumsum(cntA, 0)
+                                                - cntA)[tileA]
+             + torch.arange(tileA.numel(), device=dev))
+    e2A = float(row_err(torch, sc.unblockize_stream_plain(dg2A)[slotA],
+                        sc.unblockize_stream_plain(dg2A_p)[slotA]).max())
+    if not (math.isfinite(k1a_err) and k1a_err <= K1_TOL and e2A <= ROW_TOL):
+        fail(f"the aligned K1 / K2 disagree with their plain versions: "
+             f"max |diff| {k1a_err} (<= {K1_TOL}), worst row {e2A} "
+             f"(<= {ROW_TOL})")
+    imgA_k3p = imgA_p[:3]
+    flippedA = (((imgA[:3] > 0) & (imgA[:3] < 1))
+                != ((imgA_k3p > 0) & (imgA_k3p < 1))).any(dim=0).nonzero()
+    flip_tilesA = torch.zeros(spA.T, dtype=torch.bool, device=dev)
+    flip_tilesA[(flippedA[:, 0] // tpA) * spA.tiles_x
+                + flippedA[:, 1] // tpA] = True
+    in_flipA = flip_tilesA[tileA]
+    e3A = row_err(torch, sc.unblockize_stream_plain(dg3A)[slotA],
+                  sc.unblockize_stream_plain(dg3A_p)[slotA])
+    worst_cleanA = float(e3A[~in_flipA].max())
+    worst_flipA = float(e3A[in_flipA].max()) if in_flipA.any() else 0.0
+    sse_relA = abs(float(sse3A.sum()) / float(sse3A_p.sum()) - 1)
+    if (sse_relA > 1e-5 or flippedA.shape[0] > MAX_FLIPS
+            or worst_cleanA > ROW_TOL or worst_flipA > FLIP_ROW_TOL):
+        fail(f"the aligned K3 disagrees with its plain version: SSE rel "
+             f"{sse_relA}, {flippedA.shape[0]} clip flips, worst row "
+             f"{worst_cleanA} / {worst_flipA} in flipped tiles")
+    dfeat3A = [scattered(rs.sum_l2_aligned(
+        sc.blockize_stream(featA, spA.gids), spA.starts, spA.counts, gt_f,
+        Hf, Wf)[1], spA, nA) for _ in range(2)]
+    if not torch.equal(dfeat3A[0], dfeat3A[1]):
+        fail("two runs of the aligned K3 and the scatter on one step differ")
+    # against the flat twin on the same state: bit for bit
+    imgF = rs.sum_fwd(featF, spF.gids, spF.starts, Hf, Wf)
+    dfeat2F = scattered(rs.sum_bwd(featF, spF.gids, spF.starts, gA, Hf, Wf),
+                        spF, nA)
+    sse3F, dg3F = rs.sum_l2(featF, spF.gids, spF.starts, gt_f, Hf, Wf)
+    vs_flat = {
+        "n_dropped": int(spA.n_dropped), "n_dropped_flat": int(spF.n_dropped),
+        "image_equal": bool(torch.equal(imgA, imgF)),
+        "k2_grads_equal": bool(torch.equal(scattered(dg2A, spA, nA),
+                                           dfeat2F)),
+        "k3_sse_equal": bool(torch.equal(sse3A, sse3F)),
+        "k3_grads_equal": bool(torch.equal(dfeat3A[0],
+                                           scattered(dg3F, spF, nA)))}
+    if not (all(v for k, v in vs_flat.items() if k.endswith("equal"))
+            and vs_flat["n_dropped"] == vs_flat["n_dropped_flat"]):
+        fail(f"the aligned path differs from the flat twin: {vs_flat}")
+    phase("aligned_kernel", state="flower@40k", slots=spA.I,
+          live=int(spA.counts.sum()), blocks=blocksA.shape[0],
+          k11a_bit_equal=k11a_equal, k11b_bit_equal=k11b_equal,
+          k11b_of_k11a_is_gather=roundtrip,
+          k1={"max_abs_err": k1a_err, "tol": K1_TOL},
+          k2={"worst_row": e2A, "row_tol": ROW_TOL, "max_abs_err": float(
+              (dg2A - dg2A_p).abs().max())},
+          k3={"worst_row": worst_cleanA, "worst_row_in_flip_tiles":
+              worst_flipA, "clip_flips": int(flippedA.shape[0]),
+              "sse_rel_err": sse_relA, "bit_identical_twice": True,
+              "max_abs_err": float((dg3A - dg3A_p).abs().max())},
+          vs_flat_twin=vs_flat)
+
+    # aligned_slice: the evaluation CLI on the committed 20k and 40k fits
+    aligned_eval, aligned_eval_counts, twin_checks = {}, {}, {}
+    for n, anchors in ALIGNED_EVALS.items():
+        out_dir = tempfile.mkdtemp(prefix="chip_smoke_aligned_")
+        try:
+            reset_counts()
+            res = train.main([
+                "--data_name", "photos", "--dataset", str(ROOT / "data"),
+                "--model_path", str(ROOT / "results/photos" /
+                                    f"GaussianImage_Cholesky_50000_{n}"),
+                "--iterations", "0", "--num_points", str(n),
+                "--checkpoint_root", out_dir])
+            cnt = read_counts()
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        aligned_eval_counts[n] = cnt
+        if not (cnt["stream_blockize"] and cnt["rasterize_sum_fwd_aligned"]):
+            fail(f"the {n}-point evaluation launched {cnt}: no K11a or "
+                 "aligned K1")
+        for r in res:
+            want = anchors[r["image"]]
+            if abs(r["psnr"] - want) > ALIGNED_PSNR_TOL or r["n_dropped"]:
+                fail(f"{r['image']}@{n}: PSNR {r['psnr']} (the JAX "
+                     f"package's render {want} +- {ALIGNED_PSNR_TOL}), "
+                     f"n_dropped {r['n_dropped']}")
+            tpu = ALIGNED_TPU_LOGS[n][r["image"]]
+            aligned_eval[f"{r['image']}@{n}"] = dict(
+                {k: r[k] for k in ("psnr", "ms_ssim", "fps", "n_dropped")},
+                jax_psnr=want, tpu_log_psnr=tpu,
+                below_tpu_log_db=tpu - r["psnr"])
+            # the second check: render_fast under serving(n), flat, K5
+            m_a = load_fit(n, r["image"])
+            twin = load_fit(n, r["image"], raster=RasterizeConfig.serving(n))
+            with torch.no_grad():
+                img_a = m_a.render()["render"]
+                img_t, aux_t = twin.render_fast(with_aux=True)
+            diff = (img_t - img_a).abs()
+            edge = int((diff > 1e-4).sum())
+            off = float(diff[diff <= 1e-4].max())
+            twin_checks[f"{r['image']}@{n}"] = {
+                "serving_n_dropped": int(aux_t["n_dropped"]),
+                "max_abs_diff": float(diff.max()), "pixels_above_1e4": edge}
+            if int(aux_t["n_dropped"]) or edge > MAX_EDGE_PX or off > IMG_TOL:
+                fail(f"{r['image']}@{n}: render_fast under serving({n}) "
+                     f"against the aligned render(): "
+                     f"{twin_checks[r['image'] + '@' + str(n)]}, the rest up "
+                     f"to {off}")
+    phase("aligned_slice", tol_db=ALIGNED_PSNR_TOL, images=aligned_eval,
+          launches=aligned_eval_counts, serving_twin=twin_checks)
+
+    # aligned_fit: TWIN_STEPS K3 steps from the 40k state, aligned and
+    # flat; Fusion2 steps (K1 + K2) on it; then the CLI's fit at N = 50,000
+    gt_nchw_f = gt_f[None]
+    twins = {"aligned": load_fit(40000, "flower"),
+             "flat": load_fit(40000, "flower",
+                              raster=flat_twin_cfg(f40.cfg.raster))}
+    twin_losses = {}
+    for name, m in twins.items():
+        opt_t = m.make_optimizer()
+        twin_losses[name] = torch.stack(
+            [m.train_step(opt_t, gt_nchw_f)["loss"]
+             for _ in range(TWIN_STEPS)]).cpu()
+    params_equal = all(torch.equal(a, b) for a, b in zip(
+        twins["aligned"].parameters(), twins["flat"].parameters()))
+    if not (torch.equal(twin_losses["aligned"], twin_losses["flat"])
+            and params_equal):
+        fail(f"{TWIN_STEPS} K3 steps: the aligned losses "
+             f"{twin_losses['aligned'][-3:].tolist()} and the flat twin's "
+             f"{twin_losses['flat'][-3:].tolist()}, parameters equal "
+             f"{params_equal}")
+    fusion = load_fit(40000, "flower", loss_type="Fusion2")
+    opt_t = fusion.make_optimizer()
+    reset_counts()
+    fusion_losses = torch.stack([fusion.train_step(opt_t, gt_nchw_f)["loss"]
+                                 for _ in range(GENERIC_STEPS)]).cpu()
+    fusion_counts = read_counts()
+    if (fusion_counts["rasterize_sum_bwd_aligned"] < GENERIC_STEPS
+            or not torch.isfinite(fusion_losses).all()):
+        fail(f"Fusion2 steps at 40k launched {fusion_counts}, losses "
+             f"{fusion_losses[-3:].tolist()}")
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_aligned_fit_")
+    try:
+        tr50 = train.SimpleTrainer2d(
+            image_path_to_array(FLOWER_PHOTO), "flower",
+            num_points=ALIGNED_FIT_N, iterations=ALIGNED_FIT_ITERS,
+            args=train.parse_args([]), log_dir=Path(out_dir) / "flower",
+            device=dev)
+        init50 = tr50.test()[0]
+        reset_counts()
+        fit50 = tr50.train()
+        fit50_counts = read_counts()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    losses50 = np.asarray(tr50._hist["loss"])
+    if (not np.isfinite(losses50).all()
+            or fit50_counts["rasterize_sum_l2_aligned"] < ALIGNED_FIT_ITERS
+            or fit50_counts["stream_unblockize"] < ALIGNED_FIT_ITERS):
+        fail(f"the {ALIGNED_FIT_N}-point fit: {len(losses50)} losses, "
+             f"{int((~np.isfinite(losses50)).sum())} not finite; launches "
+             f"{fit50_counts}")
+    if not fit50["psnr"] >= init50 + ALIGNED_FIT_GAIN:
+        fail(f"the {ALIGNED_FIT_N}-point fit reads {fit50['psnr']} dB from "
+             f"{init50} at its initial state (want + {ALIGNED_FIT_GAIN})")
+    phase("aligned_fit", twin_steps=TWIN_STEPS,
+          twin_losses_equal=True, twin_params_equal=True,
+          twin_loss_last=float(twin_losses["aligned"][-1]),
+          fusion2={"steps": GENERIC_STEPS, "launches": fusion_counts,
+                   "loss_first": float(fusion_losses[0]),
+                   "loss_last": float(fusion_losses[-1])},
+          num_points=ALIGNED_FIT_N, iterations=ALIGNED_FIT_ITERS,
+          slots=sc.stream_caps(ALIGNED_FIT_N, tr50.model.cfg.raster)[0]
+          + T40 * sc.BK,
+          launches=fit50_counts, init_test_psnr=init50,
+          test_psnr=fit50["psnr"], psnr_gain_floor=ALIGNED_FIT_GAIN,
+          n_dropped_chunks=tr50.chunk_dropped,
+          n_dropped_test=fit50["n_dropped"],
+          training_s=fit50["training_time"],
+          ms_per_step=1e3 * fit50["training_time"] / ALIGNED_FIT_ITERS,
+          fps=fit50["fps"])
+
+    # gs3d_aligned: the 3DGS baseline at 30,000 points, sh_degree 3
+    gs_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_3dgs_aligned_"))
+    try:
+        gs30 = train.SimpleTrainer2d(
+            gt_flower, "flower", num_points=GS_ALIGNED_N, model_name=GS,
+            iterations=GS_ALIGNED_STEPS,
+            args=train.parse_args(["--model_name", GS]),
+            log_dir=gs_dir / "flower", device=dev)
+        gm = gs30.model
+        bcfg30 = gm.blend_cfg
+        bkw30 = dict(tile_px=bcfg30.tile_px, block_inst=bcfg30.block_inst,
+                     alpha_clip=bcfg30.alpha_clip,
+                     alpha_min=bcfg30.alpha_min)
+        ls30 = blend.log_stop(bcfg30)
+        with torch.no_grad():
+            xys, depths, radii, conics, rgbs, opac = gm.project()
+            order30, sp30 = blend.blend_stream(xys, depths, radii, Hf, Wf,
+                                               bcfg30)
+            _, sp30F = blend.blend_stream(xys, depths, radii, Hf, Wf,
+                                          flat_twin_cfg(bcfg30))
+            feat30 = blend.blend_feat(xys, conics, rgbs, opac, order30)
+        if not sp30.aligned or sp30F.aligned:
+            fail(f"3DGS@{GS_ALIGNED_N}: aligned {sp30.aligned}, its twin "
+                 f"{sp30F.aligned}")
+        blocks30 = sc.blockize_stream(feat30, sp30.gids)
+        out30, nch30 = blend.blend_fwd_aligned(
+            blocks30, sp30.starts, sp30.counts, Hf, Wf, log_stop=ls30,
+            **bkw30)
+        torch.cuda.synchronize()
+        out30p, nch30p = blend.blend_fwd_aligned_plain(
+            blocks30, sp30.starts, sp30.counts, Hf, Wf, log_stop=ls30,
+            **bkw30)
+        logt30 = out30[4].contiguous()
+        g30 = torch.as_tensor(np.random.default_rng(2).standard_normal(
+            (4, Hf, Wf)).astype(np.float32), device=dev)
+        dgb30 = blend.blend_bwd_aligned(blocks30, sp30.starts, sp30.counts,
+                                        logt30, nch30, g30, Hf, Wf, **bkw30)
+        torch.cuda.synchronize()
+        dgb30p = blend.blend_bwd_aligned_plain(
+            blocks30, sp30.starts, sp30.counts, logt30, nch30, g30, Hf, Wf,
+            **bkw30)
+        T30 = sp30.tiles_x * (-(-Hf // bcfg30.tile_px))
+        cnt30 = sp30.counts[:T30].long()
+        tile30 = torch.repeat_interleave(torch.arange(T30, device=dev),
+                                         cnt30)
+        slot30 = (sp30.starts[:T30].long()[tile30]
+                  - (torch.cumsum(cnt30, 0) - cnt30)[tile30]
+                  + torch.arange(tile30.numel(), device=dev))
+        e9_30 = float(row_err(
+            torch, sc.unblockize_stream_plain(dgb30)[slot30],
+            sc.unblockize_stream_plain(dgb30p)[slot30]).max())
+        k8_30_equal = bool(torch.equal(out30, out30p)
+                           and torch.equal(nch30, nch30p))
+        if not k8_30_equal or not e9_30 <= ROW_TOL:
+            fail(f"3DGS@{GS_ALIGNED_N}: the aligned K8 bit-equal "
+                 f"{k8_30_equal}; the aligned K9's worst row {e9_30} "
+                 f"(<= {ROW_TOL})")
+        out30F, nch30F = blend.blend_fwd(feat30, sp30F.gids, sp30F.starts,
+                                         Hf, Wf, log_stop=ls30, **bkw30)
+        dg30F = blend.blend_bwd(feat30, sp30F.gids, sp30F.starts,
+                                out30F[4].contiguous(), nch30F, g30, Hf, Wf,
+                                **bkw30)
+        gs_vs_flat = {
+            "n_dropped": int(sp30.n_dropped),
+            "n_dropped_flat": int(sp30F.n_dropped),
+            "image_equal": bool(torch.equal(out30, out30F)),
+            "nch_equal": bool(torch.equal(nch30, nch30F)),
+            "grads_equal": bool(torch.equal(
+                scattered(dgb30, sp30, feat30.shape[0]),
+                scattered(dg30F, sp30F, feat30.shape[0])))}
+        if gs_vs_flat["n_dropped"] != gs_vs_flat["n_dropped_flat"] or not (
+                gs_vs_flat["image_equal"] and gs_vs_flat["nch_equal"]
+                and gs_vs_flat["grads_equal"]):
+            fail(f"3DGS@{GS_ALIGNED_N}: the aligned blend differs from the "
+                 f"flat twin: {gs_vs_flat}")
+        gs30_pairs = blend_pair_work(torch, rs, sc, feat30, sp30, nch30, Hf,
+                                     Wf, bcfg30)
+        reset_counts()
+        fit30 = gs30.train()
+        fit30_counts = read_counts()
+        losses30 = np.asarray(gs30._hist["loss"])
+        if (not np.isfinite(losses30).all()
+                or len(losses30) != GS_ALIGNED_STEPS
+                or fit30_counts["rasterize_blend_bwd_aligned"]
+                < GS_ALIGNED_STEPS):
+            fail(f"the 3DGS fit at {GS_ALIGNED_N}: {len(losses30)} losses, "
+                 f"{int((~np.isfinite(losses30)).sum())} not finite; "
+                 f"launches {fit30_counts}")
+        phase("gs3d_aligned", num_points=GS_ALIGNED_N,
+              sh_degree=gm.cfg.sh_degree, loss_type=gm.cfg.loss_type,
+              slots=sp30.I, span=sp30.m_span, live=int(sp30.counts.sum()),
+              k8_bit_equal=k8_30_equal, k9_worst_row=e9_30,
+              row_tol=ROW_TOL, k9_max_abs_err=float(
+                  (dgb30 - dgb30p).abs().max()),
+              chunks=int(nch30.sum()), vs_flat_twin=gs_vs_flat,
+              steps=GS_ALIGNED_STEPS, launches=fit30_counts,
+              test_psnr=fit30["psnr"], n_dropped_chunks=gs30.chunk_dropped,
+              n_dropped_test=fit30["n_dropped"],
+              ms_per_step=1e3 * fit30["training_time"] / GS_ALIGNED_STEPS)
+    finally:
+        shutil.rmtree(gs_dir, ignore_errors=True)
+
     # -- timing ---------------------------------------------------------------
     ms, plain = {}, {}
     ms["rasterize_sum_fwd"] = burst_ms(
@@ -1609,6 +2017,59 @@ def main() -> None:
     plain["rasterize_blend_bwd"] = burst_ms(
         torch, lambda: blend.blend_bwd_plain(*k9_args, **bkw), reps=3,
         warmup=1)
+    # K11a and K11b on the flower@40k aligned stream
+    ms["stream_blockize"] = burst_ms(
+        torch, lambda: sc.blockize_stream(featA, spA.gids), reps=50)
+    ms["stream_unblockize"] = burst_ms(
+        torch, lambda: sc.unblockize_stream(dg3A), reps=50)
+    plain["stream_blockize"] = burst_ms(
+        torch, lambda: sc.blockize_stream_plain(featA, spA.gids), reps=20)
+    plain["stream_unblockize"] = burst_ms(
+        torch, lambda: sc.unblockize_stream_plain(dg3A), reps=20)
+    # one PyTorch call of K11b's function: the transposed view's copy
+    library = {k: None for k in counters}
+    library["stream_unblockize"] = burst_ms(
+        torch, lambda: dg3A.transpose(1, 2).contiguous(), reps=50)
+    # the aligned K1-K3 on flower@40k, K8 and K9 on the 3DGS@30k state
+    a_args = (blocksA, spA.starts, spA.counts)
+    b_args = (blocks30, sp30.starts, sp30.counts)
+    aligned_launch = {
+        "rasterize_sum_fwd": lambda: rs.sum_fwd_aligned(*a_args, Hf, Wf),
+        "rasterize_sum_bwd": lambda: rs.sum_bwd_aligned(*a_args, gA, Hf, Wf),
+        "rasterize_sum_l2": lambda: rs.sum_l2_aligned(*a_args, gt_f, Hf, Wf),
+        "rasterize_blend_fwd": lambda: blend.blend_fwd_aligned(
+            *b_args, Hf, Wf, log_stop=ls30, **bkw30),
+        "rasterize_blend_bwd": lambda: blend.blend_bwd_aligned(
+            *b_args, logt30, nch30, g30, Hf, Wf, **bkw30)}
+    aligned_plain = {
+        "rasterize_sum_fwd": lambda: rs.sum_fwd_aligned_plain(*a_args, Hf,
+                                                              Wf),
+        "rasterize_sum_bwd": lambda: rs.sum_bwd_aligned_plain(*a_args, gA,
+                                                              Hf, Wf),
+        "rasterize_sum_l2": lambda: rs.sum_l2_aligned_plain(*a_args, gt_f,
+                                                            Hf, Wf),
+        "rasterize_blend_fwd": lambda: blend.blend_fwd_aligned_plain(
+            *b_args, Hf, Wf, log_stop=ls30, **bkw30),
+        "rasterize_blend_bwd": lambda: blend.blend_bwd_aligned_plain(
+            *b_args, logt30, nch30, g30, Hf, Wf, **bkw30)}
+    # the same kernels' flat branch on the flat twins of the same states
+    flat_twin_launch = {
+        "rasterize_sum_fwd": lambda: rs.sum_fwd(featF, spF.gids, spF.starts,
+                                                Hf, Wf),
+        "rasterize_sum_bwd": lambda: rs.sum_bwd(featF, spF.gids, spF.starts,
+                                                gA, Hf, Wf),
+        "rasterize_sum_l2": lambda: rs.sum_l2(featF, spF.gids, spF.starts,
+                                              gt_f, Hf, Wf),
+        "rasterize_blend_fwd": lambda: blend.blend_fwd(
+            feat30, sp30F.gids, sp30F.starts, Hf, Wf, log_stop=ls30,
+            **bkw30),
+        "rasterize_blend_bwd": lambda: blend.blend_bwd(
+            feat30, sp30F.gids, sp30F.starts, out30F[4].contiguous(),
+            nch30F, g30, Hf, Wf, **bkw30)}
+    aligned_ms = {k: burst_ms(torch, fn, reps=20)
+                  for k, fn in aligned_launch.items()}
+    aligned_plain_ms = {k: burst_ms(torch, fn, reps=2, warmup=1)
+                        for k, fn in aligned_plain.items()}
     # K10 on the 3DGS fit's depth-ordered rows, sh_degree 3
     ms["splat_prep_blend3d"] = burst_ms(
         torch, lambda: p3.blend3d_prep(*k10_args), reps=50)
@@ -1640,6 +2101,16 @@ def main() -> None:
             gs_fitted.train_step(gs_opt, gs_gt)
 
     gs_step_prof = profile_of(torch, gs_steps50, 50, ported)
+    # the fit step on the aligned stream: the 50,000-point fit's state
+    opt50 = tr50.model.make_optimizer()
+    step50_ms = burst_ms(torch, lambda: tr50.model.train_step(
+        opt50, tr50.gt_image), reps=100, warmup=5)
+
+    def steps50_aligned():
+        for _ in range(50):
+            tr50.model.train_step(opt50, tr50.gt_image)
+
+    step50_prof = profile_of(torch, steps50_aligned, 50, ported)
     with torch.no_grad():
         gs_render_prof = profile_of(
             torch, lambda: train.render_burst(gs_fitted), train.FPS_FRAMES,
@@ -1670,7 +2141,9 @@ def main() -> None:
         "rasterize_blend_fwd": lambda: blend.blend_fwd(*k8_args, log_stop=ls8,
                                                        **bkw),
         "rasterize_blend_bwd": lambda: blend.blend_bwd(*k9_args, **bkw),
-        "splat_prep_blend3d": lambda: p3.blend3d_prep(*k10_args)}
+        "splat_prep_blend3d": lambda: p3.blend3d_prep(*k10_args),
+        "stream_blockize": lambda: sc.blockize_stream(featA, spA.gids),
+        "stream_unblockize": lambda: sc.unblockize_stream(dg3A)}
     # one trace of 20 launches of each kernel, all kernels twice over (the
     # profiler can miss the first launches of a trace; the time per launch
     # averages the launches it saw); traced again if it missed a kernel
@@ -1682,8 +2155,28 @@ def main() -> None:
         device_ms = {k: None if v is None else v / 1e3 for k, v in us.items()}
         if None not in device_ms.values():
             break
+    # and one of the aligned branches alone (their kernels share the flat
+    # ones' names, as template instances)
+    for _ in range(2):
+        us = profile_of(torch, lambda: [fn() for _ in range(2)
+                                        for fn in aligned_launch.values()
+                                        for _ in range(20)], 40,
+                        tuple(aligned_launch))["ported_us_per_launch"]
+        aligned_device_ms = {k: None if v is None else v / 1e3
+                             for k, v in us.items()}
+        if None not in aligned_device_ms.values():
+            break
+    for _ in range(2):
+        us = profile_of(torch, lambda: [fn() for _ in range(2)
+                                        for fn in flat_twin_launch.values()
+                                        for _ in range(20)], 40,
+                        tuple(flat_twin_launch))["ported_us_per_launch"]
+        flat_twin_device_ms = {k: None if v is None else v / 1e3
+                               for k, v in us.items()}
+        if None not in flat_twin_device_ms.values():
+            break
 
-    pairs, gated = pair_work(rs, feat, sp.gids, sp.starts, Hf, Wf, q_cut)
+    pairs, gated = pair_work(rs, sc, feat, sp, Hf, Wf, q_cut)
     plane = Hf * Wf
     stream_bytes = 4 * (feat.numel() + n_live + sp.starts.numel())
     # FP32 issue slots, an FMA counted as one. K1 per pair: dy, 3
@@ -1754,7 +2247,35 @@ def main() -> None:
         rows * (PREP_ROW_SLOTS["splat_prep_blend3d"]
                 + PREP_KEY_SLOTS * m_g), 0,
         k10_in * SERVE_N + rows * (4 * sc.FW + 4 * m_g + 8))
+    # K11a reads the rows once (the gather repeats rows that L2 holds) and
+    # a 4-byte id per slot, and writes 64 bytes per slot; K11b reads and
+    # writes 64 bytes per slot. Pure copies: bytes-bound.
+    work["stream_blockize"] = (0, 0, 4 * featA.numel()
+                               + spA.I * (4 + 4 * sc.FW))
+    work["stream_unblockize"] = (0, 0, spA.I * 2 * 4 * sc.FW)
+    # the aligned branches, counted as the flat ones over the aligned
+    # stream's live slots; the stream bytes are its blocks
+    pairsA, gatedA = pair_work(rs, sc, featA, spA, Hf, Wf, q_cut)
+    a_bytes = 4 * (blocksA.numel() + spA.starts.numel() + spA.counts.numel())
+    liveA = int(spA.counts.sum())
+    gs30_p, gs30_near, _ = gs30_pairs
+    b_bytes = 4 * (blocks30.numel() + sp30.starts.numel()
+                   + sp30.counts.numel() + nch30.numel())
+    aligned_work = {
+        "rasterize_sum_fwd": (9 * pairsA + 13 * gatedA, gatedA,
+                              a_bytes + 4 * 4 * plane),
+        "rasterize_sum_bwd": (9 * pairsA + 22 * gatedA, gatedA,
+                              a_bytes + 4 * 4 * plane + 4 * 16 * liveA),
+        "rasterize_sum_l2": (18 * pairsA + 35 * gatedA, 2 * gatedA,
+                             a_bytes + 4 * 3 * plane + 4 * sse3A.numel()
+                             + 4 * 16 * liveA),
+        "rasterize_blend_fwd": (9 * gs30_p + 27 * gs30_near, 3 * gs30_near,
+                                b_bytes + 4 * 5 * plane),
+        "rasterize_blend_bwd": (9 * gs30_p + 68 * gs30_near, 4 * gs30_near,
+                                b_bytes + 4 * 5 * plane
+                                + 4 * 16 * int(sp30.counts.sum()))}
     bounds = {k: bound(*v) for k, v in work.items()}
+    aligned_bounds = {k: bound(*v) for k, v in aligned_work.items()}
     phase("timing", device=torch.cuda.get_device_name(0), nvidia_smi=smi,
           kernel_ms=ms, kernel_device_ms=device_ms, plain_ms=plain,
           bound_ms={k: b[0] for k, b in bounds.items()},
@@ -1770,10 +2291,22 @@ def main() -> None:
           gs3d_on_pairs=gs_cases["fit"]["on_pairs"],
           gs3d_train_step_ms=gs_step_ms,
           gs3d_train_step_profile=gs_step_prof,
+          aligned_train_step_ms=step50_ms,
+          aligned_train_step_profile=step50_prof,
           gs3d_fps_probe_render_profile=gs_render_prof,
           gs3d_render_fast_ms=gs_fast_ms, gs3d_render_ms=gs_generic_ms,
           gs3d_render_fast_profile=gs_fast_prof,
-          gs3d_render_profile=gs_generic_prof)
+          gs3d_render_profile=gs_generic_prof, library_ms=library,
+          aligned={"kernel_ms": aligned_ms,
+                   "kernel_device_ms": aligned_device_ms,
+                   "flat_twin_device_ms": flat_twin_device_ms,
+                   "plain_ms": aligned_plain_ms,
+                   "bound_ms": {k: b[0] for k, b in aligned_bounds.items()},
+                   "bound_by": {k: b[1] for k, b in aligned_bounds.items()},
+                   "fp32_instr": {k: v[0] for k, v in aligned_work.items()},
+                   "bytes": {k: v[2] for k, v in aligned_work.items()},
+                   "pairs": pairsA, "gated_pairs": gatedA,
+                   "gs3d_pairs": gs30_p, "gs3d_near_pairs": gs30_near})
 
     print(smi, flush=True)
     replaces = {"rasterize_sum_fwd": "gaussianimage_tpu/ops/rasterize_sum.py:205",
@@ -1791,7 +2324,11 @@ def main() -> None:
                 "rasterize_blend_bwd":
                     "gaussianimage_tpu/ops/rasterize_blend.py:191",
                 "splat_prep_blend3d":
-                    "gaussianimage_tpu/ops/splat_prep3d.py:89"}
+                    "gaussianimage_tpu/ops/splat_prep3d.py:89",
+                "stream_blockize":
+                    "gaussianimage_tpu/ops/stream_common.py:180",
+                "stream_unblockize":
+                    "gaussianimage_tpu/ops/stream_common.py:205"}
     sources = {"rasterize_sum_fwd": "rasterize_sum_fwd.cu",
                "rasterize_sum_bwd": "rasterize_sum_bwd.cu",
                "rasterize_sum_l2": "rasterize_sum_bwd.cu",
@@ -1802,7 +2339,9 @@ def main() -> None:
                "splat_prep_rs_decode": "splat_prep.cu",
                "rasterize_blend_fwd": "rasterize_blend.cu",
                "rasterize_blend_bwd": "rasterize_blend.cu",
-               "splat_prep_blend3d": "splat_prep3d.cu"}
+               "splat_prep_blend3d": "splat_prep3d.cu",
+               "stream_blockize": "stream_blocks.cu",
+               "stream_unblockize": "stream_blocks.cu"}
     # each kernel's launches in the run of the path that drives it
     launches = {"rasterize_sum_fwd": eval_counts["rasterize_sum_fwd"],
                 "rasterize_sum_bwd": generic_counts["rasterize_sum_bwd"],
@@ -1816,7 +2355,26 @@ def main() -> None:
                     rs_codec_counts["splat_prep_rs_decode"],
                 "rasterize_blend_fwd": gs_fit_counts["rasterize_blend_fwd"],
                 "rasterize_blend_bwd": gs_fit_counts["rasterize_blend_bwd"],
-                "splat_prep_blend3d": gs_serve_counts["splat_prep_blend3d"]}
+                "splat_prep_blend3d": gs_serve_counts["splat_prep_blend3d"],
+                "stream_blockize": aligned_eval_counts[40000][
+                    "stream_blockize"],
+                "stream_unblockize": fit50_counts["stream_unblockize"]}
+    # the aligned branches' launches in the runs of the paths that drive
+    # them: the 40k evaluation (K1), Fusion2 steps at 40k (K2), the 50k fit
+    # (K3), the 3DGS fit at 30k (K8, K9)
+    aligned_launches = {
+        "rasterize_sum_fwd": aligned_eval_counts[40000][
+            "rasterize_sum_fwd_aligned"],
+        "rasterize_sum_bwd": fusion_counts["rasterize_sum_bwd_aligned"],
+        "rasterize_sum_l2": fit50_counts["rasterize_sum_l2_aligned"],
+        "rasterize_blend_fwd": fit30_counts["rasterize_blend_fwd_aligned"],
+        "rasterize_blend_bwd": fit30_counts["rasterize_blend_bwd_aligned"]}
+    aligned_errs = {
+        "rasterize_sum_fwd": k1a_err,
+        "rasterize_sum_bwd": float((dg2A - dg2A_p).abs().max()),
+        "rasterize_sum_l2": float((dg3A - dg3A_p).abs().max()),
+        "rasterize_blend_fwd": float((out30[:4] - out30p[:4]).abs().max()),
+        "rasterize_blend_bwd": float((dgb30 - dgb30p).abs().max())}
     errs = {"rasterize_sum_fwd": k1_err, "rasterize_sum_bwd": k2_err,
             "rasterize_sum_l2": k3_err,
             "splat_prep_raw": k5["max_abs_err"],
@@ -1829,7 +2387,21 @@ def main() -> None:
             "rasterize_blend_bwd": max(c["k9_max_abs_err"]
                                        for c in gs_cases.values()),
             "splat_prep_blend3d": max(c["max_abs_err"]
-                                      for c in k10.values())}
+                                      for c in k10.values()),
+            "stream_blockize": k11a_err,
+            "stream_unblockize": float(
+                (rowsK11b - sc.unblockize_stream_plain(dg3A)).abs().max())}
+
+    def aligned_entry(k):
+        """The aligned branch's numbers of a kernel that has one."""
+        if k not in aligned_launches:
+            return {}
+        return {"aligned": {
+            "launches": aligned_launches[k], "max_abs_err": aligned_errs[k],
+            "ms": aligned_ms[k], "device_ms": aligned_device_ms[k],
+            "plain_ms": aligned_plain_ms[k],
+            "bound_ms": aligned_bounds[k][0],
+            "bound_by": aligned_bounds[k][1]}}
     emit({"kernels": [{
         "name": k,
         "route": "cuda",
@@ -1842,7 +2414,8 @@ def main() -> None:
         "plain_ms": plain[k],
         "bound_ms": bounds[k][0],
         "bound_by": bounds[k][1],
-        "library_ms": None,
+        "library_ms": library[k],
+        **aligned_entry(k),
     } for k in counters]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

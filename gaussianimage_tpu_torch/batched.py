@@ -24,10 +24,11 @@ strategies:
 ``prefer_batched`` picks one by the frame size, the number of frames and
 the stacked stream's size (measured on the H100; see
 ``BATCHED_WIN_MAX_PIXELS``). The batched stream passes the flat layout's
-limit above B*N = 65,536 Gaussians (3 instances each against 196,608); the
-aligned layout (K11) is not ported, so ``prefer_batched`` routes such a
-batch to the scan, and a batch forced through the stacked pass there
-raises.
+limit above B*N = 65,536 Gaussians (3 instances each against 196,608); a
+stacked decode there runs on the aligned stream (K11a, K1), but its speed
+against the scan was not measured on the H100, so ``prefer_batched`` routes
+such a batch to the scan, and only ``force="batched"`` takes the stacked
+pass.
 """
 
 from __future__ import annotations
@@ -137,7 +138,8 @@ def prefer_batched(H: int, W: int, B: int, N: int) -> bool:
     """True when the stacked one-pass decode of B frames of N Gaussians is
     the faster strategy: frames of at most BATCHED_WIN_MAX_PIXELS, B within
     BATCHED_WIN_FRAMES, and a stacked stream that fits the flat layout
-    (the aligned one, K11, is not ported)."""
+    (a stacked pass on the aligned stream runs, but was not measured
+    against the scan on the H100)."""
     lo, hi = BATCHED_WIN_FRAMES
     aligned = sc.stream_caps(B * N, RasterizeConfig().stacked(N, B))[2]
     return H * W <= BATCHED_WIN_MAX_PIXELS and lo <= B <= hi and not aligned

@@ -4,10 +4,17 @@ lifted ones, to see what the caps' dropped instances do to a growing fit.
 The model's stream holds ``auto_max_instances`` slots (40,000 at N = 10,000)
 and each Gaussian at most ``m_span`` tiles (12 there), the JAX package's
 caps. A fit whose Gaussians grow past them loses (Gaussian, tile) instances:
-those pixels neither see the Gaussian nor send it a gradient. The lifted
-variant sets ``max_instances`` to the flat stream's limit and widens the
-span to ``--span`` tiles. Both start from the same seed and run the CLI's
-defaults (Fusion2, Adan, lr 1e-3, sh_degree 3).
+those pixels neither see the Gaussian nor send it a gradient. Variants:
+
+- ``default``: the model's caps;
+- ``lifted``: ``max_instances`` at the flat stream's limit and the span
+  widened to ``--span`` tiles;
+- ``uncapped``: the span at ``--span`` tiles and a stream of N x span
+  slots, which no fit can overflow (the aligned stream): only the span's
+  truncation drops instances.
+
+All start from the same seed and run the CLI's defaults (Fusion2, Adan, lr
+1e-3, sh_degree 3).
 
 Per variant it prints one JSON line: the worst ``n_dropped`` of every
 250-step chunk, the training PSNR at each chunk's end, its peak and where,
@@ -15,7 +22,8 @@ and the test PSNR, MS-SSIM and ``n_dropped`` of the final render.
 
 Run:  python -m gaussianimage_tpu_torch.blend_caps_probe \\
         [--image data/flower_768x512.png] [--num_points 10000] \\
-        [--iterations 5000] [--span 96] [--out result.jsonl] [--device cpu]
+        [--iterations 5000] [--span 96] [--variants default lifted uncapped] \\
+        [--out result.jsonl] [--device cpu]
 """
 
 from __future__ import annotations
@@ -35,10 +43,12 @@ from gaussianimage_tpu_torch import train
 from gaussianimage_tpu_torch.ops import stream_common as sc
 from gaussianimage_tpu_torch.utils.image_io import image_path_to_array
 
+VARIANTS = ("default", "lifted", "uncapped")
+
 
 def fit(gt, name, num_points, iterations, variant, span, device, log_dir):
-    """One fit; ``variant`` "default" keeps the model's caps, "lifted"
-    raises them. Returns the variant's record."""
+    """One fit under ``variant``'s caps (see the module docstring).
+    Returns the variant's record."""
     trainer = train.SimpleTrainer2d(
         gt, name, num_points=num_points, model_name="3DGS",
         iterations=iterations,
@@ -49,6 +59,9 @@ def fit(gt, name, num_points, iterations, variant, span, device, log_dir):
         model.blend_cfg = model.blend_cfg._replace(
             max_instances=model.blend_cfg.flat_stream_limit,
             max_tiles_per_gauss=span)
+    elif variant == "uncapped":
+        model.blend_cfg = model.blend_cfg._replace(
+            max_instances=num_points * span, max_tiles_per_gauss=span)
     caps = sc.stream_caps(num_points, model.blend_cfg)
     t0 = time.time()
     trainer.fit()
@@ -82,6 +95,8 @@ def main(argv=None):
     p.add_argument("--iterations", type=int, default=5000)
     p.add_argument("--span", type=int, default=96,
                    help="tiles one Gaussian may cover in the lifted fit")
+    p.add_argument("--variants", nargs="+", default=list(VARIANTS),
+                   choices=VARIANTS)
     p.add_argument("--out", type=str, default=None,
                    help="also append the JSON lines to this file")
     p.add_argument("--device", type=str, default=None)
@@ -91,7 +106,7 @@ def main(argv=None):
     name = Path(args.image).stem
     records = []
     with tempfile.TemporaryDirectory(prefix="blend_caps_") as tmp:
-        for variant in ("default", "lifted"):
+        for variant in args.variants:
             rec = fit(gt, name, args.num_points, args.iterations, variant,
                       args.span, device, Path(tmp))
             if device.type == "cuda":

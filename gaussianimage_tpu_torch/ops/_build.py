@@ -40,7 +40,10 @@ KERNELS = {
         # feat, n_rows, gids, starts, out, H, W, tiles_x, tiles_y, q_cut,
         # stream
         {"rasterize_sum_fwd": ([_p, _i, _p, _p, _p, _i, _i, _i, _i, _f, _p],
-                               _i)},
+                               _i),
+         # aligned: blocks, starts, counts, out, H, W, tiles_x, tiles_y,
+         # q_cut, stream
+         "rasterize_sum_fwd_aligned": ([_p] * 4 + [_i] * 4 + [_f, _p], _i)},
     ),
     "rasterize_sum_bwd": (
         "rasterize_sum_bwd.cu",
@@ -53,6 +56,14 @@ KERNELS = {
             # tiles_x, tiles_y, q_cut, gscale, clamp, stream
             "rasterize_sum_l2": ([_p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i,
                                   _f, _f, _i, _p], _i),
+            # aligned K2: blocks, starts, counts, g, dgb, H, W, tiles_x,
+            # tiles_y, q_cut, stream
+            "rasterize_sum_bwd_aligned": ([_p] * 5 + [_i] * 4 + [_f, _p],
+                                          _i),
+            # aligned K3: blocks, starts, counts, gt, sse, dgb, H, W,
+            # tiles_x, tiles_y, q_cut, gscale, clamp, stream
+            "rasterize_sum_l2_aligned": ([_p] * 6 + [_i] * 4
+                                         + [_f, _f, _i, _p], _i),
         },
     ),
     "rasterize_blend": (
@@ -66,6 +77,23 @@ KERNELS = {
             # W, tiles_x, tiles_y, tile_px, alpha_clip, alpha_min, stream
             "rasterize_blend_bwd": ([_p, _i, _p, _p, _p, _p, _p, _p]
                                     + [_i] * 5 + [_f] * 2 + [_p], _i),
+            # aligned K8: blocks, starts, counts, out, nch_used, then as K8
+            # from H on
+            "rasterize_blend_fwd_aligned": ([_p] * 5 + [_i] * 5 + [_f] * 3
+                                            + [_p], _i),
+            # aligned K9: blocks, starts, counts, logt, nch_used, g, dgb,
+            # then as K9 from H on
+            "rasterize_blend_bwd_aligned": ([_p] * 7 + [_i] * 5 + [_f] * 2
+                                            + [_p], _i),
+        },
+    ),
+    "stream_blocks": (
+        "stream_blocks.cu",
+        {
+            # K11a: feat, n_rows, gids, blocks, n_blocks, stream
+            "stream_blockize": ([_p, _i, _p, _p, _i, _p], _i),
+            # K11b: blocks, rows, n_blocks, stream
+            "stream_unblockize": ([_p, _p, _i, _p], _i),
         },
     ),
     "splat_prep": (

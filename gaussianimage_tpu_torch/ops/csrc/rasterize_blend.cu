@@ -5,7 +5,11 @@
 // rasterize_blend.py::_blend_fwd_kernel; K9 `rasterize_blend_bwd` replaces
 // ::_blend_bwd_kernel. Both fuse the stream gather of
 // ops/stream_common.py::gather_stream, and read and write [C, H, W] images
-// directly where the TPU kernels take tiled [T, 8, P] blocks.
+// directly where the TPU kernels take tiled [T, 8, P] blocks. The
+// `_aligned` entry points walk the aligned stream (kBlocks: K11a's
+// [NB, 16, 64] blocks, windows [starts[t], starts[t] + counts[t])) and K9
+// writes its gradients as [NB, 16, 64] blocks, the TPU kernels' `aligned`
+// branch.
 //
 // Function. Per tile t (16 or 32 pixels a side), over its window
 // [starts[t], starts[t+1]) of the stream, whose rows feat[gids[s]] =
@@ -33,7 +37,10 @@
 //
 // A slot belongs to one tile's window, so K9's blocks write disjoint rows
 // of dgfeat; rows of slots in no consumed chunk are left as they are (the
-// caller zeroes them).
+// caller zeroes them). On the aligned stream K9 writes each consumed
+// chunk's whole gradient block, its dead lanes zero; each block belongs to
+// one tile, so the stores are disjoint, and blocks of chunks past
+// nch_used are left as they are.
 //
 // Bound on the H100: FP32 issue slots and MUFU, per (slot, pixel) pair of
 // the consumed chunks: the quadratic form and its compare with the row's
@@ -85,17 +92,15 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int TILE>
+template <int TILE, bool kBlocks>
 __global__ void __launch_bounds__(kThreads)
-rasterize_blend_fwd_kernel(const float* __restrict__ feat, int n_rows,
-                           const int* __restrict__ gids, const int* __restrict__ starts,
-                           float* __restrict__ out, int* __restrict__ nch_used, int H,
-                           int W, int tiles_x, float alpha_clip, float alpha_min,
+rasterize_blend_fwd_kernel(Stream st, float* __restrict__ out, int* __restrict__ nch_used,
+                           int H, int W, int tiles_x, float alpha_clip, float alpha_min,
                            float log_stop) {
   constexpr int kPPT = TileGeom<TILE>::kPPT;
   __shared__ Chunk s;
   __shared__ float red[kWarps];
-  const TileGeom<TILE> tg = tile_geom<TILE>(starts, H, W, tiles_x);
+  const TileGeom<TILE> tg = tile_geom<TILE, kBlocks>(st, H, W, tiles_x);
   float logT[kPPT], acc[kPPT][3];
 #pragma unroll
   for (int j = 0; j < kPPT; ++j) {
@@ -109,7 +114,7 @@ rasterize_blend_fwd_kernel(const float* __restrict__ feat, int n_rows,
   for (; ci < nch && tile_max > log_stop; ++ci) {
     const int base = tg.start + ci * kBK;
     const int n = min(kBK, tg.end - base);
-    stage_chunk(s, feat, n_rows, gids, base, n, tg.tx0, tg.ty0);
+    stage_chunk<kBlocks>(s, st, base, n, tg.tx0, tg.ty0);
     __syncthreads();
     for (int k = 0; k < n; ++k) {
       const float dx = __fsub_rn(tg.X, s.gx[k]);
@@ -158,17 +163,15 @@ struct BwdShared {
   float part[kWarps][kTerms][kBK];  // per-warp partial sums per slot
 };
 
-template <int TILE>
+template <int TILE, bool kBlocks>
 __global__ void __launch_bounds__(kThreads)
-rasterize_blend_bwd_kernel(const float* __restrict__ feat, int n_rows,
-                           const int* __restrict__ gids, const int* __restrict__ starts,
-                           const float* __restrict__ logt,
+rasterize_blend_bwd_kernel(Stream st, const float* __restrict__ logt,
                            const int* __restrict__ nch_used, const float* __restrict__ g,
                            float* __restrict__ dgfeat, int H, int W, int tiles_x,
                            float alpha_clip, float alpha_min) {
   constexpr int kPPT = TileGeom<TILE>::kPPT;
   __shared__ BwdShared sh;
-  const TileGeom<TILE> tg = tile_geom<TILE>(starts, H, W, tiles_x);
+  const TileGeom<TILE> tg = tile_geom<TILE, kBlocks>(st, H, W, tiles_x);
   const int nch = nch_used[blockIdx.x];
   if (nch <= 0) return;
   const int lane = threadIdx.x & 31;
@@ -191,7 +194,7 @@ rasterize_blend_bwd_kernel(const float* __restrict__ feat, int n_rows,
   for (int ci = nch - 1; ci >= 0; --ci) {
     const int base = tg.start + ci * kBK;
     const int n = min(kBK, tg.end - base);
-    stage_chunk(sh.s, feat, n_rows, gids, base, n, tg.tx0, tg.ty0);
+    stage_chunk<kBlocks>(sh.s, st, base, n, tg.tx0, tg.ty0);
     __syncthreads();
     for (int k = n - 1; k >= 0; --k) {
       const Chunk& s = sh.s;
@@ -245,6 +248,9 @@ rasterize_blend_bwd_kernel(const float* __restrict__ feat, int n_rows,
     }
     __syncthreads();
     const int k = threadIdx.x;
+    float row[kFW];  // the slot's gradient row; a dead lane's stays zero
+#pragma unroll
+    for (int f = 0; f < kFW; ++f) row[f] = 0.0f;
     if (k < n) {
       float r[kTerms];
 #pragma unroll
@@ -257,21 +263,61 @@ rasterize_blend_bwd_kernel(const float* __restrict__ feat, int n_rows,
       const float a = sh.s.a[k];
       const float b = 0.5f * sh.s.b2[k];  // exact: b2 = 2b
       const float c = sh.s.c[k];
-      float4* row = reinterpret_cast<float4*>(dgfeat + static_cast<size_t>(base + k) * kFW);
-      row[0] = make_float4(-2.0f * a * r[0] - 2.0f * b * r[1],
-                           -2.0f * b * r[0] - 2.0f * c * r[1], r[2], 2.0f * r[3]);
-      row[1] = make_float4(r[4], r[5], r[6], r[7]);
-      row[2] = make_float4(r[8], 0.0f, 0.0f, 0.0f);
-      row[3] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      row[0] = -2.0f * a * r[0] - 2.0f * b * r[1];
+      row[1] = -2.0f * b * r[0] - 2.0f * c * r[1];
+      row[2] = r[2];
+      row[3] = 2.0f * r[3];
+#pragma unroll
+      for (int v = 4; v < kTerms; ++v) row[v] = r[v];
+    }
+    if (kBlocks) {
+      if (k < kBK) {
+        float* o = dgfeat + static_cast<size_t>(base / kBK) * (kFW * kBK) + k;
+#pragma unroll
+        for (int f = 0; f < kFW; ++f) o[f * kBK] = row[f];
+      }
+    } else if (k < n) {
+      float4* o = reinterpret_cast<float4*>(dgfeat + static_cast<size_t>(base + k) * kFW);
+#pragma unroll
+      for (int f = 0; f < kFW / 4; ++f)
+        o[f] = make_float4(row[4 * f], row[4 * f + 1], row[4 * f + 2], row[4 * f + 3]);
     }
     __syncthreads();  // the next chunk overwrites the staged rows and partials
   }
 }
 
-int check_args(int n_tiles, int n_rows, int tile_px) {
-  if (n_tiles <= 0 || n_rows <= 0 || (tile_px != 16 && tile_px != 32))
+template <bool kBlocks>
+int launch_fwd(const Stream& st, float* out, int* nch_used, int H, int W, int tiles_x,
+               int tiles_y, int tile_px, float alpha_clip, float alpha_min, float log_stop,
+               cudaStream_t stream) {
+  const int n_tiles = tiles_x * tiles_y;
+  if (n_tiles <= 0 || (tile_px != 16 && tile_px != 32))
     return static_cast<int>(cudaErrorInvalidValue);
-  return 0;
+  if (tile_px == 32) {
+    rasterize_blend_fwd_kernel<32, kBlocks><<<n_tiles, kThreads, 0, stream>>>(
+        st, out, nch_used, H, W, tiles_x, alpha_clip, alpha_min, log_stop);
+  } else {
+    rasterize_blend_fwd_kernel<16, kBlocks><<<n_tiles, kThreads, 0, stream>>>(
+        st, out, nch_used, H, W, tiles_x, alpha_clip, alpha_min, log_stop);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBlocks>
+int launch_bwd(const Stream& st, const float* logt, const int* nch_used, const float* g,
+               float* dgfeat, int H, int W, int tiles_x, int tiles_y, int tile_px,
+               float alpha_clip, float alpha_min, cudaStream_t stream) {
+  const int n_tiles = tiles_x * tiles_y;
+  if (n_tiles <= 0 || (tile_px != 16 && tile_px != 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (tile_px == 32) {
+    rasterize_blend_bwd_kernel<32, kBlocks><<<n_tiles, kThreads, 0, stream>>>(
+        st, logt, nch_used, g, dgfeat, H, W, tiles_x, alpha_clip, alpha_min);
+  } else {
+    rasterize_blend_bwd_kernel<16, kBlocks><<<n_tiles, kThreads, 0, stream>>>(
+        st, logt, nch_used, g, dgfeat, H, W, tiles_x, alpha_clip, alpha_min);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -287,18 +333,10 @@ extern "C" int rasterize_blend_fwd(const float* feat, int n_rows, const int* gid
                                    int W, int tiles_x, int tiles_y, int tile_px,
                                    float alpha_clip, float alpha_min, float log_stop,
                                    cudaStream_t stream) {
-  const int n_tiles = tiles_x * tiles_y;
-  if (int rc = check_args(n_tiles, n_rows, tile_px)) return rc;
-  if (tile_px == 32) {
-    rasterize_blend_fwd_kernel<32><<<n_tiles, kThreads, 0, stream>>>(
-        feat, n_rows, gids, starts, out, nch_used, H, W, tiles_x, alpha_clip, alpha_min,
-        log_stop);
-  } else {
-    rasterize_blend_fwd_kernel<16><<<n_tiles, kThreads, 0, stream>>>(
-        feat, n_rows, gids, starts, out, nch_used, H, W, tiles_x, alpha_clip, alpha_min,
-        log_stop);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (n_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_fwd<false>(Stream{feat, n_rows, gids, nullptr, starts, nullptr}, out,
+                           nch_used, H, W, tiles_x, tiles_y, tile_px, alpha_clip,
+                           alpha_min, log_stop, stream);
 }
 
 // K9. As K8's inputs, with logt [H, W] f32 (K8's plane 4) and nch_used
@@ -311,16 +349,35 @@ extern "C" int rasterize_blend_bwd(const float* feat, int n_rows, const int* gid
                                    int H, int W, int tiles_x, int tiles_y, int tile_px,
                                    float alpha_clip, float alpha_min,
                                    cudaStream_t stream) {
-  const int n_tiles = tiles_x * tiles_y;
-  if (int rc = check_args(n_tiles, n_rows, tile_px)) return rc;
-  if (tile_px == 32) {
-    rasterize_blend_bwd_kernel<32><<<n_tiles, kThreads, 0, stream>>>(
-        feat, n_rows, gids, starts, logt, nch_used, g, dgfeat, H, W, tiles_x, alpha_clip,
-        alpha_min);
-  } else {
-    rasterize_blend_bwd_kernel<16><<<n_tiles, kThreads, 0, stream>>>(
-        feat, n_rows, gids, starts, logt, nch_used, g, dgfeat, H, W, tiles_x, alpha_clip,
-        alpha_min);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (n_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd<false>(Stream{feat, n_rows, gids, nullptr, starts, nullptr}, logt,
+                           nch_used, g, dgfeat, H, W, tiles_x, tiles_y, tile_px,
+                           alpha_clip, alpha_min, stream);
+}
+
+// K8 on the aligned stream: blocks [NB, 16, 64] f32 (K11a's, depth-ordered
+// rows), starts [>= tiles_x*tiles_y + 1] i32 (multiples of 64), counts
+// [>= tiles_x*tiles_y] i32; otherwise as rasterize_blend_fwd.
+extern "C" int rasterize_blend_fwd_aligned(const float* blocks, const int* starts,
+                                           const int* counts, float* out, int* nch_used,
+                                           int H, int W, int tiles_x, int tiles_y,
+                                           int tile_px, float alpha_clip, float alpha_min,
+                                           float log_stop, cudaStream_t stream) {
+  return launch_fwd<true>(Stream{nullptr, 0, nullptr, blocks, starts, counts}, out,
+                          nch_used, H, W, tiles_x, tiles_y, tile_px, alpha_clip,
+                          alpha_min, log_stop, stream);
+}
+
+// K9 on the aligned stream: as rasterize_blend_bwd with the aligned
+// stream's blocks, starts and counts, and dgb [NB, 16, 64] f32 in place of
+// dgfeat (blocks of chunks past nch_used are left as they are).
+extern "C" int rasterize_blend_bwd_aligned(const float* blocks, const int* starts,
+                                           const int* counts, const float* logt,
+                                           const int* nch_used, const float* g, float* dgb,
+                                           int H, int W, int tiles_x, int tiles_y,
+                                           int tile_px, float alpha_clip, float alpha_min,
+                                           cudaStream_t stream) {
+  return launch_bwd<true>(Stream{nullptr, 0, nullptr, blocks, starts, counts}, logt,
+                          nch_used, g, dgb, H, W, tiles_x, tiles_y, tile_px, alpha_clip,
+                          alpha_min, stream);
 }

@@ -4,7 +4,8 @@
 // terms of one (instance, pixel) pair, the JAX kernel's _alpha_terms
 // (gaussianimage_tpu/ops/rasterize_blend.py:110). Both kernels evaluate a
 // pair through pair_alpha, so K9 walks back over exactly the alphas K8
-// composited.
+// composited. The stream is flat or aligned (kBlocks), as in
+// rasterize_sum_common.cuh, whose Stream and slot_features it shares.
 //
 // Arithmetic: the quadratic form and weight of rasterize_sum_common.cuh
 // (rounded op by op, full-precision expf), with the tile origin subtracted
@@ -31,25 +32,26 @@ struct Chunk {
   float op[kBK];
 };
 
-// Threads 0..n-1 stage stream slots base..base+n-1 (rows feat[gids[s]]);
-// out-of-range ids read the zero sentinel row n_rows-1. The caller
+using gsum::Stream;
+
+// Threads 0..n-1 stage stream slots base..base+n-1 (gsum::slot_features:
+// rows feat[gids[s]], or the aligned stream's blocks). The caller
 // synchronises before the chunk is read.
-__device__ __forceinline__ void stage_chunk(Chunk& s, const float* __restrict__ feat,
-                                            int n_rows, const int* __restrict__ gids,
-                                            int base, int n, float tx0, float ty0) {
+template <bool kBlocks>
+__device__ __forceinline__ void stage_chunk(Chunk& s, const Stream& st, int base, int n,
+                                            float tx0, float ty0) {
   const int k = threadIdx.x;
   if (k < n) {
-    int g = gids[base + k];
-    if (g < 0 || g >= n_rows) g = n_rows - 1;
-    const float* r = feat + static_cast<size_t>(g) * kFW;
+    int step;
+    const float* r = gsum::slot_features<kBlocks>(st, base, k, step);
     s.gx[k] = __fsub_rn(r[0], tx0);
-    s.gy[k] = __fsub_rn(r[1], ty0);
-    s.a[k] = r[2];
-    s.b2[k] = __fmul_rn(2.0f, r[3]);
-    s.c[k] = r[4];
+    s.gy[k] = __fsub_rn(r[step], ty0);
+    s.a[k] = r[2 * step];
+    s.b2[k] = __fmul_rn(2.0f, r[3 * step]);
+    s.c[k] = r[4 * step];
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) s.col[ch][k] = r[5 + ch];
-    s.op[k] = r[8];
+    for (int ch = 0; ch < 3; ++ch) s.col[ch][k] = r[(5 + ch) * step];
+    s.op[k] = r[8 * step];
   }
 }
 
@@ -67,9 +69,9 @@ struct TileGeom {
   size_t pix[kPPT];        // py * W + px
 };
 
-template <int TILE>
-__device__ __forceinline__ TileGeom<TILE> tile_geom(const int* __restrict__ starts,
-                                                    int H, int W, int tiles_x) {
+template <int TILE, bool kBlocks>
+__device__ __forceinline__ TileGeom<TILE> tile_geom(const Stream& st, int H, int W,
+                                                    int tiles_x) {
   constexpr int kPPT = TileGeom<TILE>::kPPT;
   static_assert(kPPT >= 1 && kPPT * kThreads == TILE * TILE, "tile");
   TileGeom<TILE> g;
@@ -78,8 +80,8 @@ __device__ __forceinline__ TileGeom<TILE> tile_geom(const int* __restrict__ star
   const int ty = t / tiles_x;
   g.tx0 = static_cast<float>(tx * TILE);
   g.ty0 = static_cast<float>(ty * TILE);
-  g.start = starts[t];
-  g.end = starts[t + 1];
+  g.start = st.starts[t];
+  g.end = kBlocks ? g.start + st.counts[t] : st.starts[t + 1];
   const int lx = threadIdx.x % TILE;
   const int grp = threadIdx.x / TILE;
   const int px = tx * TILE + lx;

@@ -6,7 +6,10 @@
 // ::_fused_l2_kernel. Both fuse the stream gather of
 // ops/stream_common.py::gather_stream, and read and write [C, H, W] images
 // directly where the TPU kernels take tiled [T, 4, 1024] blocks
-// (stream_common.tile_cotangent).
+// (stream_common.tile_cotangent). The `_aligned` entry points walk the
+// aligned stream (rasterize_sum_common.cuh's kBlocks: K11a's [NB, 16, 64]
+// blocks) and write their gradients as [NB, 16, 64] blocks, the TPU
+// kernels' `aligned` branch.
 //
 // Function. Per 32x32 tile t, over its window [starts[t], starts[t+1]) of
 // the tile-sorted stream, with rows feat[gids[s]] = (x, y, a, b, c, o*r,
@@ -25,7 +28,8 @@
 //       dgx = -2 a cx - 2 b cy, dgy = -2 b cx - 2 c cy,
 //       dcm_c = sum w G_c,
 //     written as the row [dgx, dgy, da, db, dc, dcm0..3, 0 x 7] of
-//     dgfeat[slot]. The moments are summed directly over the pixel offsets
+//     dgfeat[slot] (flat), or down lane slot % 64 of gradient block
+//     slot / 64 (aligned: each chunk's whole block, its dead lanes zero). The moments are summed directly over the pixel offsets
 //     dx, dy, not recombined from tile-local pixel moments as the TPU kernel
 //     does (da = mxx - 2 gx mx + gx^2 m0): the direct sum has no
 //     cancellation and takes one reduction fewer.
@@ -33,7 +37,9 @@
 // A slot belongs to exactly one tile's window, so blocks write disjoint
 // rows of dgfeat, and the TPU kernel's masked += over the neighbour's
 // window has no counterpart here. Rows of slots past the last window are
-// not written.
+// not written. On the aligned stream each gradient block belongs to one
+// tile, so its whole-block stores are disjoint too; blocks past the last
+// window are not written.
 //
 // Bound on the H100: FP32 issue slots and MUFU ex2, as for K1. K3 does K1's
 // work (~9 slots per pair and 13 + 1 ex2 more per gated pair), then a second
@@ -77,17 +83,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // The backward walk over the tile's window with the cotangent G in
-// registers; writes one gradient row per slot of the window.
-__device__ __forceinline__ void tile_backward(
-    BwdShared& sh, const float* __restrict__ feat, int n_rows,
-    const int* __restrict__ gids, const TileGeom& tg,
-    const float (&G)[kRowsPerThread][kC], float q_cut,
-    float* __restrict__ dgfeat) {
+// registers; writes one gradient row per slot of the window (flat) or one
+// gradient block per chunk (aligned).
+template <bool kBlocks>
+__device__ __forceinline__ void tile_backward(BwdShared& sh, const Stream& st,
+                                              const TileGeom& tg,
+                                              const float (&G)[kRowsPerThread][kC],
+                                              float q_cut, float* __restrict__ dgfeat) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int base = tg.start; base < tg.end; base += kBK) {
     const int n = min(kBK, tg.end - base);
-    stage_chunk(sh.s, feat, n_rows, gids, base, n, tg.tx0, tg.ty0);
+    stage_chunk<kBlocks>(sh.s, st, base, n, tg.tx0, tg.ty0);
     __syncthreads();
     for (int k = 0; k < n; ++k) {
       const float dx = __fsub_rn(tg.X, sh.s.gx[k]);
@@ -132,6 +139,9 @@ __device__ __forceinline__ void tile_backward(
     }
     __syncthreads();
     const int k = threadIdx.x;
+    float row[kFW];  // the slot's gradient row; a dead lane's stays zero
+#pragma unroll
+    for (int f = 0; f < kFW; ++f) row[f] = 0.0f;
     if (k < n) {
       float r[kMoments];
 #pragma unroll
@@ -145,26 +155,36 @@ __device__ __forceinline__ void tile_backward(
       const float b = 0.5f * sh.s.b2[k];  // exact: b2 = 2b
       const float c = sh.s.c[k];
       const float cx = r[0], cy = r[1];
-      float4* row = reinterpret_cast<float4*>(dgfeat + static_cast<size_t>(base + k) * kFW);
-      row[0] = make_float4(-2.0f * a * cx - 2.0f * b * cy,
-                           -2.0f * b * cx - 2.0f * c * cy, r[2], 2.0f * r[3]);
-      row[1] = make_float4(r[4], r[5], r[6], r[7]);
-      row[2] = make_float4(r[8], 0.0f, 0.0f, 0.0f);
-      row[3] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      row[0] = -2.0f * a * cx - 2.0f * b * cy;
+      row[1] = -2.0f * b * cx - 2.0f * c * cy;
+      row[2] = r[2];
+      row[3] = 2.0f * r[3];
+#pragma unroll
+      for (int v = 4; v < kMoments; ++v) row[v] = r[v];
+    }
+    if (kBlocks) {
+      if (k < kBK) {
+        float* out = dgfeat + static_cast<size_t>(base / kBK) * (kFW * kBK) + k;
+#pragma unroll
+        for (int f = 0; f < kFW; ++f) out[f * kBK] = row[f];
+      }
+    } else if (k < n) {
+      float4* out = reinterpret_cast<float4*>(dgfeat + static_cast<size_t>(base + k) * kFW);
+#pragma unroll
+      for (int f = 0; f < kFW / 4; ++f)
+        out[f] = make_float4(row[4 * f], row[4 * f + 1], row[4 * f + 2], row[4 * f + 3]);
     }
     __syncthreads();
   }
 }
 
+template <bool kBlocks>
 __global__ void __launch_bounds__(kThreads)
-rasterize_sum_bwd_kernel(const float* __restrict__ feat, int n_rows,
-                         const int* __restrict__ gids,
-                         const int* __restrict__ starts,
-                         const float* __restrict__ g,
+rasterize_sum_bwd_kernel(Stream st, const float* __restrict__ g,
                          float* __restrict__ dgfeat, int H, int W,
                          int tiles_x, float q_cut) {
   __shared__ BwdShared sh;
-  const TileGeom tg = tile_geom(starts, H, W, tiles_x);
+  const TileGeom tg = tile_geom<kBlocks>(st, H, W, tiles_x);
   if (tg.start >= tg.end) return;
   const size_t plane = static_cast<size_t>(H) * W;
   float G[kRowsPerThread][kC];
@@ -173,23 +193,21 @@ rasterize_sum_bwd_kernel(const float* __restrict__ feat, int n_rows,
 #pragma unroll
     for (int ch = 0; ch < kC; ++ch)
       G[j][ch] = tg.inside[j] ? g[ch * plane + tg.pix[j]] : 0.0f;
-  tile_backward(sh, feat, n_rows, gids, tg, G, q_cut, dgfeat);
+  tile_backward<kBlocks>(sh, st, tg, G, q_cut, dgfeat);
 }
 
+template <bool kBlocks>
 __global__ void __launch_bounds__(kThreads)
-rasterize_sum_l2_kernel(const float* __restrict__ feat, int n_rows,
-                        const int* __restrict__ gids,
-                        const int* __restrict__ starts,
-                        const float* __restrict__ gt,
+rasterize_sum_l2_kernel(Stream st, const float* __restrict__ gt,
                         float* __restrict__ sse, float* __restrict__ dgfeat,
                         int H, int W, int tiles_x, float q_cut, float gscale,
                         int clamp) {
   __shared__ BwdShared sh;
-  const TileGeom tg = tile_geom(starts, H, W, tiles_x);
+  const TileGeom tg = tile_geom<kBlocks>(st, H, W, tiles_x);
 
   // forward: K1's walk (tile_forward), so img is bit-equal to K1's image
   float acc[kRowsPerThread][kC];
-  tile_forward(sh.s, feat, n_rows, gids, tg, q_cut, acc);
+  tile_forward<kBlocks>(sh.s, st, tg, q_cut, acc);
 
   // clip, masked L2 and its cotangent, per pixel; the tile's SSE
   const size_t plane = static_cast<size_t>(H) * W;
@@ -220,7 +238,7 @@ rasterize_sum_l2_kernel(const float* __restrict__ feat, int n_rows,
     sse[blockIdx.x] = total;
   }
 
-  tile_backward(sh, feat, n_rows, gids, tg, G, q_cut, dgfeat);
+  tile_backward<kBlocks>(sh, st, tg, G, q_cut, dgfeat);
 }
 
 int check_args(int n_tiles, int n_rows) {
@@ -241,8 +259,9 @@ extern "C" int rasterize_sum_bwd(const float* feat, int n_rows,
                                  cudaStream_t stream) {
   const int n_tiles = tiles_x * tiles_y;
   if (int rc = check_args(n_tiles, n_rows)) return rc;
-  rasterize_sum_bwd_kernel<<<n_tiles, kThreads, 0, stream>>>(
-      feat, n_rows, gids, starts, g, dgfeat, H, W, tiles_x, q_cut);
+  const Stream st{feat, n_rows, gids, nullptr, starts, nullptr};
+  rasterize_sum_bwd_kernel<false><<<n_tiles, kThreads, 0, stream>>>(st, g, dgfeat, H, W,
+                                                                    tiles_x, q_cut);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -257,8 +276,40 @@ extern "C" int rasterize_sum_l2(const float* feat, int n_rows,
                                 cudaStream_t stream) {
   const int n_tiles = tiles_x * tiles_y;
   if (int rc = check_args(n_tiles, n_rows)) return rc;
-  rasterize_sum_l2_kernel<<<n_tiles, kThreads, 0, stream>>>(
-      feat, n_rows, gids, starts, gt, sse, dgfeat, H, W, tiles_x, q_cut,
-      gscale, clamp);
+  const Stream st{feat, n_rows, gids, nullptr, starts, nullptr};
+  rasterize_sum_l2_kernel<false><<<n_tiles, kThreads, 0, stream>>>(
+      st, gt, sse, dgfeat, H, W, tiles_x, q_cut, gscale, clamp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2 on the aligned stream: blocks [NB, 16, 64] f32 (K11a's), starts
+// [>= tiles_x*tiles_y + 1] i32 (multiples of 64), counts
+// [>= tiles_x*tiles_y] i32, g [4, H, W] f32, dgb [NB, 16, 64] f32 (each
+// chunk of a window written whole, dead lanes zero; blocks past the last
+// window are left as they are). As rasterize_sum_bwd otherwise.
+extern "C" int rasterize_sum_bwd_aligned(const float* blocks, const int* starts,
+                                         const int* counts, const float* g, float* dgb,
+                                         int H, int W, int tiles_x, int tiles_y,
+                                         float q_cut, cudaStream_t stream) {
+  const int n_tiles = tiles_x * tiles_y;
+  if (n_tiles <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Stream st{nullptr, 0, nullptr, blocks, starts, counts};
+  rasterize_sum_bwd_kernel<true><<<n_tiles, kThreads, 0, stream>>>(st, g, dgb, H, W,
+                                                                   tiles_x, q_cut);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3 on the aligned stream: as rasterize_sum_bwd_aligned, with gt [3, H, W]
+// f32 in place of the cotangent and sse as in rasterize_sum_l2.
+extern "C" int rasterize_sum_l2_aligned(const float* blocks, const int* starts,
+                                        const int* counts, const float* gt, float* sse,
+                                        float* dgb, int H, int W, int tiles_x, int tiles_y,
+                                        float q_cut, float gscale, int clamp,
+                                        cudaStream_t stream) {
+  const int n_tiles = tiles_x * tiles_y;
+  if (n_tiles <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Stream st{nullptr, 0, nullptr, blocks, starts, counts};
+  rasterize_sum_l2_kernel<true><<<n_tiles, kThreads, 0, stream>>>(
+      st, gt, sse, dgb, H, W, tiles_x, q_cut, gscale, clamp);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,6 +6,16 @@
 // a pair through these functions, so they make bit-identical gate decisions
 // and weights, and K1 and K3 compute the same image bit for bit.
 //
+// Two stream layouts (`Stream`), a template parameter kBlocks of the
+// staging, the geometry and the walk: the flat stream, rows feat[gids[s]]
+// and windows [starts[t], starts[t+1]); and the aligned stream, [NB, 16, 64]
+// transposed blocks written by K11a (stream_blocks.cu) and windows
+// [starts[t], starts[t] + counts[t]) with starts[t] a multiple of 64, so
+// chunk ci of tile t is block starts[t] / 64 + ci. The chunk boundaries
+// relative to a window's start are the same in both, and so is every
+// pair's arithmetic: on the same instances the two give the same image and
+// the same gradient rows bit for bit.
+//
 // Arithmetic: the JAX kernel's expression, rounded op by op (__fmul_rn,
 // __fadd_rn: no FMA contraction) and expf, not __expf, so q and w are
 // bit-equal to the plain PyTorch versions'. That matters at the q <= q_cut
@@ -32,24 +42,51 @@ struct Chunk {
   float cm[kC][kBK];
 };
 
-// Threads 0..n-1 stage stream slots base..base+n-1 (rows feat[gids[s]]);
-// out-of-range ids read the zero sentinel row n_rows-1. The caller
+// The stream a kernel walks. Flat: feat [n_rows, 16], gids [I], starts
+// [T+1]; counts and blocks unused. Aligned: blocks [NB, 16, 64], starts
+// [T+1] (multiples of 64) and counts [T]; feat and gids unused.
+struct Stream {
+  const float* feat;
+  int n_rows;
+  const int* gids;
+  const float* blocks;
+  const int* starts;
+  const int* counts;
+};
+
+// Slot base + k's feature f is r[f * step]: a row feat[gids[s]] (step 1;
+// out-of-range ids read the zero sentinel row n_rows-1), or lane k of the
+// aligned stream's block base / 64 (step 64; base is a chunk's first slot,
+// a multiple of 64 there).
+template <bool kBlocks>
+__device__ __forceinline__ const float* slot_features(const Stream& st, int base, int k,
+                                                      int& step) {
+  if (kBlocks) {
+    step = kBK;
+    return st.blocks + static_cast<size_t>(base / kBK) * (kFW * kBK) + k;
+  }
+  step = 1;
+  int g = st.gids[base + k];
+  if (g < 0 || g >= st.n_rows) g = st.n_rows - 1;
+  return st.feat + static_cast<size_t>(g) * kFW;
+}
+
+// Threads 0..n-1 stage stream slots base..base+n-1. The caller
 // synchronises before the chunk is read.
-__device__ __forceinline__ void stage_chunk(Chunk& s, const float* __restrict__ feat,
-                                            int n_rows, const int* __restrict__ gids,
-                                            int base, int n, float tx0, float ty0) {
+template <bool kBlocks>
+__device__ __forceinline__ void stage_chunk(Chunk& s, const Stream& st, int base, int n,
+                                            float tx0, float ty0) {
   const int k = threadIdx.x;
   if (k < n) {
-    int g = gids[base + k];
-    if (g < 0 || g >= n_rows) g = n_rows - 1;
-    const float* r = feat + static_cast<size_t>(g) * kFW;
+    int step;
+    const float* r = slot_features<kBlocks>(st, base, k, step);
     s.gx[k] = __fsub_rn(r[0], tx0);
-    s.gy[k] = __fsub_rn(r[1], ty0);
-    s.a[k] = r[2];
-    s.b2[k] = __fmul_rn(2.0f, r[3]);
-    s.c[k] = r[4];
+    s.gy[k] = __fsub_rn(r[step], ty0);
+    s.a[k] = r[2 * step];
+    s.b2[k] = __fmul_rn(2.0f, r[3 * step]);
+    s.c[k] = r[4 * step];
 #pragma unroll
-    for (int ch = 0; ch < kC; ++ch) s.cm[ch][k] = r[5 + ch];
+    for (int ch = 0; ch < kC; ++ch) s.cm[ch][k] = r[(5 + ch) * step];
   }
 }
 
@@ -79,16 +116,16 @@ struct TileGeom {
   size_t pix[kRowsPerThread];   // py * W + px
 };
 
-__device__ __forceinline__ TileGeom tile_geom(const int* __restrict__ starts,
-                                              int H, int W, int tiles_x) {
+template <bool kBlocks>
+__device__ __forceinline__ TileGeom tile_geom(const Stream& st, int H, int W, int tiles_x) {
   TileGeom g;
   const int t = blockIdx.x;
   const int tx = t % tiles_x;
   const int ty = t / tiles_x;
   g.tx0 = static_cast<float>(tx * kTile);
   g.ty0 = static_cast<float>(ty * kTile);
-  g.start = starts[t];
-  g.end = starts[t + 1];
+  g.start = st.starts[t];
+  g.end = kBlocks ? g.start + st.counts[t] : st.starts[t + 1];
   const int lx = threadIdx.x % kTile;
   const int warp = threadIdx.x / kTile;
   const int px = tx * kTile + lx;
@@ -107,17 +144,17 @@ __device__ __forceinline__ TileGeom tile_geom(const int* __restrict__ starts,
 // The forward walk: acc[j] = sum over the tile's window, in stream order,
 // of (o*r, o*g, o*b, o) * w at the thread's pixel j. Every thread of the
 // block must call it (it stages chunks and synchronises).
-__device__ __forceinline__ void tile_forward(
-    Chunk& s, const float* __restrict__ feat, int n_rows,
-    const int* __restrict__ gids, const TileGeom& tg, float q_cut,
-    float (&acc)[kRowsPerThread][kC]) {
+template <bool kBlocks>
+__device__ __forceinline__ void tile_forward(Chunk& s, const Stream& st, const TileGeom& tg,
+                                             float q_cut,
+                                             float (&acc)[kRowsPerThread][kC]) {
 #pragma unroll
   for (int j = 0; j < kRowsPerThread; ++j)
 #pragma unroll
     for (int ch = 0; ch < kC; ++ch) acc[j][ch] = 0.0f;
   for (int base = tg.start; base < tg.end; base += kBK) {
     const int n = min(kBK, tg.end - base);
-    stage_chunk(s, feat, n_rows, gids, base, n, tg.tx0, tg.ty0);
+    stage_chunk<kBlocks>(s, st, base, n, tg.tx0, tg.ty0);
     __syncthreads();
     for (int k = 0; k < n; ++k) {
       const float dx = __fsub_rn(tg.X, s.gx[k]);

@@ -2,12 +2,15 @@
 //
 // Replaces gaussianimage_tpu/ops/rasterize_sum.py::_fwd_kernel (with
 // _tile_acc and _chunk_geom), and fuses the stream gather of
-// ops/stream_common.py::gather_stream into it.
+// ops/stream_common.py::gather_stream into it. `rasterize_sum_fwd` walks the
+// flat stream; `rasterize_sum_fwd_aligned` the aligned one, reading the
+// [NB, 16, 64] blocks K11a wrote (the TPU kernel's `aligned` branch).
 //
 // Function: for every image tile of 32x32 pixels, walk the tile's window
-// [starts[t], starts[t+1]) of the tile-sorted instance stream. Each
-// instance is a row feat[gids[s]] = (x, y, a, b, c, o*r, o*g, o*b, o, pad..)
-// of 16 floats. For each pixel of the tile, on tile-local offsets
+// of the tile-sorted instance stream ([starts[t], starts[t+1]) flat,
+// [starts[t], starts[t] + counts[t]) aligned). Each instance is a row
+// feat[gids[s]] = (x, y, a, b, c, o*r, o*g, o*b, o, pad..) of 16 floats, or
+// the same 16 features down lane s % 64 of block s / 64. For each pixel of the tile, on tile-local offsets
 //   q = max(a dx^2 + 2 b dx dy + c dy^2, 0),
 //   w = exp(-q/2) if q <= q_cut else 0,
 //   acc[4] += (o*r, o*g, o*b, o) * w,
@@ -38,16 +41,14 @@ namespace {
 
 using namespace gsum;
 
+template <bool kBlocks>
 __global__ void __launch_bounds__(kThreads)
-rasterize_sum_fwd_kernel(const float* __restrict__ feat, int n_rows,
-                         const int* __restrict__ gids,
-                         const int* __restrict__ starts,
-                         float* __restrict__ out, int H, int W, int tiles_x,
+rasterize_sum_fwd_kernel(Stream st, float* __restrict__ out, int H, int W, int tiles_x,
                          float q_cut) {
   __shared__ Chunk s;
-  const TileGeom tg = tile_geom(starts, H, W, tiles_x);
+  const TileGeom tg = tile_geom<kBlocks>(st, H, W, tiles_x);
   float acc[kRowsPerThread][kC];
-  tile_forward(s, feat, n_rows, gids, tg, q_cut, acc);
+  tile_forward<kBlocks>(s, st, tg, q_cut, acc);
 
   const size_t plane = static_cast<size_t>(H) * W;
 #pragma unroll
@@ -71,7 +72,23 @@ extern "C" int rasterize_sum_fwd(const float* feat, int n_rows,
                                  cudaStream_t stream) {
   const int n_tiles = tiles_x * tiles_y;
   if (n_tiles <= 0 || n_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  rasterize_sum_fwd_kernel<<<n_tiles, kThreads, 0, stream>>>(
-      feat, n_rows, gids, starts, out, H, W, tiles_x, q_cut);
+  const Stream st{feat, n_rows, gids, nullptr, starts, nullptr};
+  rasterize_sum_fwd_kernel<false><<<n_tiles, kThreads, 0, stream>>>(st, out, H, W, tiles_x,
+                                                                    q_cut);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The aligned stream: blocks [NB, 16, 64] f32 (K11a's), starts
+// [>= tiles_x*tiles_y + 1] i32 (multiples of 64), counts
+// [>= tiles_x*tiles_y] i32; otherwise as rasterize_sum_fwd.
+extern "C" int rasterize_sum_fwd_aligned(const float* blocks, const int* starts,
+                                         const int* counts, float* out, int H, int W,
+                                         int tiles_x, int tiles_y, float q_cut,
+                                         cudaStream_t stream) {
+  const int n_tiles = tiles_x * tiles_y;
+  if (n_tiles <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Stream st{nullptr, 0, nullptr, blocks, starts, counts};
+  rasterize_sum_fwd_kernel<true><<<n_tiles, kThreads, 0, stream>>>(st, out, H, W, tiles_x,
+                                                                   q_cut);
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,7 +31,12 @@ for CPU tensors only, and a CUDA tensor launches the kernel or raises:
   never a division back to front.
 
 The gradient rows go back onto the Gaussians through
-``stream_common.scatter_stream_grads``, deterministically. The serving
+``stream_common.scatter_stream_grads``, deterministically. Above
+``flat_stream_limit`` instances the stream is aligned: the forward writes
+its [NB, 16, 64] blocks once (K11a) and K8 and K9 read them
+(``blend_fwd_aligned``, ``blend_bwd_aligned``, which count as K8 and K9
+launches too); K9 writes whole gradient blocks, which K11b turns back into
+rows for the scatter (``stream_common.scatter_block_grads``). The serving
 path from the fused 3DGS prep's keys (K10, ops/splat_prep3d.py) is
 ``rasterize_blend_from_keys_chw``: one sort, the window bounds, K8. The JAX
 package's XLA oracle is not ported.
@@ -47,13 +52,15 @@ import torch
 
 from gaussianimage_tpu_torch.ops import _build
 from gaussianimage_tpu_torch.ops import stream_common as sc
-from gaussianimage_tpu_torch.ops.rasterize_sum import (_check_launch,
+from gaussianimage_tpu_torch.ops.rasterize_sum import (_check_aligned_launch,
+                                                       _check_launch,
                                                        _check_tiles,
                                                        _raise_on,
                                                        _stream_ptr,
                                                        _tile_image,
                                                        _untile_image,
-                                                       stream_from_keys)
+                                                       stream_from_keys,
+                                                       window_counts)
 
 _BK = 64             # the kernels' chunk of stream slots
 _TILES = (16, 32)    # the tile sides the kernels are built for
@@ -68,7 +75,7 @@ class BlendConfig(NamedTuple):
     block_inst: int = 64         # instances per chunk (BK)
     max_tiles_per_gauss: int = 64
     max_instances: Optional[int] = None  # stream cap (None -> auto from N)
-    flat_stream_limit: int = 65536  # above this the aligned layout (K11)
+    flat_stream_limit: int = 65536  # above this the aligned layout
     alpha_clip: float = 0.999
     alpha_min: float = 1.0 / 255.0
     early_stop_T: float = 1e-4  # a tile stops after the chunk where every
@@ -117,14 +124,14 @@ class _Walk(NamedTuple):
     Y: torch.Tensor       # [1, P] tile-local pixel row
 
 
-def _walk(starts, H, W, tile_px) -> _Walk:
+def _walk(starts, counts, H, W, tile_px) -> _Walk:
+    """The walk of the windows [starts[t], starts[t] + counts[t])."""
     tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
     T = tiles_x * tiles_y
     dev = starts.device
-    st = starts[:T + 1].long()
     t = torch.arange(T, device=dev)
     pidx = torch.arange(tile_px * tile_px, device=dev)
-    return _Walk(tiles_x, tiles_y, st[:-1], st[1:] - st[:-1],
+    return _Walk(tiles_x, tiles_y, starts[:T].long(), counts[:T].long(),
                  ((t % tiles_x) * tile_px).float(),
                  (torch.div(t, tiles_x, rounding_mode="floor")
                   * tile_px).float(),
@@ -133,14 +140,15 @@ def _walk(starts, H, W, tile_px) -> _Walk:
                  .float()[None, :])
 
 
-def _chunk(feat, gids, wk: _Walk, idx, ci: int, bk: int):
-    """Chunk ``ci`` of tiles ``idx``: rows [A, bk, 16] (dead slots read
-    row 0 and are masked by ``live``), live [A, bk], slots [A, bk]."""
-    off = ci * bk + torch.arange(bk, device=feat.device)
+def _chunk(rows, wk: _Walk, idx, ci: int, bk: int):
+    """Chunk ``ci`` of tiles ``idx`` from the stream's rows by slot: rows
+    [A, bk, 16] (dead slots read slot 0's and are masked by ``live``),
+    live [A, bk], slots [A, bk]."""
+    off = ci * bk + torch.arange(bk, device=rows.device)
     live = off[None, :] < wk.counts[idx][:, None]
     slot = torch.where(live, wk.starts[idx][:, None] + off[None, :],
                        torch.zeros_like(live, dtype=torch.long))
-    return feat[gids[slot].long()], live, slot
+    return rows[slot], live, slot
 
 
 def _alpha_terms(rows, live, tx0, ty0, X, Y, alpha_clip, alpha_min):
@@ -163,6 +171,36 @@ def _alpha_terms(rows, live, tx0, ty0, X, Y, alpha_clip, alpha_min):
     return alpha, on & (raw <= alpha_clip), w, q, dx, dy
 
 
+def _blend_fwd_rows(stream_rows, starts, counts, H, W, tile_px, bk, alpha_clip,
+                    alpha_min, log_stop):
+    wk = _walk(starts, counts, H, W, tile_px)
+    T, P = wk.tiles_x * wk.tiles_y, tile_px * tile_px
+    dev = stream_rows.device
+    nch_all = torch.div(wk.counts + bk - 1, bk, rounding_mode="floor")
+    logT = torch.zeros(T, P, dtype=torch.float32, device=dev)
+    acc = torch.zeros(T, 3, P, dtype=torch.float32, device=dev)
+    used = torch.zeros(T, dtype=torch.int32, device=dev)
+    for ci in range(int(nch_all.max()) if T else 0):
+        idx = ((ci < nch_all) & (logT.amax(dim=1) > log_stop)).nonzero()[:, 0]
+        if idx.numel() == 0:
+            break
+        used[idx] += 1
+        rows, live, _ = _chunk(stream_rows, wk, idx, ci, bk)
+        alpha = _alpha_terms(rows, live, wk.tx0[idx], wk.ty0[idx], wk.X,
+                             wk.Y, alpha_clip, alpha_min)[0]
+        l1m = torch.log1p(-alpha)
+        col = rows[..., 5:8, None]  # [A, bk, 3, 1]
+        lT, ac = logT[idx], acc[idx]
+        for k in range(bk):
+            vis = alpha[:, k] * torch.exp(lT)
+            ac = ac + col[:, k] * vis[:, None, :]
+            lT = lT + l1m[:, k]
+        logT[idx] = lT
+        acc[idx] = ac
+    tiles = torch.cat([acc, torch.exp(logT)[:, None], logT[:, None]], dim=1)
+    return _untile_image(tiles, tile_px, wk.tiles_x, wk.tiles_y, H, W), used
+
+
 def blend_fwd_plain(feat: torch.Tensor, gids: torch.Tensor,
                     starts: torch.Tensor, H: int, W: int, tile_px: int = 16,
                     block_inst: int = _BK, alpha_clip: float = 0.999,
@@ -179,32 +217,9 @@ def blend_fwd_plain(feat: torch.Tensor, gids: torch.Tensor,
     left and the max of logT over its pixels (those past H x W included)
     is above ``log_stop``. K8's arithmetic, op for op.
     """
-    wk = _walk(starts, H, W, tile_px)
-    T, P, bk = wk.tiles_x * wk.tiles_y, tile_px * tile_px, block_inst
-    dev = feat.device
-    nch_all = torch.div(wk.counts + bk - 1, bk, rounding_mode="floor")
-    logT = torch.zeros(T, P, dtype=torch.float32, device=dev)
-    acc = torch.zeros(T, 3, P, dtype=torch.float32, device=dev)
-    used = torch.zeros(T, dtype=torch.int32, device=dev)
-    for ci in range(int(nch_all.max()) if T else 0):
-        idx = ((ci < nch_all) & (logT.amax(dim=1) > log_stop)).nonzero()[:, 0]
-        if idx.numel() == 0:
-            break
-        used[idx] += 1
-        rows, live, _ = _chunk(feat, gids, wk, idx, ci, bk)
-        alpha = _alpha_terms(rows, live, wk.tx0[idx], wk.ty0[idx], wk.X,
-                             wk.Y, alpha_clip, alpha_min)[0]
-        l1m = torch.log1p(-alpha)
-        col = rows[..., 5:8, None]  # [A, bk, 3, 1]
-        lT, ac = logT[idx], acc[idx]
-        for k in range(bk):
-            vis = alpha[:, k] * torch.exp(lT)
-            ac = ac + col[:, k] * vis[:, None, :]
-            lT = lT + l1m[:, k]
-        logT[idx] = lT
-        acc[idx] = ac
-    tiles = torch.cat([acc, torch.exp(logT)[:, None], logT[:, None]], dim=1)
-    return _untile_image(tiles, tile_px, wk.tiles_x, wk.tiles_y, H, W), used
+    return _blend_fwd_rows(sc.gather_stream(gids, feat), starts,
+                           window_counts(starts), H, W, tile_px, block_inst,
+                           alpha_clip, alpha_min, log_stop)
 
 
 def blend_bwd_plain(feat: torch.Tensor, gids: torch.Tensor,
@@ -226,9 +241,16 @@ def blend_bwd_plain(feat: torch.Tensor, gids: torch.Tensor,
     tile's pixels. Rows of slots in no consumed chunk are zero. Pixels
     past H x W take no part (log T_fin = -inf there, so T_k = 0).
     """
-    wk = _walk(starts, H, W, tile_px)
-    T, P, bk = wk.tiles_x * wk.tiles_y, tile_px * tile_px, block_inst
-    dev = feat.device
+    return _blend_bwd_rows(sc.gather_stream(gids, feat), starts,
+                           window_counts(starts), logt, nch, g, H, W,
+                           tile_px, block_inst, alpha_clip, alpha_min)
+
+
+def _blend_bwd_rows(stream_rows, starts, counts, logt, nch, g, H, W,
+                    tile_px, bk, alpha_clip, alpha_min):
+    wk = _walk(starts, counts, H, W, tile_px)
+    T, P = wk.tiles_x * wk.tiles_y, tile_px * tile_px
+    dev = stream_rows.device
     Gt = _tile_image(g.float(), tile_px, wk.tiles_x, wk.tiles_y)  # [T,4,P]
     inside = _tile_image(torch.ones(1, H, W, device=dev), tile_px,
                          wk.tiles_x, wk.tiles_y)[:, 0] > 0
@@ -238,11 +260,12 @@ def blend_bwd_plain(feat: torch.Tensor, gids: torch.Tensor,
         torch.full((), -math.inf, device=dev))
     suf_all = torch.zeros(T, P, dtype=torch.float32, device=dev)
     S_all = torch.zeros(T, P, dtype=torch.float32, device=dev)
-    dg = torch.zeros(gids.shape[0], sc.FW, dtype=torch.float32, device=dev)
+    dg = torch.zeros(stream_rows.shape[0], sc.FW, dtype=torch.float32,
+                     device=dev)
     nch = nch[:T].long()
     for ci in reversed(range(int(nch.max()) if T else 0)):
         idx = (ci < nch).nonzero()[:, 0]
-        rows, live, slot = _chunk(feat, gids, wk, idx, ci, bk)
+        rows, live, slot = _chunk(stream_rows, wk, idx, ci, bk)
         alpha, in_range, w, q, dx, dy = _alpha_terms(
             rows, live, wk.tx0[idx], wk.ty0[idx], wk.X, wk.Y, alpha_clip,
             alpha_min)
@@ -285,6 +308,35 @@ def blend_bwd_plain(feat: torch.Tensor, gids: torch.Tensor,
         out[..., 5:9] = sums[..., 5:9]
         dg[slot[live]] = out[live]
     return dg
+
+
+def blend_fwd_aligned_plain(blocks: torch.Tensor, starts: torch.Tensor,
+                            counts: torch.Tensor, H: int, W: int,
+                            tile_px: int = 16, block_inst: int = _BK,
+                            alpha_clip: float = 0.999,
+                            alpha_min: float = 1.0 / 255.0,
+                            log_stop: float = math.log(1e-4)
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the aligned K8: ``blend_fwd_plain`` over
+    the aligned stream's feature blocks [NB, 16, 64] and windows
+    [starts[t], starts[t] + counts[t])."""
+    return _blend_fwd_rows(sc.unblockize_stream_plain(blocks), starts,
+                           counts, H, W, tile_px, block_inst, alpha_clip,
+                           alpha_min, log_stop)
+
+
+def blend_bwd_aligned_plain(blocks: torch.Tensor, starts: torch.Tensor,
+                            counts: torch.Tensor, logt: torch.Tensor,
+                            nch: torch.Tensor, g: torch.Tensor, H: int,
+                            W: int, tile_px: int = 16, block_inst: int = _BK,
+                            alpha_clip: float = 0.999,
+                            alpha_min: float = 1.0 / 255.0) -> torch.Tensor:
+    """Plain PyTorch version of the aligned K9 -> gradient blocks
+    [NB, 16, 64]: ``blend_bwd_plain``'s rows over the aligned stream, as
+    blocks (slots in no consumed chunk zero)."""
+    return sc.blocks_of_rows(_blend_bwd_rows(
+        sc.unblockize_stream_plain(blocks), starts, counts, logt, nch, g, H,
+        W, tile_px, block_inst, alpha_clip, alpha_min))
 
 
 # ---------------------------------------------------------------------------
@@ -352,8 +404,85 @@ def blend_bwd(feat: torch.Tensor, gids: torch.Tensor, starts: torch.Tensor,
     return dg
 
 
-blend_fwd.launches = 0
-blend_bwd.launches = 0
+def blend_fwd_aligned(blocks: torch.Tensor, starts: torch.Tensor,
+                      counts: torch.Tensor, H: int, W: int, tile_px: int = 16,
+                      block_inst: int = _BK, alpha_clip: float = 0.999,
+                      alpha_min: float = 1.0 / 255.0,
+                      log_stop: float = math.log(1e-4)
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8 on the aligned stream -> (out [5, H, W], nch [T] int32): the
+    depth-ordered feature blocks [NB, 16, 64] of K11a, windows
+    [starts[t], starts[t] + counts[t]).
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version. A launch counts in ``blend_fwd.launches`` and
+    ``blend_fwd_aligned.launches``.
+    """
+    if blocks.device.type == "cpu":
+        return blend_fwd_aligned_plain(blocks, starts, counts, H, W, tile_px,
+                                       block_inst, alpha_clip, alpha_min,
+                                       log_stop)
+    _check_aligned_launch("K8", blocks, starts, counts, tile_px, H, W,
+                          tiles=_TILES)
+    _check_chunk("K8", block_inst)
+    tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
+    lib = _build.load("rasterize_blend")
+    out = torch.empty(_OUT, H, W, dtype=torch.float32, device=blocks.device)
+    nch = torch.empty(tiles_x * tiles_y, dtype=torch.int32,
+                      device=blocks.device)
+    _raise_on("K8 rasterize_blend_fwd_aligned",
+              lib.rasterize_blend_fwd_aligned(
+                  blocks.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+                  out.data_ptr(), nch.data_ptr(), H, W, tiles_x, tiles_y,
+                  tile_px, ctypes.c_float(alpha_clip),
+                  ctypes.c_float(alpha_min), ctypes.c_float(log_stop),
+                  _stream_ptr(blocks)))
+    blend_fwd.launches += 1
+    blend_fwd_aligned.launches += 1
+    return out, nch
+
+
+def blend_bwd_aligned(blocks: torch.Tensor, starts: torch.Tensor,
+                      counts: torch.Tensor, logt: torch.Tensor,
+                      nch: torch.Tensor, g: torch.Tensor, H: int, W: int,
+                      tile_px: int = 16, block_inst: int = _BK,
+                      alpha_clip: float = 0.999,
+                      alpha_min: float = 1.0 / 255.0) -> torch.Tensor:
+    """K9 on the aligned stream -> gradient blocks [NB, 16, 64] (slots in
+    no consumed chunk zero) from K8's log T_fin and chunk counts and the
+    cotangent g [4, H, W].
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version. A launch counts in ``blend_bwd.launches`` and
+    ``blend_bwd_aligned.launches``.
+    """
+    if blocks.device.type == "cpu":
+        return blend_bwd_aligned_plain(blocks, starts, counts, logt, nch, g,
+                                       H, W, tile_px, block_inst, alpha_clip,
+                                       alpha_min)
+    tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
+    _check_aligned_launch("K9", blocks, starts, counts, tile_px, H, W,
+                          tiles=_TILES, images=[
+                              ("logt", logt, (H, W)), ("g", g, (4, H, W)),
+                              ("nch", nch, (tiles_x * tiles_y,),
+                               torch.int32)])
+    _check_chunk("K9", block_inst)
+    lib = _build.load("rasterize_blend")
+    dgb = torch.zeros_like(blocks)
+    _raise_on("K9 rasterize_blend_bwd_aligned",
+              lib.rasterize_blend_bwd_aligned(
+                  blocks.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+                  logt.data_ptr(), nch.data_ptr(), g.data_ptr(),
+                  dgb.data_ptr(), H, W, tiles_x, tiles_y, tile_px,
+                  ctypes.c_float(alpha_clip), ctypes.c_float(alpha_min),
+                  _stream_ptr(blocks)))
+    blend_bwd.launches += 1
+    blend_bwd_aligned.launches += 1
+    return dgb
+
+
+for _fn in (blend_fwd, blend_bwd, blend_fwd_aligned, blend_bwd_aligned):
+    _fn.launches = 0
 
 
 def _check_chunk(kernel: str, block_inst: int) -> None:
@@ -369,29 +498,43 @@ def _check_chunk(kernel: str, block_inst: int) -> None:
 
 class _Blend(torch.autograd.Function):
     """feat [N+1, 16] depth-ordered rows -> (rgb [3, H, W], T_fin [H, W])
-    (K8); backward K9 on the cotangents, then the scatter onto the rows
-    (the JAX package's ``_blend`` custom_vjp)."""
+    of the stream ``sp`` (K8; on the aligned stream K11a first); backward
+    K9 on the cotangents, then the scatter onto the rows (K11b first on the
+    aligned stream): the JAX package's ``_blend`` custom_vjp."""
 
     @staticmethod
-    def forward(ctx, feat, gids, starts, H, W, cfg, m_span):
-        out, nch = blend_fwd(feat, gids, starts, H, W, cfg.tile_px,
-                             cfg.block_inst, float(cfg.alpha_clip),
-                             float(cfg.alpha_min), log_stop(cfg))
+    def forward(ctx, feat, sp, H, W, cfg):
+        args = (H, W, cfg.tile_px, cfg.block_inst, float(cfg.alpha_clip),
+                float(cfg.alpha_min))
+        if sp.aligned:
+            src = sc.blockize_stream(feat, sp.gids)
+            out, nch = blend_fwd_aligned(src, sp.starts, sp.counts, *args,
+                                         log_stop(cfg))
+        else:
+            src = feat
+            out, nch = blend_fwd(feat, sp.gids, sp.starts, *args,
+                                 log_stop(cfg))
         logt = out[4]
-        ctx.save_for_backward(feat, gids, starts, logt, nch)
-        ctx.geom = (H, W, cfg, m_span)
+        ctx.save_for_backward(src, logt, nch)
+        ctx.sp = sp
+        ctx.geom = (feat.shape[0], args)
         return out[:3], out[3]
 
     @staticmethod
     def backward(ctx, d_rgb, d_tfin):
-        feat, gids, starts, logt, nch = ctx.saved_tensors
-        H, W, cfg, m_span = ctx.geom
+        src, logt, nch = ctx.saved_tensors
+        sp = ctx.sp
+        n_rows, (H, W, *args) = ctx.geom
         g = torch.cat([d_rgb, d_tfin[None]]).float().contiguous()
-        dg = blend_bwd(feat, gids, starts, logt, nch, g, H, W, cfg.tile_px,
-                       cfg.block_inst, float(cfg.alpha_clip),
-                       float(cfg.alpha_min))
-        dfeat = sc.scatter_stream_grads(dg, gids, feat.shape[0], m_span)
-        return dfeat, None, None, None, None, None, None
+        if sp.aligned:
+            dgb = blend_bwd_aligned(src, sp.starts, sp.counts, logt, nch, g,
+                                    H, W, *args)
+            dfeat = sc.scatter_block_grads(dgb, sp.gids, n_rows, sp.m_span)
+        else:
+            dg = blend_bwd(src, sp.gids, sp.starts, logt, nch, g, H, W,
+                           *args)
+            dfeat = sc.scatter_stream_grads(dg, sp.gids, n_rows, sp.m_span)
+        return dfeat, None, None, None, None
 
 
 def blend_stream(xys, depths, radii, H: int, W: int, cfg: BlendConfig):
@@ -434,7 +577,7 @@ def rasterize_gaussians_blend(
     cfg = config
     order, sp = blend_stream(xys, depths, radii, H, W, cfg)
     feat = blend_feat(xys, conics, colors, opacities, order)
-    rgb, tfin = _Blend.apply(feat, sp.gids, sp.starts, H, W, cfg, sp.m_span)
+    rgb, tfin = _Blend.apply(feat, sp, H, W, cfg)
     if background is None:
         background = torch.zeros(3, dtype=torch.float32, device=xys.device)
     img = rgb + tfin[None] * background[:, None, None]

@@ -29,6 +29,15 @@ images directly, so neither the JAX package's stream gather nor its tiling
 and untiling of images runs on the card. Per-instance rows go back onto the
 Gaussians through ``stream_common.scatter_stream_grads``, deterministically.
 
+Above ``flat_stream_limit`` instances the stream is aligned
+(stream_common.prepare_stream): the forward writes its [NB, 16, 64] feature
+blocks once (K11a, ``stream_common.blockize_stream``) and K1, K2 and K3
+read them (``sum_fwd_aligned``, ``sum_bwd_aligned``, ``sum_l2_aligned``,
+which count as K1, K2 and K3 launches too); K2 and K3 then write whole
+gradient blocks, which K11b turns back into rows for the scatter
+(``stream_common.scatter_block_grads``). On the same instances both
+layouts give the same image, loss and gradients bit for bit.
+
 ``rasterize_from_keys_chw`` is the forward render from the fused splat
 prep's rows and sort keys (ops/splat_prep.py): the serving render and the
 codec's fused decode.
@@ -46,6 +55,7 @@ import torch
 
 from gaussianimage_tpu_torch.ops import _build
 from gaussianimage_tpu_torch.ops import stream_common as sc
+from gaussianimage_tpu_torch.ops.stream_common import _raise_on, _stream_ptr
 from gaussianimage_tpu_torch.ops.tiles import INT32_MAX, sorted_window_bounds
 
 _C = 4  # output channels: rgb + alpha
@@ -61,7 +71,7 @@ class RasterizeConfig(NamedTuple):
     q_cut: float = 9.0       # Mahalanobis cutoff (3 sigma)
     max_tiles_per_gauss: int = 25  # per-Gaussian binning instance cap
     max_instances: Optional[int] = None  # stream cap (None -> auto from N)
-    flat_stream_limit: int = 65536  # above this the aligned layout (K11)
+    flat_stream_limit: int = 65536  # above this the aligned layout
     interpret: Optional[bool] = None  # Pallas interpret mode; unused here
     fused_prep: bool = False  # render_fast / decode take the fused prep
 
@@ -105,37 +115,45 @@ def _check_tiles(H: int, W: int, tile_px: int, starts: torch.Tensor):
 
 class Pairs(NamedTuple):
     """One chunk of stream slots against their tiles' pixels."""
-    start: int            # first stream slot of the chunk
+    slot: torch.Tensor    # [n] the chunk's stream slots
     tile: torch.Tensor    # [n] each slot's tile
-    rows: torch.Tensor    # [n, 16] gathered feature rows
+    rows: torch.Tensor    # [n, 16] the slots' feature rows
     dx: torch.Tensor      # [n, P] pixel minus center, tile-local
     dy: torch.Tensor      # [n, P]
     q: torch.Tensor       # [n, P] clamped quadratic form
     inside: torch.Tensor  # [n, P] pixel within H x W
 
 
-def window_pairs(feat: torch.Tensor, gids: torch.Tensor,
-                 starts: torch.Tensor, H: int, W: int, tile_px: int = 32):
+def window_counts(starts: torch.Tensor) -> torch.Tensor:
+    """The flat stream's window lengths starts[t+1] - starts[t]."""
+    return starts[1:] - starts[:-1]
+
+
+def window_pairs(rows: torch.Tensor, starts: torch.Tensor,
+                 counts: torch.Tensor, H: int, W: int, tile_px: int = 32):
     """The kernels' (instance, pixel) geometry over the slots of the tiles'
-    windows, ``_PLAIN_CHUNK`` slots at a time: yields ``Pairs`` with q
-    computed op for op as the kernels compute it
-    (rasterize_sum_common.cuh). Reads the end of the last window back to
-    the host."""
+    windows [starts[t], starts[t] + counts[t]), ``_PLAIN_CHUNK`` slots at a
+    time: yields ``Pairs`` with q computed op for op as the kernels compute
+    it (rasterize_sum_common.cuh). ``rows`` [L, 16] are the stream's
+    feature rows by slot: feat[gids] on the flat stream (``counts`` =
+    ``window_counts(starts)``), the unblockized blocks on the aligned one.
+    Reads the windows' total length back to the host."""
     tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
     T = tiles_x * tiles_y
     P = tile_px * tile_px
-    dev = feat.device
-    I = int(starts[T])
-    rows = sc.gather_stream(gids[:I], feat)
+    dev = rows.device
+    cnt = counts[:T].long()
+    tile_of = torch.repeat_interleave(torch.arange(T, device=dev), cnt)
+    first = torch.cumsum(cnt, 0) - cnt
+    slot_of = (starts[:T].long()[tile_of] - first[tile_of]
+               + torch.arange(tile_of.numel(), device=dev))
     pidx = torch.arange(P, device=dev)
     X = (pidx % tile_px).float()[None, :]   # [1, P] tile-local pixel x
     Y = (pidx // tile_px).float()[None, :]
-    slot = torch.arange(I, device=dev, dtype=torch.int32)
-    tile_of = torch.searchsorted(starts[1:T + 1].contiguous(), slot,
-                                 right=True)  # [I] in [0, T)
-    for s in range(0, I, _PLAIN_CHUNK):
+    for s in range(0, tile_of.numel(), _PLAIN_CHUNK):
         t = tile_of[s:s + _PLAIN_CHUNK]
-        g = rows[s:s + _PLAIN_CHUNK]  # [n, 16]
+        slot = slot_of[s:s + _PLAIN_CHUNK]
+        g = rows[slot]  # [n, 16]
         tx0 = ((t % tiles_x) * tile_px).float()[:, None]
         ty0 = (torch.div(t, tiles_x, rounding_mode="floor")
                * tile_px).float()[:, None]
@@ -147,7 +165,7 @@ def window_pairs(feat: torch.Tensor, gids: torch.Tensor,
         q = torch.clamp(a * dx * dx + 2.0 * b * dx * dy + c * dy * dy,
                         min=0.0)
         inside = (X + tx0 < W) & (Y + ty0 < H)
-        yield Pairs(s, t, g, dx, dy, q, inside)
+        yield Pairs(slot, t, g, dx, dy, q, inside)
 
 
 def _tile_image(img: torch.Tensor, tile_px: int, tiles_x: int,
@@ -179,7 +197,7 @@ def _untile_image(tiles: torch.Tensor, tile_px: int, tiles_x: int,
 
 class Gated(NamedTuple):
     """The gated (instance, pixel) pairs of one chunk of stream slots."""
-    start: int          # first stream slot of the chunk
+    slot: torch.Tensor  # [n] the chunk's stream slots
     rows: torch.Tensor  # [n, 16] the chunk's feature rows
     k: torch.Tensor     # [m] slot within the chunk
     tile: torch.Tensor  # [m] the slot's tile
@@ -189,14 +207,15 @@ class Gated(NamedTuple):
     dy: torch.Tensor    # [m]
 
 
-def gated_pairs(feat, gids, starts, H, W, tile_px=32, q_cut=9.0):
+def gated_pairs(rows, starts, counts, H, W, tile_px=32, q_cut=9.0):
     """The pairs that pass the kernels' gate: a slot of a window, a pixel
     within H x W and q <= q_cut, in stream order (slot-major), with their
-    weights. The plain versions evaluate only these."""
+    weights (``window_pairs``' arguments). The plain versions evaluate only
+    these."""
     out = []
-    for pr in window_pairs(feat, gids, starts, H, W, tile_px):
+    for pr in window_pairs(rows, starts, counts, H, W, tile_px):
         k, p = torch.nonzero(pr.inside & (pr.q <= q_cut), as_tuple=True)
-        out.append(Gated(pr.start, pr.rows, k, pr.tile[k], p,
+        out.append(Gated(pr.slot, pr.rows, k, pr.tile[k], p,
                          torch.exp(-0.5 * pr.q[k, p]), pr.dx[k, p],
                          pr.dy[k, p]))
     return out
@@ -230,14 +249,42 @@ def _backward_rows(gated, G: torch.Tensor, n_slots: int) -> torch.Tensor:
         mom.index_add_(0, gp.k, terms)
         cx, cy = mom[:, 0], mom[:, 1]
         a, b, c = gp.rows[:, 2], gp.rows[:, 3], gp.rows[:, 4]
-        out = dg[gp.start:gp.start + n]
+        out = torch.zeros(n, sc.FW, dtype=torch.float32, device=G.device)
         out[:, 0] = -2.0 * a * cx - 2.0 * b * cy
         out[:, 1] = -2.0 * b * cx - 2.0 * c * cy
         out[:, 2] = mom[:, 2]
         out[:, 3] = 2.0 * mom[:, 3]
         out[:, 4] = mom[:, 4]
         out[:, 5:5 + _C] = mom[:, 5:]
+        dg[gp.slot] = out
     return dg
+
+
+def _fwd_rows(rows, starts, counts, H, W, tile_px, q_cut) -> torch.Tensor:
+    tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
+    acc = _accumulate(gated_pairs(rows, starts, counts, H, W, tile_px, q_cut),
+                      tiles_x * tiles_y, tile_px * tile_px, rows.device)
+    return _untile_image(acc, tile_px, tiles_x, tiles_y, H, W)
+
+
+def _bwd_rows(rows, starts, counts, g, H, W, tile_px, q_cut) -> torch.Tensor:
+    tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
+    return _backward_rows(
+        gated_pairs(rows, starts, counts, H, W, tile_px, q_cut),
+        _tile_image(g.float(), tile_px, tiles_x, tiles_y), rows.shape[0])
+
+
+def _l2_rows(rows, starts, counts, gt, H, W, tile_px, q_cut, clamp):
+    tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
+    T, P = tiles_x * tiles_y, tile_px * tile_px
+    gated = gated_pairs(rows, starts, counts, H, W, tile_px, q_cut)
+    img = _untile_image(_accumulate(gated, T, P, rows.device), tile_px,
+                        tiles_x, tiles_y, H, W)[:3]
+    diff, G = l2_cotangent(img, gt.float(), H, W, clamp)
+    sse = _tile_image(diff * diff, tile_px, tiles_x, tiles_y).sum(dim=(1, 2))
+    dg = _backward_rows(gated, _tile_image(G, tile_px, tiles_x, tiles_y),
+                        rows.shape[0])
+    return sse, dg
 
 
 def sum_fwd_plain(feat: torch.Tensor, gids: torch.Tensor,
@@ -250,10 +297,8 @@ def sum_fwd_plain(feat: torch.Tensor, gids: torch.Tensor,
     (``gated_pairs``) onto the tiles with ``index_add_``. The arithmetic of
     each term is K1's, op for op.
     """
-    tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
-    acc = _accumulate(gated_pairs(feat, gids, starts, H, W, tile_px, q_cut),
-                      tiles_x * tiles_y, tile_px * tile_px, feat.device)
-    return _untile_image(acc, tile_px, tiles_x, tiles_y, H, W)
+    return _fwd_rows(sc.gather_stream(gids, feat), starts,
+                     window_counts(starts), H, W, tile_px, q_cut)
 
 
 def sum_bwd_plain(feat: torch.Tensor, gids: torch.Tensor,
@@ -266,10 +311,8 @@ def sum_bwd_plain(feat: torch.Tensor, gids: torch.Tensor,
     dq summed directly over the pixel offsets) over the slot's gated
     pairs; rows of slots outside every window are zero.
     """
-    tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
-    return _backward_rows(
-        gated_pairs(feat, gids, starts, H, W, tile_px, q_cut),
-        _tile_image(g.float(), tile_px, tiles_x, tiles_y), gids.shape[0])
+    return _bwd_rows(sc.gather_stream(gids, feat), starts,
+                     window_counts(starts), g, H, W, tile_px, q_cut)
 
 
 def sum_l2_plain(feat: torch.Tensor, gids: torch.Tensor,
@@ -284,16 +327,44 @@ def sum_l2_plain(feat: torch.Tensor, gids: torch.Tensor,
     then the plain K2 on G, over one evaluation of the gated pairs: K1, the
     loss and K2, as K3 fuses them.
     """
-    tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
-    T, P = tiles_x * tiles_y, tile_px * tile_px
-    gated = gated_pairs(feat, gids, starts, H, W, tile_px, q_cut)
-    img = _untile_image(_accumulate(gated, T, P, feat.device), tile_px,
-                        tiles_x, tiles_y, H, W)[:3]
-    diff, G = l2_cotangent(img, gt.float(), H, W, clamp)
-    sse = _tile_image(diff * diff, tile_px, tiles_x, tiles_y).sum(dim=(1, 2))
-    dg = _backward_rows(gated, _tile_image(G, tile_px, tiles_x, tiles_y),
-                        gids.shape[0])
-    return sse, dg
+    return _l2_rows(sc.gather_stream(gids, feat), starts,
+                    window_counts(starts), gt, H, W, tile_px, q_cut, clamp)
+
+
+def sum_fwd_aligned_plain(blocks: torch.Tensor, starts: torch.Tensor,
+                          counts: torch.Tensor, H: int, W: int,
+                          tile_px: int = 32, q_cut: float = 9.0
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of the aligned K1 -> [4, H, W] float32:
+    ``sum_fwd_plain`` over the aligned stream, whose feature blocks
+    [NB, 16, 64] hold slot s's row down lane s % 64 of block s / 64 and
+    whose windows are [starts[t], starts[t] + counts[t])."""
+    return _fwd_rows(sc.unblockize_stream_plain(blocks), starts, counts, H,
+                     W, tile_px, q_cut)
+
+
+def sum_bwd_aligned_plain(blocks: torch.Tensor, starts: torch.Tensor,
+                          counts: torch.Tensor, g: torch.Tensor, H: int,
+                          W: int, tile_px: int = 32, q_cut: float = 9.0
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of the aligned K2 -> gradient blocks
+    [NB, 16, 64]: ``sum_bwd_plain``'s rows over the aligned stream, as
+    blocks (slots outside every window zero)."""
+    return sc.blocks_of_rows(_bwd_rows(
+        sc.unblockize_stream_plain(blocks), starts, counts, g, H, W, tile_px,
+        q_cut))
+
+
+def sum_l2_aligned_plain(blocks: torch.Tensor, starts: torch.Tensor,
+                         counts: torch.Tensor, gt: torch.Tensor, H: int,
+                         W: int, tile_px: int = 32, q_cut: float = 9.0,
+                         clamp: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the aligned K3 -> (sse [T], gradient blocks
+    [NB, 16, 64]): ``sum_l2_plain`` over the aligned stream."""
+    sse, dg = _l2_rows(sc.unblockize_stream_plain(blocks), starts, counts,
+                       gt, H, W, tile_px, q_cut, clamp)
+    return sse, sc.blocks_of_rows(dg)
 
 
 def l2_cotangent(img: torch.Tensor, gt: torch.Tensor, H: int, W: int,
@@ -316,26 +387,17 @@ def l2_cotangent(img: torch.Tensor, gt: torch.Tensor, H: int, W: int,
 # ---------------------------------------------------------------------------
 
 
-def _check_launch(kernel: str, feat, gids, starts, tile_px, images=(),
-                  tiles=(_KERNEL_TILE,)):
-    """Device, type, layout and shape checks of a kernel launch; raises on
-    anything the kernels do not take. ``images`` are (name, tensor, shape)
-    of float32 tensors, or (name, tensor, shape, dtype); ``tiles`` the tile
-    sides the kernel is built for."""
-    if feat.device.type != "cuda":
-        raise ValueError(f"{kernel} runs on CUDA or CPU tensors, got "
-                         f"{feat.device}")
-    if tile_px not in tiles:
-        raise NotImplementedError(
-            f"{kernel} is built for tile_px in {tiles}, got "
-            f"tile_px={tile_px}")
-    named = [("feat", feat, torch.float32), ("gids", gids, torch.int32),
-             ("starts", starts, torch.int32)]
-    named += [(im[0], im[1], im[3] if len(im) > 3 else torch.float32)
-              for im in images]
+def _check_tensors(kernel: str, dev, named, images=()) -> None:
+    """Device, type and layout checks: ``named`` are (name, tensor, dtype);
+    ``images`` (name, tensor, shape) of float32 tensors, or (name, tensor,
+    shape, dtype), are also held to their shapes."""
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel} runs on CUDA or CPU tensors, got {dev}")
+    named = list(named) + [(im[0], im[1], im[3] if len(im) > 3
+                            else torch.float32) for im in images]
     for name, x, dtype in named:
-        if x.device != feat.device:
-            raise ValueError(f"{name} is on {x.device}, feat on {feat.device}")
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, the stream on {dev}")
         if x.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
         if not x.is_contiguous():
@@ -343,6 +405,24 @@ def _check_launch(kernel: str, feat, gids, starts, tile_px, images=(),
     for name, x, shape, *_ in images:
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+
+
+def _check_tile_px(kernel: str, tile_px: int, tiles) -> None:
+    if tile_px not in tiles:
+        raise NotImplementedError(
+            f"{kernel} is built for tile_px in {tiles}, got "
+            f"tile_px={tile_px}")
+
+
+def _check_launch(kernel: str, feat, gids, starts, tile_px, images=(),
+                  tiles=(_KERNEL_TILE,)):
+    """Checks of a launch on the flat stream; raises on anything the
+    kernels do not take. ``images`` as ``_check_tensors``' ; ``tiles`` the
+    tile sides the kernel is built for."""
+    _check_tensors(kernel, feat.device, [
+        ("feat", feat, torch.float32), ("gids", gids, torch.int32),
+        ("starts", starts, torch.int32)], images)
+    _check_tile_px(kernel, tile_px, tiles)
     if feat.dim() != 2 or feat.shape[1] != sc.FW or feat.shape[0] < 1:
         raise ValueError(f"feat must be [N+1, {sc.FW}], got "
                          f"{tuple(feat.shape)}")
@@ -350,13 +430,30 @@ def _check_launch(kernel: str, feat, gids, starts, tile_px, images=(),
         raise ValueError(f"gids must be 1-D, got {tuple(gids.shape)}")
 
 
-def _raise_on(kernel: str, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
-
-
-def _stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _check_aligned_launch(kernel: str, blocks, starts, counts, tile_px, H,
+                          W, images=(), tiles=(_KERNEL_TILE,)):
+    """Checks of a launch on the aligned stream: the blocks [NB, 16, 64]
+    float32, int32 starts and counts for every tile, every window starting
+    on a block and ending inside the stream. Reads one flag back to the
+    host."""
+    _check_tensors(kernel, blocks.device, [
+        ("blocks", blocks, torch.float32), ("starts", starts, torch.int32),
+        ("counts", counts, torch.int32)], images)
+    _check_tile_px(kernel, tile_px, tiles)
+    if blocks.dim() != 3 or tuple(blocks.shape[1:]) != (sc.FW, sc.BK):
+        raise ValueError(f"blocks must be [NB, {sc.FW}, {sc.BK}], got "
+                         f"{tuple(blocks.shape)}")
+    tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
+    T = tiles_x * tiles_y
+    if counts.dim() != 1 or counts.shape[0] < T:
+        raise ValueError(f"counts must be 1-D with at least {T} entries, got "
+                         f"{tuple(counts.shape)}")
+    st, cnt = starts[:T], counts[:T]
+    if bool(((st % sc.BK != 0) | (cnt < 0)
+             | (st + cnt > blocks.shape[0] * sc.BK)).any()):
+        raise ValueError(f"{kernel}: the aligned windows must start on a "
+                         f"multiple of {sc.BK} and end inside the "
+                         f"{blocks.shape[0]} blocks")
 
 
 def sum_fwd(feat: torch.Tensor, gids: torch.Tensor, starts: torch.Tensor,
@@ -435,9 +532,94 @@ def sum_l2(feat: torch.Tensor, gids: torch.Tensor, starts: torch.Tensor,
     return sse, dg
 
 
-sum_fwd.launches = 0
-sum_bwd.launches = 0
-sum_l2.launches = 0
+def sum_fwd_aligned(blocks: torch.Tensor, starts: torch.Tensor,
+                    counts: torch.Tensor, H: int, W: int, tile_px: int = 32,
+                    q_cut: float = 9.0) -> torch.Tensor:
+    """K1 on the aligned stream -> [4, H, W] float32: the feature blocks
+    [NB, 16, 64] of K11a, windows [starts[t], starts[t] + counts[t]).
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version. A launch counts in ``sum_fwd.launches`` and
+    ``sum_fwd_aligned.launches``.
+    """
+    if blocks.device.type == "cpu":
+        return sum_fwd_aligned_plain(blocks, starts, counts, H, W, tile_px,
+                                     q_cut)
+    _check_aligned_launch("K1", blocks, starts, counts, tile_px, H, W)
+    tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
+    lib = _build.load("rasterize_sum_fwd")
+    out = torch.empty(_C, H, W, dtype=torch.float32, device=blocks.device)
+    _raise_on("K1 rasterize_sum_fwd_aligned", lib.rasterize_sum_fwd_aligned(
+        blocks.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+        out.data_ptr(), H, W, tiles_x, tiles_y, ctypes.c_float(q_cut),
+        _stream_ptr(blocks)))
+    sum_fwd.launches += 1
+    sum_fwd_aligned.launches += 1
+    return out
+
+
+def sum_bwd_aligned(blocks: torch.Tensor, starts: torch.Tensor,
+                    counts: torch.Tensor, g: torch.Tensor, H: int, W: int,
+                    tile_px: int = 32, q_cut: float = 9.0) -> torch.Tensor:
+    """K2 on the aligned stream -> gradient blocks [NB, 16, 64] float32
+    from the render's cotangent g [4, H, W]: each slot's row down its lane,
+    slots outside every window zero.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version. A launch counts in ``sum_bwd.launches`` and
+    ``sum_bwd_aligned.launches``.
+    """
+    if blocks.device.type == "cpu":
+        return sum_bwd_aligned_plain(blocks, starts, counts, g, H, W,
+                                     tile_px, q_cut)
+    _check_aligned_launch("K2", blocks, starts, counts, tile_px, H, W,
+                          images=[("g", g, (_C, H, W))])
+    tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
+    lib = _build.load("rasterize_sum_bwd")
+    dgb = torch.zeros_like(blocks)
+    _raise_on("K2 rasterize_sum_bwd_aligned", lib.rasterize_sum_bwd_aligned(
+        blocks.data_ptr(), starts.data_ptr(), counts.data_ptr(), g.data_ptr(),
+        dgb.data_ptr(), H, W, tiles_x, tiles_y, ctypes.c_float(q_cut),
+        _stream_ptr(blocks)))
+    sum_bwd.launches += 1
+    sum_bwd_aligned.launches += 1
+    return dgb
+
+
+def sum_l2_aligned(blocks: torch.Tensor, starts: torch.Tensor,
+                   counts: torch.Tensor, gt: torch.Tensor, H: int, W: int,
+                   tile_px: int = 32, q_cut: float = 9.0, clamp: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 on the aligned stream -> (sse [T], gradient blocks [NB, 16, 64])
+    of the clipped render against gt [3, H, W].
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version. A launch counts in ``sum_l2.launches`` and
+    ``sum_l2_aligned.launches``.
+    """
+    if blocks.device.type == "cpu":
+        return sum_l2_aligned_plain(blocks, starts, counts, gt, H, W, tile_px,
+                                    q_cut, clamp)
+    _check_aligned_launch("K3", blocks, starts, counts, tile_px, H, W,
+                          images=[("gt", gt, (3, H, W))])
+    tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
+    lib = _build.load("rasterize_sum_bwd")
+    sse = torch.empty(tiles_x * tiles_y, dtype=torch.float32,
+                      device=blocks.device)
+    dgb = torch.zeros_like(blocks)
+    _raise_on("K3 rasterize_sum_l2_aligned", lib.rasterize_sum_l2_aligned(
+        blocks.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+        gt.data_ptr(), sse.data_ptr(), dgb.data_ptr(), H, W, tiles_x,
+        tiles_y, ctypes.c_float(q_cut), ctypes.c_float(2.0 / (3.0 * H * W)),
+        int(bool(clamp)), _stream_ptr(blocks)))
+    sum_l2.launches += 1
+    sum_l2_aligned.launches += 1
+    return sse, dgb
+
+
+for _fn in (sum_fwd, sum_bwd, sum_l2, sum_fwd_aligned, sum_bwd_aligned,
+            sum_l2_aligned):
+    _fn.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -446,44 +628,68 @@ sum_l2.launches = 0
 
 
 class _Raster(torch.autograd.Function):
-    """feat [N+1, 16] -> the [4, H, W] render (K1); backward K2 on the
-    cotangent, then the scatter onto the rows (the JAX package's
-    ``_raster`` custom_vjp)."""
+    """feat [N+1, 16] -> the [4, H, W] render of the stream ``sp`` (K1;
+    on the aligned stream K11a first); backward K2 on the cotangent, then
+    the scatter onto the rows (K11b first on the aligned stream): the JAX
+    package's ``_raster`` custom_vjp."""
 
     @staticmethod
-    def forward(ctx, feat, gids, starts, H, W, tile_px, q_cut, m_span):
-        ctx.save_for_backward(feat, gids, starts)
-        ctx.geom = (H, W, tile_px, q_cut, m_span)
-        return sum_fwd(feat, gids, starts, H, W, tile_px, q_cut)
+    def forward(ctx, feat, sp, H, W, tile_px, q_cut):
+        if sp.aligned:
+            src = sc.blockize_stream(feat, sp.gids)
+            out = sum_fwd_aligned(src, sp.starts, sp.counts, H, W, tile_px,
+                                  q_cut)
+        else:
+            src = feat
+            out = sum_fwd(feat, sp.gids, sp.starts, H, W, tile_px, q_cut)
+        ctx.save_for_backward(src)
+        ctx.sp = sp
+        ctx.geom = (feat.shape[0], H, W, tile_px, q_cut)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        feat, gids, starts = ctx.saved_tensors
-        H, W, tile_px, q_cut, m_span = ctx.geom
-        dg = sum_bwd(feat, gids, starts, g.float().contiguous(), H, W,
-                     tile_px, q_cut)
-        dfeat = sc.scatter_stream_grads(dg, gids, feat.shape[0], m_span)
-        return dfeat, None, None, None, None, None, None, None
+        src, = ctx.saved_tensors
+        sp = ctx.sp
+        n_rows, H, W, tile_px, q_cut = ctx.geom
+        g = g.float().contiguous()
+        if sp.aligned:
+            dgb = sum_bwd_aligned(src, sp.starts, sp.counts, g, H, W,
+                                  tile_px, q_cut)
+            dfeat = sc.scatter_block_grads(dgb, sp.gids, n_rows, sp.m_span)
+        else:
+            dg = sum_bwd(src, sp.gids, sp.starts, g, H, W, tile_px, q_cut)
+            dfeat = sc.scatter_stream_grads(dg, sp.gids, n_rows, sp.m_span)
+        return dfeat, None, None, None, None, None
 
 
 class _RasterL2(torch.autograd.Function):
     """feat [N+1, 16] -> mse = sum(sse) / (3HW) of the clipped render
-    against gt (K3). The forward also scatters K3's gradient rows, so the
+    against gt (K3; on the aligned stream K11a first). The forward also
+    scatters K3's gradient rows (K11b first on the aligned stream), so the
     backward is grad_output * dfeat; gt gets no gradient (the JAX package's
     ``_raster_l2`` custom_vjp)."""
 
     @staticmethod
-    def forward(ctx, feat, gids, starts, gt, H, W, tile_px, q_cut, clamp,
-                m_span):
-        sse, dg = sum_l2(feat, gids, starts, gt, H, W, tile_px, q_cut, clamp)
-        ctx.save_for_backward(
-            sc.scatter_stream_grads(dg, gids, feat.shape[0], m_span))
+    def forward(ctx, feat, sp, gt, H, W, tile_px, q_cut, clamp):
+        if sp.aligned:
+            sse, dgb = sum_l2_aligned(sc.blockize_stream(feat, sp.gids),
+                                      sp.starts, sp.counts, gt, H, W, tile_px,
+                                      q_cut, clamp)
+            dfeat = sc.scatter_block_grads(dgb, sp.gids, feat.shape[0],
+                                           sp.m_span)
+        else:
+            sse, dg = sum_l2(feat, sp.gids, sp.starts, gt, H, W, tile_px,
+                             q_cut, clamp)
+            dfeat = sc.scatter_stream_grads(dg, sp.gids, feat.shape[0],
+                                            sp.m_span)
+        ctx.save_for_backward(dfeat)
         return sse.sum() / (3.0 * H * W)
 
     @staticmethod
     def backward(ctx, gbar):
         dfeat, = ctx.saved_tensors
-        return (gbar * dfeat,) + (None,) * 9
+        return (gbar * dfeat,) + (None,) * 7
 
 
 # ---------------------------------------------------------------------------
@@ -536,8 +742,7 @@ def _prepare(xys, conics, colors, opacities, H, W, radii, cfg, band=None):
 def _render_chw(xys, conics, colors, opacities, H, W, radii, cfg, band):
     sp, feat = _prepare(xys, conics, colors, opacities, H, W, radii, cfg,
                         band)
-    full = _Raster.apply(feat, sp.gids, sp.starts, H, W, cfg.tile_px,
-                         float(cfg.q_cut), sp.m_span)
+    full = _Raster.apply(feat, sp, H, W, cfg.tile_px, float(cfg.q_cut))
     aux = {"n_dropped": sp.n_dropped, "max_per_tile_used": sp.counts.max()}
     return full, aux
 
@@ -658,9 +863,8 @@ def rasterize_gaussians_sum_l2(
     four Gaussian inputs. Returns (mse, aux).
     """
     sp, feat = _prepare(xys, conics, colors, opacities, H, W, radii, config)
-    mse = _RasterL2.apply(feat, sp.gids, sp.starts,
-                          gt_chw.detach().float().contiguous(), H, W,
-                          config.tile_px, float(config.q_cut), bool(clamp),
-                          sp.m_span)
+    mse = _RasterL2.apply(feat, sp, gt_chw.detach().float().contiguous(),
+                          H, W, config.tile_px, float(config.q_cut),
+                          bool(clamp))
     aux = {"n_dropped": sp.n_dropped, "max_per_tile_used": sp.counts.max()}
     return mse, aux

@@ -9,7 +9,10 @@ radix sort + tile bin edges) on tensors.
    pair does not fit in 31 bits, the same (tile, rank) order through an
    int64 key (``_sorted_stream``);
 3. per-tile window bounds = searchsorted-left of T+1 queries
-   (``sorted_window_bounds``).
+   (``sorted_window_bounds``);
+4. the rasterizers walk the sorted stream directly
+   (``bin_gaussian_instances``), or the aligned stream, whose windows are
+   padded to whole chunks of BK slots (``bin_instances_aligned``).
 
 Within a tile the stream keeps input order (rank is monotonic in input
 position), so gids, window bounds and the overflow count are integer-equal
@@ -156,3 +159,74 @@ def bin_gaussian_instances(xys, radii, tiles_x: int, tiles_y: int,
     n_total = live.sum()
     n_dropped = (trunc + torch.clamp(n_total - I, min=0)).int()
     return InstanceStream(gids.int(), bounds, n_dropped)
+
+
+class AlignedStream(NamedTuple):
+    """Instance stream with every tile window padded to a multiple of the
+    chunk size BK; padding slots point at the sentinel row N.
+
+    Each chunk of a window is then one whole block of BK slots, so the
+    rasterizers read the stream as [n_blocks, 16, BK] transposed feature
+    blocks (stream_common.blockize_stream) and their backward writes whole
+    gradient blocks, each owned by one tile.
+    """
+    gids: torch.Tensor     # [I] int32, N = dead or padding slot
+    starts: torch.Tensor   # [n_tiles_padded + 1] int32, multiples of BK
+    counts: torch.Tensor   # [n_tiles_padded] int32 real (unpadded) counts
+    n_dropped: torch.Tensor  # [] int32
+
+
+def bin_instances_aligned(xys, radii, tiles_x: int, tiles_y: int,
+                          tile_px: int, max_instances_padded: int,
+                          n_tiles_padded: int, block: int,
+                          max_tiles_per_gauss: int = 25, band=None,
+                          force_pair: bool = False) -> AlignedStream:
+    """Like ``bin_gaussian_instances``, with BK-aligned tile windows.
+
+    ``max_instances_padded`` is a multiple of ``block`` that includes the
+    headroom for the per-tile padding (up to block - 1 slots a tile).
+    Windows past the capacity are clipped at it; ``counts`` keeps each
+    window's real count, clipped the same way, and n_dropped = trunc +
+    max(n_total - kept, 0), as the JAX package counts them."""
+    T = tiles_x * tiles_y
+    N = xys.shape[0]
+    I = max_instances_padded
+    dev = xys.device
+
+    tile, live, trunc = _expand_instances(
+        xys, radii, tiles_x, tiles_y, tile_px, max_tiles_per_gauss,
+        band=band)
+    srank, dead, bounds_keys, queries = _sorted_stream(tile, live, N, T,
+                                                       force_pair=force_pair)
+    gids_sorted = torch.where(dead, torch.full_like(srank, N), srank)
+
+    bounds = sorted_window_bounds(bounds_keys, queries)  # [T+1]
+    counts_real = bounds[1:] - bounds[:-1]
+    acounts = torch.div(counts_real + block - 1, block,
+                        rounding_mode="floor") * block
+    astarts = torch.cat([bounds.new_zeros(1),
+                         torch.cumsum(acounts, 0).int()])
+    astarts = torch.clamp(astarts, max=I)
+    counts = torch.minimum(counts_real, astarts[1:] - astarts[:-1])
+
+    # aligned slot m = b*block + r maps back to sorted position
+    # bounds[t(b)] + (m - astarts[t(b)]), with t(b) the tile whose window
+    # holds block b: the last t with astarts[t] <= b*block
+    NB = I // block
+    bstart = torch.arange(NB, dtype=torch.int32, device=dev) * block
+    t_b = torch.searchsorted(astarts[1:T + 1].contiguous(), bstart,
+                             right=True)
+    t_b = torch.clamp(t_b, max=T - 1)
+    lane = torch.arange(block, dtype=torch.int32, device=dev)[None, :]
+    src = (bounds[t_b] + (bstart - astarts[t_b]))[:, None] + lane
+    valid = ((src < bounds[t_b + 1][:, None])
+             & (bstart[:, None] + lane < astarts[-1]))
+    src = torch.clamp(src, 0, gids_sorted.shape[0] - 1).reshape(-1)
+    gids = torch.where(valid.reshape(-1), gids_sorted[src.long()],
+                       torch.full_like(src, N))
+
+    if n_tiles_padded > T:
+        astarts = torch.cat([astarts, astarts[-1:].expand(n_tiles_padded - T)])
+        counts = torch.cat([counts, counts.new_zeros(n_tiles_padded - T)])
+    n_dropped = (trunc + torch.clamp(live.sum() - counts.sum(), min=0)).int()
+    return AlignedStream(gids.int(), astarts.int(), counts.int(), n_dropped)

@@ -395,9 +395,12 @@ def test_codec_cli_routes_a_group_past_the_flat_stream_to_the_scan(
 
 def test_batched_decode_raises_past_the_flat_stream():
     """3 frames of 22,000 Gaussians need 198,000 instances, past the flat
-    stream's 196,608: the fused batch is not supported there and the
-    generic stacked decode raises (the aligned layout, K11's role, is not
-    ported), with the fused prep on or off; nothing switches strategy."""
+    stream's 196,608: the fused batch is not supported there (it returns
+    None), and the generic stacked decode, forced, runs on the aligned
+    stream, with the fused prep on or off. Its frames equal the scan's
+    (each frame alone is aligned too) within IMG_TOL, frame 0 bit for bit;
+    ``prefer_batched`` still picks the scan, whose speed against the
+    stacked pass was not measured there."""
     n, b = 22000, 3
     rng = np.random.default_rng(0)
     enc_b = {"xyz": torch.from_numpy(np.arctanh(rng.uniform(
@@ -412,14 +415,19 @@ def test_batched_decode_raises_past_the_flat_stream():
                                      torch.ones(b, 2, 8),
                                      torch.rand(b, 2, 8, 3),
                                      torch.ones(b, dtype=torch.bool))}
+    assert not batched.prefer_batched(H, W, b, n)
     for raster in (RasterizeConfig(), RasterizeConfig(fused_prep=True)):
         model = make_model("GaussianImage_Cholesky", device="cpu",
                            num_points=n, H=H, W=W, quantize=True,
                            raster=raster)
         assert model.fused_decode_batch(params_b, extra_b, enc_b) is None
-        with pytest.raises(NotImplementedError, match="K11"):
-            batched.decode_many(model, params_b, extra_b, enc_b,
-                                force="batched")
+        stacked = batched.decode_many(model, params_b, extra_b, enc_b,
+                                      force="batched")
+        scan = batched.decode_many(model, params_b, extra_b, enc_b)
+        assert int(stacked["raster_aux"]["n_dropped"]) == 0
+        got, want = stacked["render"].numpy(), scan["render"].numpy()
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_allclose(got, want, **IMG_TOL)
 
 
 def test_k7_wrapper_never_falls_back():

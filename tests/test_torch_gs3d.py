@@ -307,20 +307,24 @@ def test_cli_3dgs_fit_and_evaluation(tmp_path, monkeypatch):
 def test_blend_caps_probe_fits_both_variants(tmp_path):
     """blend_caps_probe on a 32x48 photo at N = 64: the default fit keeps
     the model's caps, the lifted one takes the flat stream's 65,536 slots
-    and the asked span; where neither drops an instance the two fits are
-    the same fit, step for step."""
+    and the asked span, the uncapped one N x span slots and the span; where
+    none drops an instance the three fits are the same fit, step for
+    step."""
     img = tmp_path / "synth.png"
     save_image_array(synthetic_image(32, 48, seed=3), img)
     out = tmp_path / "caps.jsonl"
-    default, lifted = blend_caps_probe.main(
+    default, lifted, uncapped = blend_caps_probe.main(
         ["--image", str(img), "--num_points", "64", "--iterations", "6",
          "--span", "4", "--device", "cpu", "--out", str(out)])
     assert default["blend_cfg"] == {"tile_px": 32, "max_instances": None,
                                     "max_tiles_per_gauss": 36}
     assert lifted["blend_cfg"]["max_instances"] == 65536
     assert (lifted["stream_slots"], lifted["tile_span"]) == (256, 4)
-    assert default["chunk_n_dropped"] == lifted["chunk_n_dropped"] == [0]
-    assert default["chunk_training_psnr"] == lifted["chunk_training_psnr"]
-    assert default["test_psnr"] == lifted["test_psnr"]
+    assert uncapped["blend_cfg"]["max_instances"] == 64 * 4
+    assert (uncapped["stream_slots"], uncapped["tile_span"]) == (256, 4)
+    for rec in (lifted, uncapped):
+        assert default["chunk_n_dropped"] == rec["chunk_n_dropped"] == [0]
+        assert default["chunk_training_psnr"] == rec["chunk_training_psnr"]
+        assert default["test_psnr"] == rec["test_psnr"]
     assert math.isfinite(default["test_psnr"])
-    assert len(out.read_text().splitlines()) == 2
+    assert len(out.read_text().splitlines()) == 3

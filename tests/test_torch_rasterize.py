@@ -2,8 +2,9 @@
 takes) against the JAX package's rasterize_gaussians_sum (Pallas interpret
 mode) and against the port's dense oracle at q_cut=9, with the JAX suite's
 tolerance (rtol 2e-3 / atol 2e-4, tests/test_rasterize_kernel.py); the
-calls the port does not support yet raise NotImplementedError, and inputs
-that require grad get a render that backpropagates (K2)."""
+aligned stream renders as the flat one, the calls the port does not
+support raise NotImplementedError, and inputs that require grad get a
+render that backpropagates (K2)."""
 
 import pytest
 
@@ -131,6 +132,13 @@ def test_unsupported_calls_raise():
         img, _, _ = rs.rasterize_gaussians_sum(args[0], args[1], colors_g,
                                                args[3], H, W)
     assert img.grad_fn is None
-    with pytest.raises(NotImplementedError, match="K11"):
+    # the aligned stream renders, and equals the flat one bit for bit; its
+    # kernels are built for 64-slot chunks only
+    img, alpha, _ = rs.rasterize_gaussians_sum(*args, H, W, config=CFG)
+    img_a, alpha_a, aux_a = rs.rasterize_gaussians_sum(
+        *args, H, W, config=CFG._replace(flat_stream_limit=1024))
+    assert int(aux_a["n_dropped"]) == 0
+    assert torch.equal(img_a, img) and torch.equal(alpha_a, alpha)
+    with pytest.raises(NotImplementedError, match="block_inst"):
         rs.rasterize_gaussians_sum(*args, H, W, config=CFG._replace(
-            flat_stream_limit=1024))
+            flat_stream_limit=1024, block_inst=32))
