@@ -108,10 +108,21 @@ Phases, one JSON line each (with ``elapsed_s``):
              fit's within 1e-4 dB, the FPS probes through K8, no K9;
 8h. gs3d_kernel K8 and K9 on the 3DGS model's initial state and on the fit's,
              768x512, tile 32 (and on the fit, tile 16, the kernels' other
-             build): K8's rgb and T_fin against its plain version
-             to BLEND_TOL and the chunks consumed equal in every tile; K9's
+             build), and on the cull's adversarial scene
+             (``blend_cull_scene.cull_edge_scene``: 2000 rows, 256x192,
+             thin, near-singular, non-positive-definite and NaN conics,
+             opacities at alpha_min) at tiles 32 and 16, flat and aligned:
+             K8 bit-equal to its plain version (and within BLEND_TOL) with
+             the chunks consumed equal in every tile, the aligned K8 equal
+             to the flat one on the scene, with equal n_dropped; K9's
              gradient rows (a cotangent from a fixed seed) to ROW_TOL of
-             each column's largest magnitude, and bit-identical twice;
+             each column's largest magnitude (on the scene, on the slots
+             whose row is finite; elsewhere a row that is not finite
+             fails), and bit-identical twice; per case the consumed slots,
+             the pairs the kernels meet, those within the
+             row's threshold, those that composite and those the cull
+             keeps (``blend_cull_plain``: the warp patches that meet a
+             slot's rectangle), and no pair that composites culled;
 8i. gs3d_serve ``render_fast`` of the 3DGS initial state and of the fit under
              ``RasterizeConfig(fused_prep=True)`` (K10, a sort, K8): one K10
              and one K8 launch a frame and nothing else; on the initial
@@ -148,10 +159,12 @@ Phases, one JSON line each (with ``elapsed_s``):
              >= 1000 aligned K3 and K11b launches, test PSNR >= the initial
              state's + 1 dB, n_dropped per chunk reported;
 8m. gs3d_aligned the 3DGS baseline at 30,000 points (sh_degree 3, Fusion2):
-             on its initial state the aligned K8 bit-equal to its plain
-             version (chunks too) and K9 to ROW_TOL; image, chunks and
-             scattered K9 gradients bit-equal to the flat twin's, with
-             equal n_dropped; then 200 fit steps with no NaN, >= 200
+             on its initial state the aligned K8 and K9 held as in
+             gs3d_kernel (K8 bit-equal with its chunks, K9 to ROW_TOL and
+             bit-identical twice, no composited pair culled); image,
+             chunks and scattered K9 gradients bit-equal to the flat
+             twin's, with equal n_dropped; then 200 fit steps with no
+             NaN, >= 200
              aligned K9 launches; PSNR and n_dropped reported, not gated;
 9. timing    each kernel and its plain version, the render, a training
              step over a 250-step burst, with each kernel's bound from this
@@ -162,7 +175,8 @@ Phases, one JSON line each (with ``elapsed_s``):
              step, and the device busy share; the same for the 3DGS step
              and its FPS-probe render (K8), and for 3DGS ``render_fast``
              (K10, K8) beside ``render()``; K11a and K11b on the flower@40k
-             stream (and one PyTorch copy of K11b's relayout), and the
+             stream (and one PyTorch copy of K11b's relayout, its burst
+             and its traced device time), and the
              aligned K1-K3 (flower@40k) and K8 / K9 (3DGS@30k) with their
              plain versions, device times and bounds, and the flat
              branch's device times on the flat twins of the same states;
@@ -254,10 +268,6 @@ GS_FIT_PSNR = 1.769
 # and it must gain this much on the test PSNR of its own initial state (on
 # an H100: 2.0713 dB at the initial state, 2.7692 after 2000 steps)
 GS_FIT_GAIN = 0.3
-# the blend bound charges the alpha and compositing terms to the pairs
-# with q <= 2 log(o / alpha_min) + this margin, the quadratic form and the
-# compare alone to the rest
-GS_Q_MARGIN = 0.01
 BLEND_TOL = 1e-5   # K8's rgb and T_fin against its plain version
 # 3DGS render_fast (K10) against render(): the JAX suite's envelope
 # (tests/test_gs3d.py:279-284), max |diff| and the share of pixels above
@@ -283,6 +293,11 @@ ALIGNED_FIT_ITERS = 1000
 ALIGNED_FIT_GAIN = 1.0   # dB over the initial state's test PSNR
 GS_ALIGNED_N = 30000     # the 3DGS sweep's smallest aligned point count
 GS_ALIGNED_STEPS = 200
+# the cull's adversarial scene (blend_cull_scene.cull_edge_scene): points,
+# (H, W) and seed
+CULL_N = 2000
+CULL_HW = (192, 256)
+CULL_SEED = 5
 
 # H100 SXM published peaks (dense, no sparsity) at the full 700 W limit
 PEAK_BYTES_S = 3.35e12
@@ -343,25 +358,44 @@ def pair_work(rs, sc, feat, sp, H, W, q_cut):
     return pairs, gated
 
 
-def blend_pair_work(torch, rs, sc, feat, sp, nch, H, W, cfg):
-    """(pairs, near pairs, on pairs) that K8 and K9 evaluate on this data:
-    (slot, pixel) pairs of the chunks each tile consumed, with the pixel
-    inside the image; those within the row's threshold q <= 2 log(o /
-    alpha_min) + GS_Q_MARGIN, the only pairs whose gate needs the
-    exponential; and those whose o exp(-q/2) reaches alpha_min (the pairs
-    that composite)."""
-    T = sp.tiles_x * (-(-H // cfg.tile_px))
+def blend_pair_work(torch, rs, sc, blend, feat, sp, nch, H, W, cfg):
+    """The work of the chunks each tile consumed that K8 and K9 meet on
+    this data: ``slots``, the consumed slots (each staged once, with its
+    cull); of their (slot, pixel) pairs with the pixel inside the image,
+    ``pairs``, all of them; ``near_pairs``, those within the row's q_cut = 2
+    log(o / alpha_min) + blend.Q_MARGIN, the only pairs whose gate needs
+    the exponential; ``on_pairs``, those whose o exp(-q/2) reaches
+    alpha_min (the pairs that composite); ``cull_pairs``, those whose
+    warp's patch meets the slot's rectangle (``blend.cull_patches``), the
+    pairs the kernels evaluate; and ``culled_on``, pairs that composite but
+    fall outside the cull (must be 0)."""
+    tp = cfg.tile_px
+    T = sp.tiles_x * (-(-H // tp))
     used = torch.minimum(sp.counts[:T], nch[:T] * cfg.block_inst)
-    pairs = near = on = 0
+    pidx = torch.arange(tp * tp, device=feat.device)
+    X, Y = pidx % tp, torch.div(pidx, tp, rounding_mode="floor")
+    work = dict(slots=int(used.sum()), pairs=0, near_pairs=0, on_pairs=0,
+                cull_pairs=0, culled_on=0)
     for pr in rs.window_pairs(sc.gather_stream(sp.gids, feat), sp.starts,
-                              used, H, W, cfg.tile_px):
+                              used, H, W, tp):
         o = pr.rows[:, 8:9]
         raw = o * torch.exp(-0.5 * pr.q)
-        q_max = 2.0 * torch.log(o / cfg.alpha_min) + GS_Q_MARGIN
-        pairs += int(pr.inside.sum())
-        near += int((pr.inside & (pr.q <= q_max)).sum())
-        on += int((pr.inside & (raw >= cfg.alpha_min)).sum())
-    return pairs, near, on
+        on = pr.inside & (raw >= cfg.alpha_min)
+        cl = blend.blend_cull_plain(
+            pr.rows, ((pr.tile % sp.tiles_x) * tp).float(),
+            (torch.div(pr.tile, sp.tiles_x, rounding_mode="floor")
+             * tp).float(), cfg.alpha_min, tile_px=tp)
+        meets = blend.cull_patches(cl, tp)
+        kept = ((pr.q <= cl.q_cut[:, None])
+                & (X >= cl.x0[:, None]) & (X <= cl.x1[:, None])
+                & (Y >= cl.y0[:, None]) & (Y <= cl.y1[:, None]))
+        work["pairs"] += int(pr.inside.sum())
+        work["near_pairs"] += int(
+            (pr.inside & (pr.q <= cl.q_cut[:, None])).sum())
+        work["on_pairs"] += int(on.sum())
+        work["cull_pairs"] += int((pr.inside & meets).sum())
+        work["culled_on"] += int((on & ~kept).sum())
+    return work
 
 
 def bound(instr: float, mufu: float, nbytes: float):
@@ -371,6 +405,43 @@ def bound(instr: float, mufu: float, nbytes: float):
     t_bytes = nbytes / PEAK_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+# K8 and K9's operations, counted as K1's are, in FP32 issue slots and
+# MUFU ops. Per near pair (see blend_pair_work) the quadratic form and its
+# compare with q_cut (9), then -q/2, expf's 4 FP32 instructions around its
+# MUFU ex2, o w, the clip and the gate (8 + 1 ex2), then K8's exp(logT)
+# (4 + 1 ex2), log1pf (~7 + 1 lg2), vis, three multiply-adds and the logT
+# add (19 + 2), or K9's log1pf, its two exps (T_k and 1 / (1 - alpha)),
+# G.c, dalpha, dq and the nine sums with their share of the warp
+# reductions (~60 + 3): (slots beyond the form, MUFU) per near pair.
+BLEND_NEAR = {"fwd": (27, 3), "bwd": (68, 4)}
+# Per consumed slot its cull, once: q_cut (a division, log's lg2 and its 4
+# FP32 instructions, a multiply-add), the rectangle (det, kappa, Q, two
+# square roots with their scaling and pads, four roundings, eight clamps:
+# ~30 + 2 MUFU), and a 4-compare test of each 8 x 4 warp patch of the tile
+CULL_OPS = (36, 3)
+BLEND_WORK = ("slots", "pairs", "near_pairs", "on_pairs", "cull_pairs")
+
+
+def blend_ops(case, near):
+    """(FP32 slots, MUFU ops) K8 or K9 needs on a case's consumed chunks
+    (blend_pair_work's counts): the form and the pair's terms on the near
+    pairs, the only pairs that can composite, and each consumed slot's cull
+    with its test of the tile's warp patches. The pairs beyond q_cut need
+    no work: the cull skips them."""
+    patches = case["tile_px"] ** 2 // 32
+    return ((9 + near[0]) * case["near_pairs"]
+            + (CULL_OPS[0] + 4 * patches) * case["slots"],
+            near[1] * case["near_pairs"] + CULL_OPS[1] * case["slots"])
+
+
+def blend_all_pairs(case, near):
+    """The earlier count of the same work, kept for comparison with earlier
+    records: the form on every pair of the consumed chunks, the pair's
+    terms on the near pairs, no cull."""
+    return 9 * case["pairs"] + near[0] * case["near_pairs"], \
+        near[1] * case["near_pairs"]
 
 
 def row_err(torch, got, want):
@@ -444,6 +515,7 @@ def main() -> None:
 
     from gaussianimage_tpu_torch import batched as bt
     from gaussianimage_tpu_torch import test_quantize, train, train_quantize
+    from gaussianimage_tpu_torch.blend_cull_scene import cull_edge_scene
     from gaussianimage_tpu_torch.models import make_model
     from gaussianimage_tpu_torch.models.cholesky import CHOLESKY_BOUND
     from gaussianimage_tpu_torch.models.rs import SCALING_BOUND
@@ -1419,7 +1491,8 @@ def main() -> None:
                           "fps": [r["fps"] for r in gs_eval],
                           "train_txt": gs_eval_txt.strip().splitlines()[-2:]})
 
-        # gs3d_kernel: K8 and K9 on the initial state and the fit's
+        # gs3d_kernel: K8 and K9 on the initial state, the fit's, and the
+        # cull's adversarial scene
         gs_init = make_model(GS, device=dev, num_points=SERVE_N, H=512,
                              W=768)
         gs_init.init_params(torch.Generator(device=dev).manual_seed(1))
@@ -1427,62 +1500,143 @@ def main() -> None:
         ls8 = blend.log_stop(gs_fitted.blend_cfg)
         g9 = torch.as_tensor(np.random.default_rng(2).standard_normal(
             (4, Hf, Wf)).astype(np.float32), device=dev)
-        gs_cases = {}
-        # the model's 32-pixel tiles, and the kernels' 16-pixel variant (the
-        # BlendConfig default) on the fit; the last case is timed below
-        for name, model, bcfg in (
-                ("init", gs_init, gs_fitted.blend_cfg),
-                ("fit_tile16", gs_fitted,
-                 gs_fitted.blend_cfg._replace(tile_px=16)),
-                ("fit", gs_fitted, gs_fitted.blend_cfg)):
+
+        def blend_case(name, proj, bcfg, Hc, Wc, g):
+            """K8 and K9 on one state's stream (flat or aligned, as bcfg
+            makes it) against their plain versions: K8 bit-equal with equal
+            chunk counts, K9's rows to ROW_TOL and bit-identical twice; no
+            pair that composites outside the cull. Only the cull_edge
+            scene holds rows that are not finite (a NaN row's plain
+            gradient is NaN, 0 x NaN): there K9 is compared on the slots
+            whose row is finite, and any other case fails on such a row.
+            Returns the case's record and its (feat, stream, log T_fin,
+            chunks, K8's source, K8's output, K9's output) for the timing
+            and the aligned-vs-flat checks."""
             bkw = dict(tile_px=bcfg.tile_px, block_inst=bcfg.block_inst,
                        alpha_clip=bcfg.alpha_clip, alpha_min=bcfg.alpha_min)
+            ls = blend.log_stop(bcfg)
             with torch.no_grad():
-                xys, depths, radii, conics, rgbs, opac = model.project()
-                order, sp8 = blend.blend_stream(xys, depths, radii, Hf, Wf,
+                xys, depths, radii, conics, rgbs, opac = proj
+                order, sp8 = blend.blend_stream(xys, depths, radii, Hc, Wc,
                                                 bcfg)
                 feat8 = blend.blend_feat(xys, conics, rgbs, opac, order)
-            out8, nch8 = blend.blend_fwd(feat8, sp8.gids, sp8.starts, Hf, Wf,
-                                         log_stop=ls8, **bkw)
+            if sp8.aligned:
+                src = sc.blockize_stream(feat8, sp8.gids)
+                win = (src, sp8.starts, sp8.counts)
+                fwd, fwd_p = blend.blend_fwd_aligned, \
+                    blend.blend_fwd_aligned_plain
+                bwd, bwd_p = blend.blend_bwd_aligned, \
+                    blend.blend_bwd_aligned_plain
+            else:
+                src = feat8
+                win = (feat8, sp8.gids, sp8.starts)
+                fwd, fwd_p = blend.blend_fwd, blend.blend_fwd_plain
+                bwd, bwd_p = blend.blend_bwd, blend.blend_bwd_plain
+            out8, nch8 = fwd(*win, Hc, Wc, log_stop=ls, **bkw)
             torch.cuda.synchronize()
-            out8p, nch8p = blend.blend_fwd_plain(feat8, sp8.gids, sp8.starts,
-                                                 Hf, Wf, log_stop=ls8, **bkw)
+            out8p, nch8p = fwd_p(*win, Hc, Wc, log_stop=ls, **bkw)
             e8 = float((out8[:4] - out8p[:4]).abs().max())
             bad = (nch8 != nch8p).nonzero()[:, 0].tolist()
-            if not (math.isfinite(e8) and e8 <= BLEND_TOL) or bad:
+            k8_equal = bool(torch.equal(out8, out8p))
+            if not (math.isfinite(e8) and e8 <= BLEND_TOL) or bad \
+                    or not k8_equal:
                 fail(f"K8 disagrees with its plain version on the {name} "
-                     f"state: rgb and T_fin max |diff| {e8} (<= {BLEND_TOL});"
-                     f" {len(bad)} tiles consumed other chunk counts: "
-                     f"{bad[:20]}")
+                     f"state: rgb and T_fin max |diff| {e8} (<= {BLEND_TOL}),"
+                     f" bit-equal {k8_equal}; {len(bad)} tiles consumed "
+                     f"other chunk counts: {bad[:20]}")
             logt8 = out8[4].contiguous()
-            dg9 = blend.blend_bwd(feat8, sp8.gids, sp8.starts, logt8, nch8,
-                                  g9, Hf, Wf, **bkw)
-            dg9_again = blend.blend_bwd(feat8, sp8.gids, sp8.starts, logt8,
-                                        nch8, g9, Hf, Wf, **bkw)
+            dg9 = bwd(*win, logt8, nch8, g, Hc, Wc, **bkw)
+            dg9_again = bwd(*win, logt8, nch8, g, Hc, Wc, **bkw)
             torch.cuda.synchronize()
-            dg9p = blend.blend_bwd_plain(feat8, sp8.gids, sp8.starts, logt8,
-                                         nch8, g9, Hf, Wf, **bkw)
-            n8 = int(sp8.starts[sp8.T])
-            e9 = float(row_err(torch, dg9[:n8], dg9p[:n8]).max())
-            if not (torch.isfinite(dg9).all() and e9 <= ROW_TOL):
+            dg9p = bwd_p(*win, logt8, nch8, g, Hc, Wc, **bkw)
+            T8 = sp8.tiles_x * (-(-Hc // bcfg.tile_px))
+            cnt = sp8.counts[:T8].long()
+            tile_of = torch.repeat_interleave(torch.arange(T8, device=dev),
+                                              cnt)
+            slots = (sp8.starts[:T8].long()[tile_of]
+                     - (torch.cumsum(cnt, 0) - cnt)[tile_of]
+                     + torch.arange(tile_of.numel(), device=dev))
+            rows9, rows9p = dg9, dg9p
+            if sp8.aligned:
+                rows9 = sc.unblockize_stream_plain(dg9)
+                rows9p = sc.unblockize_stream_plain(dg9p)
+            rows9, rows9p = rows9[slots], rows9p[slots]
+            finite = torch.isfinite(
+                sc.gather_stream(sp8.gids, feat8)[slots]).all(dim=1)
+            if not (finite.all() or name.startswith("cull_edge")):
+                fail(f"the {name} state streams {int((~finite).sum())} "
+                     "rows that are not finite")
+            e9 = float(row_err(torch, rows9[finite], rows9p[finite]).max())
+            if not (torch.isfinite(rows9[finite]).all() and e9 <= ROW_TOL):
                 fail(f"K9 disagrees with its plain version on the {name} "
                      f"state: worst row {e9} > {ROW_TOL} of the column max")
-            if not torch.equal(dg9, dg9_again):
+            if not torch.equal(dg9.view(torch.int32),
+                               dg9_again.view(torch.int32)):
                 fail(f"two runs of K9 on the {name} state differ")
-            pairs8, near8, on8 = blend_pair_work(torch, rs, sc, feat8, sp8,
-                                                 nch8, Hf, Wf, bcfg)
-            gs_cases[name] = {
-                "tile_px": bcfg.tile_px, "k8_max_abs_err": e8,
-                "k8_bit_equal": bool(torch.equal(out8, out8p)),
+            work = blend_pair_work(torch, rs, sc, blend, feat8, sp8, nch8,
+                                   Hc, Wc, bcfg)
+            if work["culled_on"]:
+                fail(f"the cull skips {work['culled_on']} pairs that "
+                     f"composite on the {name} state")
+            case = {
+                "tile_px": bcfg.tile_px, "aligned": bool(sp8.aligned),
+                "k8_max_abs_err": e8, "k8_bit_equal": k8_equal,
                 "chunks_equal": True,
                 "chunks": int(nch8.sum()), "chunks_max": int(nch8.max()),
                 "tiles_walked": int((nch8 > 0).sum()),
                 "k9_worst_row": e9,
-                "k9_max_abs_err": float((dg9[:n8] - dg9p[:n8]).abs().max()),
-                "k9_bit_identical_twice": True, "instances": n8,
+                "k9_max_abs_err": float(
+                    (rows9[finite] - rows9p[finite]).abs().max()),
+                "k9_rows_not_compared": int((~finite).sum()),
+                "k9_bit_identical_twice": True, "instances": slots.numel(),
                 "max_count": int(sp8.counts.max()),
-                "n_dropped": int(sp8.n_dropped), "pairs": pairs8,
-                "near_pairs": near8, "on_pairs": on8}
+                "n_dropped": int(sp8.n_dropped), **work}
+            return case, (feat8, sp8, logt8, nch8, src, out8, dg9)
+
+        gs_cases = {}
+        # the model's 32-pixel tiles, and the kernels' 16-pixel variant (the
+        # BlendConfig default) on the fit; the cull's scene at both tiles,
+        # flat and aligned; the fit case is timed below
+        with torch.no_grad():
+            proj_init, proj_fit = gs_init.project(), gs_fitted.project()
+        ce = cull_edge_scene(CULL_N, *CULL_HW, seed=CULL_SEED)
+        proj_ce = tuple(torch.as_tensor(ce[k], device=dev) for k in (
+            "xys", "depths", "radii", "conics", "colors", "opac"))
+        g_ce = torch.as_tensor(np.random.default_rng(2).standard_normal(
+            (4, *CULL_HW)).astype(np.float32), device=dev)
+        ce_out = {}
+        for tp in (32, 16):
+            for aligned in (False, True):
+                name = "cull_edge" + ("_aligned" if aligned else "") + (
+                    "" if tp == 32 else "_tile16")
+                bcfg = blend.BlendConfig(
+                    tile_px=tp, max_instances=1 << 17,
+                    max_tiles_per_gauss=1024,
+                    flat_stream_limit=0 if aligned else 1 << 30)
+                gs_cases[name], ce_out[name] = blend_case(
+                    name, proj_ce, bcfg, *CULL_HW, g_ce)
+            flat, al = (ce_out["cull_edge" + sfx + ("" if tp == 32
+                                                    else "_tile16")]
+                        for sfx in ("", "_aligned"))
+            if flat[1].n_dropped != al[1].n_dropped:
+                fail(f"the cull_edge scene at tile {tp}: the aligned stream "
+                     f"drops {int(al[1].n_dropped)} instances, the flat "
+                     f"one {int(flat[1].n_dropped)}")
+            if not (torch.equal(flat[5], al[5])
+                    and torch.equal(flat[3], al[3])):
+                fail(f"the cull_edge scene at tile {tp}: the aligned K8 "
+                     "differs from the flat one on the same instances")
+        gs_cases["init"], _ = blend_case("init", proj_init,
+                                         gs_fitted.blend_cfg, Hf, Wf, g9)
+        gs_cases["fit_tile16"], _ = blend_case(
+            "fit_tile16", proj_fit,
+            gs_fitted.blend_cfg._replace(tile_px=16), Hf, Wf, g9)
+        gs_cases["fit"], (feat8, sp8, logt8, nch8, *_) = blend_case(
+            "fit", proj_fit, gs_fitted.blend_cfg, Hf, Wf, g9)
+        bcfg = gs_fitted.blend_cfg
+        bkw = dict(tile_px=bcfg.tile_px, block_inst=bcfg.block_inst,
+                   alpha_clip=bcfg.alpha_clip, alpha_min=bcfg.alpha_min)
+        n8 = int(sp8.starts[sp8.T])
         phase("gs3d_kernel", blend_tol=BLEND_TOL, row_tol=ROW_TOL,
               cases=gs_cases)
 
@@ -1879,48 +2033,18 @@ def main() -> None:
                      alpha_min=bcfg30.alpha_min)
         ls30 = blend.log_stop(bcfg30)
         with torch.no_grad():
-            xys, depths, radii, conics, rgbs, opac = gm.project()
-            order30, sp30 = blend.blend_stream(xys, depths, radii, Hf, Wf,
-                                               bcfg30)
-            _, sp30F = blend.blend_stream(xys, depths, radii, Hf, Wf,
+            proj30 = gm.project()
+            _, sp30F = blend.blend_stream(*proj30[:3], Hf, Wf,
                                           flat_twin_cfg(bcfg30))
-            feat30 = blend.blend_feat(xys, conics, rgbs, opac, order30)
+        g30 = torch.as_tensor(np.random.default_rng(2).standard_normal(
+            (4, Hf, Wf)).astype(np.float32), device=dev)
+        # the aligned K8 / K9 against their plain versions
+        case30, (feat30, sp30, logt30, nch30, blocks30, out30,
+                 dgb30) = blend_case(f"3DGS@{GS_ALIGNED_N}", proj30, bcfg30,
+                                     Hf, Wf, g30)
         if not sp30.aligned or sp30F.aligned:
             fail(f"3DGS@{GS_ALIGNED_N}: aligned {sp30.aligned}, its twin "
                  f"{sp30F.aligned}")
-        blocks30 = sc.blockize_stream(feat30, sp30.gids)
-        out30, nch30 = blend.blend_fwd_aligned(
-            blocks30, sp30.starts, sp30.counts, Hf, Wf, log_stop=ls30,
-            **bkw30)
-        torch.cuda.synchronize()
-        out30p, nch30p = blend.blend_fwd_aligned_plain(
-            blocks30, sp30.starts, sp30.counts, Hf, Wf, log_stop=ls30,
-            **bkw30)
-        logt30 = out30[4].contiguous()
-        g30 = torch.as_tensor(np.random.default_rng(2).standard_normal(
-            (4, Hf, Wf)).astype(np.float32), device=dev)
-        dgb30 = blend.blend_bwd_aligned(blocks30, sp30.starts, sp30.counts,
-                                        logt30, nch30, g30, Hf, Wf, **bkw30)
-        torch.cuda.synchronize()
-        dgb30p = blend.blend_bwd_aligned_plain(
-            blocks30, sp30.starts, sp30.counts, logt30, nch30, g30, Hf, Wf,
-            **bkw30)
-        T30 = sp30.tiles_x * (-(-Hf // bcfg30.tile_px))
-        cnt30 = sp30.counts[:T30].long()
-        tile30 = torch.repeat_interleave(torch.arange(T30, device=dev),
-                                         cnt30)
-        slot30 = (sp30.starts[:T30].long()[tile30]
-                  - (torch.cumsum(cnt30, 0) - cnt30)[tile30]
-                  + torch.arange(tile30.numel(), device=dev))
-        e9_30 = float(row_err(
-            torch, sc.unblockize_stream_plain(dgb30)[slot30],
-            sc.unblockize_stream_plain(dgb30p)[slot30]).max())
-        k8_30_equal = bool(torch.equal(out30, out30p)
-                           and torch.equal(nch30, nch30p))
-        if not k8_30_equal or not e9_30 <= ROW_TOL:
-            fail(f"3DGS@{GS_ALIGNED_N}: the aligned K8 bit-equal "
-                 f"{k8_30_equal}; the aligned K9's worst row {e9_30} "
-                 f"(<= {ROW_TOL})")
         out30F, nch30F = blend.blend_fwd(feat30, sp30F.gids, sp30F.starts,
                                          Hf, Wf, log_stop=ls30, **bkw30)
         dg30F = blend.blend_bwd(feat30, sp30F.gids, sp30F.starts,
@@ -1939,8 +2063,6 @@ def main() -> None:
                 and gs_vs_flat["grads_equal"]):
             fail(f"3DGS@{GS_ALIGNED_N}: the aligned blend differs from the "
                  f"flat twin: {gs_vs_flat}")
-        gs30_pairs = blend_pair_work(torch, rs, sc, feat30, sp30, nch30, Hf,
-                                     Wf, bcfg30)
         reset_counts()
         fit30 = gs30.train()
         fit30_counts = read_counts()
@@ -1955,10 +2077,7 @@ def main() -> None:
         phase("gs3d_aligned", num_points=GS_ALIGNED_N,
               sh_degree=gm.cfg.sh_degree, loss_type=gm.cfg.loss_type,
               slots=sp30.I, span=sp30.m_span, live=int(sp30.counts.sum()),
-              k8_bit_equal=k8_30_equal, k9_worst_row=e9_30,
-              row_tol=ROW_TOL, k9_max_abs_err=float(
-                  (dgb30 - dgb30p).abs().max()),
-              chunks=int(nch30.sum()), vs_flat_twin=gs_vs_flat,
+              row_tol=ROW_TOL, kernels=case30, vs_flat_twin=gs_vs_flat,
               steps=GS_ALIGNED_STEPS, launches=fit30_counts,
               test_psnr=fit30["psnr"], n_dropped_chunks=gs30.chunk_dropped,
               n_dropped_test=fit30["n_dropped"],
@@ -2030,6 +2149,11 @@ def main() -> None:
     library = {k: None for k in counters}
     library["stream_unblockize"] = burst_ms(
         torch, lambda: dg3A.transpose(1, 2).contiguous(), reps=50)
+    # and its device time, traced as the kernels' are below: 40 copies
+    library_device = {k: None for k in counters}
+    library_device["stream_unblockize"] = profile_of(
+        torch, lambda: [dg3A.transpose(1, 2).contiguous()
+                        for _ in range(40)], 40, ())["device_kernel_ms_per"]
     # the aligned K1-K3 on flower@40k, K8 and K9 on the 3DGS@30k state
     a_args = (blocksA, spA.starts, spA.counts)
     b_args = (blocks30, sp30.starts, sp30.counts)
@@ -2220,25 +2344,17 @@ def main() -> None:
                  + PREP_KEY_SLOTS * m_s), 0,
         28 * 2 * SERVE_N + 4 * 2 * (6 + 192)
         + rows7 * (4 * sc.FW + 4 * m_s + 8))
-    # K8 and K9 on the fit's consumed chunks, counted as K1's are: FP32
-    # issue slots per (slot, pixel) pair for the quadratic form (7, plus 1
-    # for the per-column terms a thread's 4 pixels share) and its compare
-    # with the row's threshold 2 log(o / alpha_min) (9); per near pair (see
-    # blend_pair_work) -q/2, expf's 4 FP32 instructions around its MUFU
-    # ex2, o w, the clip and the gate (8 + 1 ex2), then K8's exp(logT)
-    # (4 + 1 ex2), log1pf (~7 + 1 lg2), vis, three multiply-adds and the
-    # logT add (19 + 2), or K9's log1pf, its two exps (T_k and 1 / (1 -
-    # alpha)), G.c, dalpha, dq and the nine sums with their share of the
-    # warp reductions (~60 + 3)
-    gs_pairs, gs_near = (gs_cases["fit"]["pairs"],
-                         gs_cases["fit"]["near_pairs"])
+    # K8 and K9 on the fit's consumed chunks, as this run's data needs
+    # them (blend_ops); bytes: the stream and its windows once, the output
+    # planes once, K9's gradient rows
     blend_bytes = 4 * (feat8.numel() + n8 + sp8.starts.numel()
                        + nch8.numel())
-    work["rasterize_blend_fwd"] = (9 * gs_pairs + 27 * gs_near, 3 * gs_near,
-                                   blend_bytes + 4 * 5 * plane)
-    work["rasterize_blend_bwd"] = (9 * gs_pairs + 68 * gs_near, 4 * gs_near,
-                                   blend_bytes + 4 * 5 * plane
-                                   + 4 * 16 * n8)
+    work["rasterize_blend_fwd"] = (
+        *blend_ops(gs_cases["fit"], BLEND_NEAR["fwd"]),
+        blend_bytes + 4 * 5 * plane)
+    work["rasterize_blend_bwd"] = (
+        *blend_ops(gs_cases["fit"], BLEND_NEAR["bwd"]),
+        blend_bytes + 4 * 5 * plane + 4 * 16 * n8)
     # K10 on the fit's rows at sh_degree 3: xyz, log scales, quaternion,
     # opacity logit and 3K SH coefficients in (4 B each), the same outputs
     # per row as K4-K7
@@ -2258,7 +2374,6 @@ def main() -> None:
     pairsA, gatedA = pair_work(rs, sc, featA, spA, Hf, Wf, q_cut)
     a_bytes = 4 * (blocksA.numel() + spA.starts.numel() + spA.counts.numel())
     liveA = int(spA.counts.sum())
-    gs30_p, gs30_near, _ = gs30_pairs
     b_bytes = 4 * (blocks30.numel() + sp30.starts.numel()
                    + sp30.counts.numel() + nch30.numel())
     aligned_work = {
@@ -2269,13 +2384,23 @@ def main() -> None:
         "rasterize_sum_l2": (18 * pairsA + 35 * gatedA, 2 * gatedA,
                              a_bytes + 4 * 3 * plane + 4 * sse3A.numel()
                              + 4 * 16 * liveA),
-        "rasterize_blend_fwd": (9 * gs30_p + 27 * gs30_near, 3 * gs30_near,
-                                b_bytes + 4 * 5 * plane),
-        "rasterize_blend_bwd": (9 * gs30_p + 68 * gs30_near, 4 * gs30_near,
-                                b_bytes + 4 * 5 * plane
-                                + 4 * 16 * int(sp30.counts.sum()))}
+        "rasterize_blend_fwd": (
+            *blend_ops(case30, BLEND_NEAR["fwd"]),
+            b_bytes + 4 * 5 * plane),
+        "rasterize_blend_bwd": (
+            *blend_ops(case30, BLEND_NEAR["bwd"]),
+            b_bytes + 4 * 5 * plane + 4 * 16 * int(sp30.counts.sum()))}
     bounds = {k: bound(*v) for k, v in work.items()}
     aligned_bounds = {k: bound(*v) for k, v in aligned_work.items()}
+    # the earlier count of K8 and K9's work (blend_all_pairs), reported
+    # beside the bound so that their rows compare with earlier records
+    bounds_all_pairs = {}
+    for sfx, case, wk in (("", gs_cases["fit"], work),
+                          ("_aligned", case30, aligned_work)):
+        for d in ("fwd", "bwd"):
+            k = f"rasterize_blend_{d}"
+            bounds_all_pairs[k + sfx] = bound(
+                *blend_all_pairs(case, BLEND_NEAR[d]), wk[k][2])[0]
     phase("timing", device=torch.cuda.get_device_name(0), nvidia_smi=smi,
           kernel_ms=ms, kernel_device_ms=device_ms, plain_ms=plain,
           bound_ms={k: b[0] for k, b in bounds.items()},
@@ -2287,8 +2412,8 @@ def main() -> None:
           render_ms=render_ms, train_step_ms=step_ms,
           fps_probe={k: r["fps"] for k, r in by_image.items()},
           render_profile=render_prof, train_step_profile=step_prof,
-          gs3d_pairs=gs_pairs, gs3d_near_pairs=gs_near,
-          gs3d_on_pairs=gs_cases["fit"]["on_pairs"],
+          blend_bound_ms_all_pairs=bounds_all_pairs,
+          gs3d_work={k: gs_cases["fit"][k] for k in BLEND_WORK},
           gs3d_train_step_ms=gs_step_ms,
           gs3d_train_step_profile=gs_step_prof,
           aligned_train_step_ms=step50_ms,
@@ -2297,6 +2422,7 @@ def main() -> None:
           gs3d_render_fast_ms=gs_fast_ms, gs3d_render_ms=gs_generic_ms,
           gs3d_render_fast_profile=gs_fast_prof,
           gs3d_render_profile=gs_generic_prof, library_ms=library,
+          library_device_ms=library_device,
           aligned={"kernel_ms": aligned_ms,
                    "kernel_device_ms": aligned_device_ms,
                    "flat_twin_device_ms": flat_twin_device_ms,
@@ -2306,7 +2432,7 @@ def main() -> None:
                    "fp32_instr": {k: v[0] for k, v in aligned_work.items()},
                    "bytes": {k: v[2] for k, v in aligned_work.items()},
                    "pairs": pairsA, "gated_pairs": gatedA,
-                   "gs3d_pairs": gs30_p, "gs3d_near_pairs": gs30_near})
+                   "gs3d_work": {k: case30[k] for k in BLEND_WORK}})
 
     print(smi, flush=True)
     replaces = {"rasterize_sum_fwd": "gaussianimage_tpu/ops/rasterize_sum.py:205",
@@ -2373,8 +2499,8 @@ def main() -> None:
         "rasterize_sum_fwd": k1a_err,
         "rasterize_sum_bwd": float((dg2A - dg2A_p).abs().max()),
         "rasterize_sum_l2": float((dg3A - dg3A_p).abs().max()),
-        "rasterize_blend_fwd": float((out30[:4] - out30p[:4]).abs().max()),
-        "rasterize_blend_bwd": float((dgb30 - dgb30p).abs().max())}
+        "rasterize_blend_fwd": case30["k8_max_abs_err"],
+        "rasterize_blend_bwd": case30["k9_max_abs_err"]}
     errs = {"rasterize_sum_fwd": k1_err, "rasterize_sum_bwd": k2_err,
             "rasterize_sum_l2": k3_err,
             "splat_prep_raw": k5["max_abs_err"],
@@ -2415,6 +2541,7 @@ def main() -> None:
         "bound_ms": bounds[k][0],
         "bound_by": bounds[k][1],
         "library_ms": library[k],
+        "library_device_ms": library_device[k],
         **aligned_entry(k),
     } for k in counters]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -35,9 +35,9 @@
 //     divided back to front (that underflows float32 near e^-87): it comes
 //     from logT_fin less a suffix sum, as in the JAX kernel.
 //
-// A slot belongs to one tile's window, so K9's blocks write disjoint rows
-// of dgfeat; rows of slots in no consumed chunk are left as they are (the
-// caller zeroes them). On the aligned stream K9 writes each consumed
+// A slot belongs to one tile's window, so K9's clusters write disjoint
+// rows of dgfeat; rows of slots in no consumed chunk are left as they are
+// (the caller zeroes them). On the aligned stream K9 writes each consumed
 // chunk's whole gradient block, its dead lanes zero; each block belongs to
 // one tile, so the stores are disjoint, and blocks of chunks past
 // nch_used are left as they are.
@@ -49,25 +49,53 @@
 // log1p, exp(logT) and the three accumulations (~19 slots, 2 MUFU) in K8,
 // or log1p, two exps, dalpha and the nine sums (~60 slots, 3 MUFU) in K9.
 // Device bytes are a few MB: the rows, the stream, the [5, H, W] output
-// and, in K9, the [4, H, W] cotangent and the [I, 16] rows.
+// and, in K9, the [4, H, W] cotangent and the [I, 16] rows. (The bound
+// counts every pair of the consumed chunks, as the earlier design
+// evaluated them; the cull below evaluates fewer.)
 //
-// Design: one block per tile, 256 threads, each owning 4 pixels (32-pixel
-// tiles) or 1 (16-pixel tiles) of one column. Each chunk's 64 rows are
-// staged in shared memory (broadcast reads); the transmittance, color sums
-// and cotangent stay in registers. A pair with raw < alpha_min is skipped:
-// its alpha is 0 and it changes no sum. K8's early stop is a block-wide
-// max of logT per chunk (shuffles, then shared memory). K9 sums each
-// slot's nine terms over the warp by shuffles in a fixed tree, lane 0
-// parks them in shared memory, and after the chunk thread k adds the 8
-// warps' partials of slot k in warp order and writes its row: no atomics,
-// the result is deterministic.
+// Design. A 3DGS stream is deep in a few tiles (thousands of slots) and
+// empty in many, so the time was one SM walking a deep tile. Here:
+// - A 32-pixel tile is a thread-block cluster of 4 CTAs of 256 threads,
+//   CTA r on rows 8r..8r+7; a 16-pixel tile is one CTA. One pixel per
+//   thread, each warp an 8 x 4 patch (rasterize_blend_common.cuh's
+//   Layout), so a deep tile spreads over 4 SMs and 32 warps.
+// - Each CTA stages every chunk's 64 rows in its own shared memory, and
+//   with each row its cull (slot_cull): q_cut and the pixel rectangle the
+//   row can reach, tested against the CTA's 8 patches. Threads 0-63 load
+//   the next chunk's rows into registers while the warps walk the current
+//   one (and, on the flat stream, prefetch the ids of the chunk after), so
+//   a chunk's staging waits on no global load. Each warp ballots
+//   the slots whose rectangle meets its patch and walks only those set
+//   bits, in ascending order (K8) or descending (K9); per pair it computes
+//   q first and the exponential only where q <= q_cut.
+// - K8's early stop: after each chunk each warp reduces its 32 logT to one
+//   max by shuffles and publishes it in shared memory (two buffers, by
+//   chunk parity); after a cluster barrier lane l of every warp reads the
+//   max of warp l % 8 of CTA l / 8 through distributed shared memory, and
+//   the warp takes the max over its lanes. The max is exact, so the 4
+//   CTAs take the same decision; rank 0 writes nch_used.
+// - K9 sums each slot's nine terms over the warp by shuffles in a fixed
+//   order (only warps whose mask holds the slot and where a lane is on):
+//   eight of them in one reduce-scatter butterfly (9 shuffles, where a
+//   tree per term takes 40: with one pixel a thread the shuffles bounded
+//   the walk) and the ninth in a tree; then over the CTA's warps in warp
+//   order, then over the cluster's CTAs in rank order through distributed
+//   shared memory: CTA r writes the rows of slots 16r..16r+15. No
+//   atomics: the result is deterministic.
+// - Every CTA of a cluster takes the same branches around its barriers
+//   (the window, the chunk count and the early-stop max are the same for
+//   all four), and a last barrier keeps each CTA's shared memory alive
+//   until the others have read it.
 //
 // Arithmetic: K8 rounds op by op (__fmul_rn, __fadd_rn) with full-precision
 // expf and log1pf, as torch computes its plain version on the card, so the
-// two agree bit for bit and take the same early-stop decisions. K9 is held
-// to its plain version to a tolerance (its per-slot sums are reduced in
-// another order).
+// two agree bit for bit and take the same early-stop decisions. The cull
+// skips only pairs whose alpha is 0 (see rasterize_blend_common.cuh), and
+// each pixel's operations run in the same order, so K8's output does not
+// depend on the cull or on the pixel map. K9 is held to its plain version
+// to a tolerance (its per-slot sums are reduced in another order).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -75,6 +103,7 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace gblend;
 
 constexpr int kTerms = 9;  // sum dq dx, dq dy, dq dx^2, dq dx dy, dq dy^2, G vis x3, dalpha w
@@ -85,11 +114,58 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Sum over the warp in a fixed tree; lane 0 holds the result.
+// Sum over the warp in a fixed butterfly; every lane holds the result.
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Eight per-lane values v[0..7] summed over the warp with 9 shuffles,
+// where eight trees take 40: at each butterfly step a lane keeps the half
+// of its values that its lane bit selects and adds its partner's copy of
+// that half. Returns term (lane bits 4, 3, 2) of the eight, summed over
+// all 32 lanes (the four lanes of a group hold the same sum); the order of
+// the additions is fixed, so the result is deterministic.
+__device__ __forceinline__ float warp_sum8(const float* v, int lane, int& term) {
+  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
+  float w4[4], w2[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w4[i] = (h16 ? v[i + 4] : v[i])
+            + __shfl_xor_sync(0xffffffffu, h16 ? v[i] : v[i + 4], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    w2[i] = (h8 ? w4[i + 2] : w4[i])
+            + __shfl_xor_sync(0xffffffffu, h8 ? w4[i] : w4[i + 2], 8);
+  float w1 = (h4 ? w2[1] : w2[0]) + __shfl_xor_sync(0xffffffffu, h4 ? w2[0] : w2[1], 4);
+  w1 += __shfl_xor_sync(0xffffffffu, w1, 2);
+  w1 += __shfl_xor_sync(0xffffffffu, w1, 1);
+  term = (h16 ? 4 : 0) + (h8 ? 2 : 0) + (h4 ? 1 : 0);
+  return w1;
+}
+
+// A barrier over the tile's CTAs: the cluster's, or the block's when the
+// tile is one CTA. It orders shared-memory writes before it against reads
+// after it, within the CTA and, in a cluster, across its CTAs.
+template <int kCluster>
+__device__ __forceinline__ void tile_sync() {
+  if constexpr (kCluster > 1) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// CTA `r`'s copy of the shared variable `v` (this CTA's own when the tile
+// is one CTA).
+template <int kCluster, typename T>
+__device__ __forceinline__ T* rank_ptr(T* v, int r) {
+  if constexpr (kCluster > 1) {
+    return cg::this_cluster().map_shared_rank(v, r);
+  } else {
+    return v;
+  }
 }
 
 template <int TILE, bool kBlocks>
@@ -97,70 +173,66 @@ __global__ void __launch_bounds__(kThreads)
 rasterize_blend_fwd_kernel(Stream st, float* __restrict__ out, int* __restrict__ nch_used,
                            int H, int W, int tiles_x, float alpha_clip, float alpha_min,
                            float log_stop) {
-  constexpr int kPPT = TileGeom<TILE>::kPPT;
+  constexpr int kCluster = Layout<TILE>::kCluster;
   __shared__ Chunk s;
-  __shared__ float red[kWarps];
-  const TileGeom<TILE> tg = tile_geom<TILE, kBlocks>(st, H, W, tiles_x);
-  float logT[kPPT], acc[kPPT][3];
-#pragma unroll
-  for (int j = 0; j < kPPT; ++j) {
-    logT[j] = 0.0f;
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) acc[j][ch] = 0.0f;
-  }
-  const int nch = (tg.end - tg.start + kBK - 1) / kBK;
+  __shared__ float wmax[2][kWarps];  // each warp's max of logT, by chunk parity
+  const Pixel px = pixel_of<TILE, kBlocks>(st, H, W, tiles_x);
+  float logT = 0.0f, acc[3] = {0.0f, 0.0f, 0.0f};
+  const int nch = (px.end - px.start + kBK - 1) / kBK;
+  const int k_own = threadIdx.x;  // the slot this thread loads and stages
+  SlotRow row;                    // its row in the next chunk to stage
+  if (k_own < min(kBK, px.end - px.start)) row = load_slot<kBlocks>(st, px.start, k_own);
+  prefetch_ids<kBlocks>(st, px.start + kBK, px.end - px.start - kBK);
   float tile_max = 0.0f;  // max of logT over the tile, before the first chunk
   int ci = 0;
   for (; ci < nch && tile_max > log_stop; ++ci) {
-    const int base = tg.start + ci * kBK;
-    const int n = min(kBK, tg.end - base);
-    stage_chunk<kBlocks>(s, st, base, n, tg.tx0, tg.ty0);
+    const int base = px.start + ci * kBK;
+    const int n = min(kBK, px.end - base);
+    stage_slot<TILE>(s, row, n, px.tx0, px.ty0, px.rank, alpha_min);
     __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      const float dx = __fsub_rn(tg.X, s.gx[k]);
-      const float adxdx = __fmul_rn(__fmul_rn(s.a[k], dx), dx);
-      const float b2dx = __fmul_rn(s.b2[k], dx);
+    // the next chunk's rows and the ids of the one after load during the walk
+    if (k_own < min(kBK, px.end - base - kBK))
+      row = load_slot<kBlocks>(st, base + kBK, k_own);
+    prefetch_ids<kBlocks>(st, base + 2 * kBK, px.end - base - 2 * kBK);
+    unsigned long long m = warp_slots(s, px.warp, px.lane);
+    while (m) {
+      const int k = __ffsll(static_cast<long long>(m)) - 1;
+      m &= m - 1;
+      const PairAlpha p = pair_alpha(s, k, __fsub_rn(px.X, s.gx[k]),
+                                     __fsub_rn(px.Y, s.gy[k]), alpha_clip, alpha_min);
+      if (p.on) {
+        const float vis = __fmul_rn(p.alpha, expf(logT));
 #pragma unroll
-      for (int j = 0; j < kPPT; ++j) {
-        const PairAlpha p = pair_alpha(adxdx, b2dx, s.c[k], __fsub_rn(tg.Y[j], s.gy[k]),
-                                       s.op[k], alpha_clip, alpha_min);
-        if (p.on) {
-          const float vis = __fmul_rn(p.alpha, expf(logT[j]));
-#pragma unroll
-          for (int ch = 0; ch < 3; ++ch)
-            acc[j][ch] = __fadd_rn(acc[j][ch], __fmul_rn(s.col[ch][k], vis));
-          logT[j] = __fadd_rn(logT[j], log1pf(-p.alpha));
-        }
+        for (int ch = 0; ch < 3; ++ch)
+          acc[ch] = __fadd_rn(acc[ch], __fmul_rn(s.col[ch][k], vis));
+        logT = __fadd_rn(logT, log1pf(-p.alpha));
       }
     }
-    float m = logT[0];
-#pragma unroll
-    for (int j = 1; j < kPPT; ++j) m = fmaxf(m, logT[j]);
-    m = warp_max(m);
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
-    __syncthreads();
-    tile_max = red[0];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) tile_max = fmaxf(tile_max, red[w]);
-    __syncthreads();  // the next chunk overwrites s and red
+    const float m_w = warp_max(logT);
+    if (px.lane == 0) wmax[ci & 1][px.warp] = m_w;
+    tile_sync<kCluster>();  // also: every warp is done with the staged chunk
+    // lane l reads warp l % 8 of CTA l / 8 (the tile has kCluster x 8
+    // warps), then the max over the lanes: exact, the same in every thread
+    const int l = px.lane % (kCluster * kWarps);
+    tile_max = warp_max(*rank_ptr<kCluster>(&wmax[ci & 1][l % kWarps], l / kWarps));
   }
 
-  const size_t plane = static_cast<size_t>(H) * W;
+  if (px.inside) {
+    const size_t plane = static_cast<size_t>(H) * W;
 #pragma unroll
-  for (int j = 0; j < kPPT; ++j) {
-    if (tg.inside[j]) {
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) out[ch * plane + tg.pix[j]] = acc[j][ch];
-      out[3 * plane + tg.pix[j]] = expf(logT[j]);
-      out[4 * plane + tg.pix[j]] = logT[j];
-    }
+    for (int ch = 0; ch < 3; ++ch) out[ch * plane + px.pix] = acc[ch];
+    out[3 * plane + px.pix] = expf(logT);
+    out[4 * plane + px.pix] = logT;
   }
-  if (threadIdx.x == 0) nch_used[blockIdx.x] = ci;
+  if (px.rank == 0 && threadIdx.x == 0) nch_used[px.tile] = ci;
+  if constexpr (kCluster > 1) tile_sync<kCluster>();  // the others read wmax
 }
 
 struct BwdShared {
   Chunk s;
-  float part[kWarps][kTerms][kBK];  // per-warp partial sums per slot
+  float part[kWarps][kTerms][kBK];     // per-warp sums per slot
+  unsigned long long live[kWarps];     // slots with a part from the warp
+  float cta[2][kTerms][kBK];           // this CTA's sums per slot, by chunk parity
 };
 
 template <int TILE, bool kBlocks>
@@ -169,121 +241,169 @@ rasterize_blend_bwd_kernel(Stream st, const float* __restrict__ logt,
                            const int* __restrict__ nch_used, const float* __restrict__ g,
                            float* __restrict__ dgfeat, int H, int W, int tiles_x,
                            float alpha_clip, float alpha_min) {
-  constexpr int kPPT = TileGeom<TILE>::kPPT;
+  constexpr int kCluster = Layout<TILE>::kCluster;
+  constexpr int kSlotsPerRank = kBK / kCluster;  // rows each CTA writes
   __shared__ BwdShared sh;
-  const TileGeom<TILE> tg = tile_geom<TILE, kBlocks>(st, H, W, tiles_x);
-  const int nch = nch_used[blockIdx.x];
+  const Pixel px = pixel_of<TILE, kBlocks>(st, H, W, tiles_x);
+  const int nch = nch_used[px.tile];  // the same in every CTA of the tile
   if (nch <= 0) return;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const size_t plane = static_cast<size_t>(H) * W;
 
-  // per pixel: the cotangent, log T_fin and T_fin; the running suffix sums
-  float G[kPPT][4], lTf[kPPT], Tf[kPPT], suf[kPPT], S[kPPT];
+  // the pixel's cotangent, log T_fin and T_fin; the running suffix sums
+  float G[4];
 #pragma unroll
-  for (int j = 0; j < kPPT; ++j) {
-#pragma unroll
-    for (int ch = 0; ch < 4; ++ch)
-      G[j][ch] = tg.inside[j] ? g[ch * plane + tg.pix[j]] : 0.0f;
-    lTf[j] = tg.inside[j] ? logt[tg.pix[j]] : 0.0f;
-    Tf[j] = expf(lTf[j]);
-    suf[j] = 0.0f;
-    S[j] = 0.0f;
-  }
+  for (int ch = 0; ch < 4; ++ch) G[ch] = px.inside ? g[ch * plane + px.pix] : 0.0f;
+  const float lTf = px.inside ? logt[px.pix] : 0.0f;
+  const float Tf = expf(lTf);
+  float suf = 0.0f, S = 0.0f;
 
+  const int k_own = threadIdx.x;  // the slot this thread loads and stages
+  SlotRow row;                    // its row in the next chunk to stage
+  {
+    const int last = px.start + (nch - 1) * kBK;
+    if (k_own < min(kBK, px.end - last)) row = load_slot<kBlocks>(st, last, k_own);
+    if (nch > 1) prefetch_ids<kBlocks>(st, last - kBK, kBK);
+  }
   for (int ci = nch - 1; ci >= 0; --ci) {
-    const int base = tg.start + ci * kBK;
-    const int n = min(kBK, tg.end - base);
-    stage_chunk<kBlocks>(sh.s, st, base, n, tg.tx0, tg.ty0);
+    const int base = px.start + ci * kBK;
+    const int n = min(kBK, px.end - base);
+    const int par = ci & 1;
+    stage_slot<TILE>(sh.s, row, n, px.tx0, px.ty0, px.rank, alpha_min);
     __syncthreads();
-    for (int k = n - 1; k >= 0; --k) {
-      const Chunk& s = sh.s;
-      const float dx = __fsub_rn(tg.X, s.gx[k]);
-      const float adxdx = __fmul_rn(__fmul_rn(s.a[k], dx), dx);
-      const float b2dx = __fmul_rn(s.b2[k], dx);
-      float m[kTerms];
+    // the previous chunk's rows (whole: only the last chunk is partial) and
+    // the ids of the one before load during the walk
+    if (ci > 0 && k_own < kBK) row = load_slot<kBlocks>(st, base - kBK, k_own);
+    if (ci > 1) prefetch_ids<kBlocks>(st, base - 2 * kBK, kBK);
+    const Chunk& s = sh.s;
+    unsigned long long m = warp_slots(s, px.warp, px.lane);
+    unsigned long long live = 0;
+    while (m) {
+      const int k = 63 - __clzll(static_cast<long long>(m));
+      m &= ~(1ull << k);
+      const float dx = __fsub_rn(px.X, s.gx[k]);
+      const float dy = __fsub_rn(px.Y, s.gy[k]);
+      float v[kTerms];
 #pragma unroll
-      for (int v = 0; v < kTerms; ++v) m[v] = 0.0f;
-      bool any = false;
+      for (int t = 0; t < kTerms; ++t) v[t] = 0.0f;
+      bool on = false;
+      if (px.inside) {
+        const PairAlpha p = pair_alpha(s, k, dx, dy, alpha_clip, alpha_min);
+        if (p.on) {
+          on = true;
+          const float l1m = log1pf(-p.alpha);
+          suf += l1m;
+          const float T_k = expf(lTf - suf);
+          const float vis = p.alpha * T_k;
+          const float gdotc = s.col[0][k] * G[0] + s.col[1][k] * G[1] + s.col[2][k] * G[2];
+          const float dalpha = p.raw <= alpha_clip
+              ? gdotc * T_k - (S + G[3] * Tf) * expf(-l1m)
+              : 0.0f;
+          S += gdotc * vis;
+          const float dw = dalpha * s.op[k];
+          const float dq = p.q > 0.0f ? -0.5f * p.w * dw : 0.0f;
+          const float dqdx = dq * dx;
+          const float dqdy = dq * dy;
+          v[0] = dqdx;
+          v[1] = dqdy;
+          v[2] = dqdx * dx;
+          v[3] = dqdx * dy;
+          v[4] = dqdy * dy;
 #pragma unroll
-      for (int j = 0; j < kPPT; ++j) {
-        if (!tg.inside[j]) continue;
-        const float dy = __fsub_rn(tg.Y[j], s.gy[k]);
-        const PairAlpha p = pair_alpha(adxdx, b2dx, s.c[k], dy, s.op[k], alpha_clip,
-                                       alpha_min);
-        if (!p.on) continue;
-        const float l1m = log1pf(-p.alpha);
-        suf[j] += l1m;
-        const float T_k = expf(lTf[j] - suf[j]);
-        const float vis = p.alpha * T_k;
-        const float gdotc = s.col[0][k] * G[j][0] + s.col[1][k] * G[j][1]
-                            + s.col[2][k] * G[j][2];
-        const float dalpha = p.raw <= alpha_clip
-            ? gdotc * T_k - (S[j] + G[j][3] * Tf[j]) * expf(-l1m)
-            : 0.0f;
-        S[j] += gdotc * vis;
-        const float dw = dalpha * s.op[k];
-        const float dq = p.q > 0.0f ? -0.5f * p.w * dw : 0.0f;
-        const float dqdx = dq * dx;
-        const float dqdy = dq * dy;
-        m[0] += dqdx;
-        m[1] += dqdy;
-        m[2] += dqdx * dx;
-        m[3] += dqdx * dy;
-        m[4] += dqdy * dy;
-#pragma unroll
-        for (int ch = 0; ch < 3; ++ch) m[5 + ch] += G[j][ch] * vis;
-        m[8] += dalpha * p.w;
-        any = true;
+          for (int ch = 0; ch < 3; ++ch) v[5 + ch] = G[ch] * vis;
+          v[8] = dalpha * p.w;
+        }
       }
-      // warp-uniform branch: a warp with no live pair keeps zeros
-      if (__any_sync(0xffffffffu, any)) {
-#pragma unroll
-        for (int v = 0; v < kTerms; ++v) m[v] = warp_sum(m[v]);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int v = 0; v < kTerms; ++v) sh.part[warp][v][k] = m[v];
+      // warp-uniform: a slot with no live pair in the warp adds nothing
+      if (__any_sync(0xffffffffu, on)) {
+        int t;
+        const float v8 = warp_sum8(v, px.lane, t);
+        const float dw = warp_sum(v[8]);
+        if ((px.lane & 3) == 0) sh.part[px.warp][t][k] = v8;
+        if (px.lane == 0) sh.part[px.warp][8][k] = dw;
+        live |= 1ull << k;
       }
     }
+    if (px.lane == 0) sh.live[px.warp] = live;
     __syncthreads();
-    const int k = threadIdx.x;
-    float row[kFW];  // the slot's gradient row; a dead lane's stays zero
+    // the CTA's sums per slot, over its warps in warp order
+    {
+      const int k = threadIdx.x % kBK;
+      for (int t = threadIdx.x / kBK; t < kTerms; t += kThreads / kBK) {
+        float a = 0.0f;
 #pragma unroll
-    for (int f = 0; f < kFW; ++f) row[f] = 0.0f;
-    if (k < n) {
-      float r[kTerms];
-#pragma unroll
-      for (int v = 0; v < kTerms; ++v) {
-        float acc = sh.part[0][v][k];
-#pragma unroll
-        for (int w = 1; w < kWarps; ++w) acc += sh.part[w][v][k];
-        r[v] = acc;
+        for (int w = 0; w < kWarps; ++w)
+          if ((sh.live[w] >> k) & 1ull) a += sh.part[w][t][k];
+        sh.cta[par][t][k] = a;
       }
-      const float a = sh.s.a[k];
-      const float b = 0.5f * sh.s.b2[k];  // exact: b2 = 2b
-      const float c = sh.s.c[k];
-      row[0] = -2.0f * a * r[0] - 2.0f * b * r[1];
-      row[1] = -2.0f * b * r[0] - 2.0f * c * r[1];
-      row[2] = r[2];
-      row[3] = 2.0f * r[3];
-#pragma unroll
-      for (int v = 4; v < kTerms; ++v) row[v] = r[v];
     }
-    if (kBlocks) {
-      if (k < kBK) {
-        float* o = dgfeat + static_cast<size_t>(base / kBK) * (kFW * kBK) + k;
+    // CTA r writes the rows of slots r * kSlotsPerRank ...; read the
+    // slot's conic now, before the barrier lets the next chunk be staged
+    const int kr = px.rank * kSlotsPerRank + threadIdx.x;
+    const bool writer = threadIdx.x < kSlotsPerRank;
+    float a = 0.0f, b = 0.0f, c = 0.0f;
+    if (writer && kr < n) {
+      a = s.a[kr];
+      b = 0.5f * s.b2[kr];  // exact: b2 = 2b
+      c = s.c[kr];
+    }
+    tile_sync<kCluster>();
+    if (writer) {
+      float row[kFW];  // the slot's gradient row; a dead lane's stays zero
+#pragma unroll
+      for (int f = 0; f < kFW; ++f) row[f] = 0.0f;
+      if (kr < n) {
+        float r[kTerms];
+#pragma unroll
+        for (int t = 0; t < kTerms; ++t) {
+          float acc = *rank_ptr<kCluster>(&sh.cta[par][t][kr], 0);
+#pragma unroll
+          for (int q = 1; q < kCluster; ++q)
+            acc += *rank_ptr<kCluster>(&sh.cta[par][t][kr], q);
+          r[t] = acc;
+        }
+        row[0] = -2.0f * a * r[0] - 2.0f * b * r[1];
+        row[1] = -2.0f * b * r[0] - 2.0f * c * r[1];
+        row[2] = r[2];
+        row[3] = 2.0f * r[3];
+#pragma unroll
+        for (int t = 4; t < kTerms; ++t) row[t] = r[t];
+      }
+      if (kBlocks) {
+        float* o = dgfeat + static_cast<size_t>(base / kBK) * (kFW * kBK) + kr;
 #pragma unroll
         for (int f = 0; f < kFW; ++f) o[f * kBK] = row[f];
-      }
-    } else if (k < n) {
-      float4* o = reinterpret_cast<float4*>(dgfeat + static_cast<size_t>(base + k) * kFW);
+      } else if (kr < n) {
+        float4* o = reinterpret_cast<float4*>(dgfeat + static_cast<size_t>(base + kr) * kFW);
 #pragma unroll
-      for (int f = 0; f < kFW / 4; ++f)
-        o[f] = make_float4(row[4 * f], row[4 * f + 1], row[4 * f + 2], row[4 * f + 3]);
+        for (int f = 0; f < kFW / 4; ++f)
+          o[f] = make_float4(row[4 * f], row[4 * f + 1], row[4 * f + 2], row[4 * f + 3]);
+      }
     }
-    __syncthreads();  // the next chunk overwrites the staged rows and partials
   }
+  if constexpr (kCluster > 1) tile_sync<kCluster>();  // the others read cta
+}
+
+// Launch `kernel` on one cluster of Layout<TILE>::kCluster CTAs per tile
+// (one CTA when the tile is 16 pixels); returns the launch's cudaError_t.
+template <int TILE, typename... Params, typename... Args>
+int launch_tiles(void (*kernel)(Params...), int n_tiles, cudaStream_t stream,
+                 Args... args) {
+  constexpr int kCluster = Layout<TILE>::kCluster;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_tiles * kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kCluster > 1 ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kBlocks>
@@ -293,14 +413,11 @@ int launch_fwd(const Stream& st, float* out, int* nch_used, int H, int W, int ti
   const int n_tiles = tiles_x * tiles_y;
   if (n_tiles <= 0 || (tile_px != 16 && tile_px != 32))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (tile_px == 32) {
-    rasterize_blend_fwd_kernel<32, kBlocks><<<n_tiles, kThreads, 0, stream>>>(
-        st, out, nch_used, H, W, tiles_x, alpha_clip, alpha_min, log_stop);
-  } else {
-    rasterize_blend_fwd_kernel<16, kBlocks><<<n_tiles, kThreads, 0, stream>>>(
-        st, out, nch_used, H, W, tiles_x, alpha_clip, alpha_min, log_stop);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (tile_px == 32)
+    return launch_tiles<32>(rasterize_blend_fwd_kernel<32, kBlocks>, n_tiles, stream, st,
+                            out, nch_used, H, W, tiles_x, alpha_clip, alpha_min, log_stop);
+  return launch_tiles<16>(rasterize_blend_fwd_kernel<16, kBlocks>, n_tiles, stream, st,
+                          out, nch_used, H, W, tiles_x, alpha_clip, alpha_min, log_stop);
 }
 
 template <bool kBlocks>
@@ -310,14 +427,12 @@ int launch_bwd(const Stream& st, const float* logt, const int* nch_used, const f
   const int n_tiles = tiles_x * tiles_y;
   if (n_tiles <= 0 || (tile_px != 16 && tile_px != 32))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (tile_px == 32) {
-    rasterize_blend_bwd_kernel<32, kBlocks><<<n_tiles, kThreads, 0, stream>>>(
-        st, logt, nch_used, g, dgfeat, H, W, tiles_x, alpha_clip, alpha_min);
-  } else {
-    rasterize_blend_bwd_kernel<16, kBlocks><<<n_tiles, kThreads, 0, stream>>>(
-        st, logt, nch_used, g, dgfeat, H, W, tiles_x, alpha_clip, alpha_min);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (tile_px == 32)
+    return launch_tiles<32>(rasterize_blend_bwd_kernel<32, kBlocks>, n_tiles, stream, st,
+                            logt, nch_used, g, dgfeat, H, W, tiles_x, alpha_clip,
+                            alpha_min);
+  return launch_tiles<16>(rasterize_blend_bwd_kernel<16, kBlocks>, n_tiles, stream, st,
+                          logt, nch_used, g, dgfeat, H, W, tiles_x, alpha_clip, alpha_min);
 }
 
 }  // namespace

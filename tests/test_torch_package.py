@@ -39,6 +39,7 @@ def test_port_imports_no_jax():
         "import gaussianimage_tpu_torch.ops.rasterize_blend\n"
         "import gaussianimage_tpu_torch.models.gs3d\n"
         "import gaussianimage_tpu_torch.blend_caps_probe\n"
+        "import gaussianimage_tpu_torch.blend_cull_scene\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'gaussianimage_tpu' "
         "or m.startswith('gaussianimage_tpu.'))\n"
