@@ -60,7 +60,7 @@
 //   thread, each warp an 8 x 4 patch (rasterize_blend_common.cuh's
 //   Layout), so a deep tile spreads over 4 SMs and 32 warps.
 // - Each CTA stages every chunk's 64 rows in its own shared memory, and
-//   with each row its cull (slot_cull): q_cut and the pixel rectangle the
+//   with each row its cull (blend_cull): q_cut and the pixel rectangle the
 //   row can reach, tested against the CTA's 8 patches. Threads 0-63 load
 //   the next chunk's rows into registers while the warps walk the current
 //   one (and, on the flat stream, prefetch the ids of the chunk after), so
@@ -105,6 +105,9 @@ namespace {
 
 namespace cg = cooperative_groups;
 using namespace gblend;
+using gsum::load_slot;
+using gsum::prefetch_ids;
+using gsum::warp_sum8;
 
 constexpr int kTerms = 9;  // sum dq dx, dq dy, dq dx^2, dq dx dy, dq dy^2, G vis x3, dalpha w
 
@@ -119,30 +122,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Eight per-lane values v[0..7] summed over the warp with 9 shuffles,
-// where eight trees take 40: at each butterfly step a lane keeps the half
-// of its values that its lane bit selects and adds its partner's copy of
-// that half. Returns term (lane bits 4, 3, 2) of the eight, summed over
-// all 32 lanes (the four lanes of a group hold the same sum); the order of
-// the additions is fixed, so the result is deterministic.
-__device__ __forceinline__ float warp_sum8(const float* v, int lane, int& term) {
-  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
-  float w4[4], w2[2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    w4[i] = (h16 ? v[i + 4] : v[i])
-            + __shfl_xor_sync(0xffffffffu, h16 ? v[i] : v[i + 4], 16);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    w2[i] = (h8 ? w4[i + 2] : w4[i])
-            + __shfl_xor_sync(0xffffffffu, h8 ? w4[i] : w4[i + 2], 8);
-  float w1 = (h4 ? w2[1] : w2[0]) + __shfl_xor_sync(0xffffffffu, h4 ? w2[0] : w2[1], 4);
-  w1 += __shfl_xor_sync(0xffffffffu, w1, 2);
-  w1 += __shfl_xor_sync(0xffffffffu, w1, 1);
-  term = (h16 ? 4 : 0) + (h8 ? 2 : 0) + (h4 ? 1 : 0);
-  return w1;
 }
 
 // A barrier over the tile's CTAs: the cluster's, or the block's when the

@@ -42,21 +42,48 @@
 // window are not written.
 //
 // Bound on the H100: FP32 issue slots and MUFU ex2, as for K1. K3 does K1's
-// work (~9 slots per pair and 13 + 1 ex2 more per gated pair), then a second
-// walk that recomputes q (~9 per pair) and, per gated pair, w (ex2), dw, dq,
+// work (q and the gate, ~9 slots, and 13 + 1 ex2 more per gated pair), then
+// a second walk that recomputes q and, per gated pair, w (ex2), dw, dq,
 // the five moments and four dcm sums (~26 slots). K2 is the second walk
-// alone. Device bytes are a few MB: the rows, the stream, one or two
-// [C, H, W] images and the [I, 16] gradient rows.
+// alone. Only the gated pairs need this: the pairs of a window that fail
+// the gate (88% on the 10k fit's stream, 95% at 40k) need no work beyond
+// a cull per slot. Device bytes are a few MB: the rows, the stream, one or
+// two [C, H, W] images and the [I, 16] gradient rows.
 //
-// Design: one block per tile, 256 threads, each owning 4 pixels of one
-// column; warp w owns the contiguous rows 4w..4w+3 (TileGeom, shared with
-// K1), so a small Gaussian touches few warps and a warp with no gated pixel for an instance skips
-// its reduction (__any_sync). The chunk of 64 instances is staged in shared
-// memory as in K1 (one broadcast read per instance), and the image
-// accumulators and G stay in registers between the two walks. Per instance
-// each warp sums its nine partials by shuffles in a fixed tree; lane 0
-// parks them in shared memory; after the chunk, thread k adds the 8 warps'
-// partials of instance k in warp order and writes its row. No atomics, in
+// K2's design: one block per tile, 256 threads, each owning 4 pixels of
+// one column; warp w owns the contiguous rows 4w..4w+3 (TileGeom, shared
+// with K1). The chunk of 64 instances is staged in shared memory as in K1
+// (one broadcast read per instance), and every thread evaluates every
+// pair of the window. Per instance each warp with a gated pixel
+// (__any_sync) sums its nine partials by shuffles in a fixed tree; lane 0
+// parks them in shared memory; after the chunk, thread k adds the 8
+// warps' partials of instance k in warp order and writes its row.
+//
+// K3's design. A window of the fit's stream is shallow (67 slots on the
+// mean tile at 10k points, at most 3 chunks; 177 and 7 at 40k), so one
+// block of 256 threads per tile, and the time went to the all-pairs walk
+// (8-21x more pairs than pass the gate) and to the nine 5-level shuffle
+// trees per slot and warp. Here:
+// - Each thread owns 4 pixels, one in each 8 x 4 patch of its warp's
+//   16 x 8 block: warp w the block at (16 (w % 2), 8 (w / 2)), pixel j in
+//   patch (j % 2, j / 2) of it, lane l at (l % 8, l / 8) of the patch.
+//   The cull tests patches (fewest pairs) and the reduction runs per
+//   warp (fewest visits); on the H100, 2 pixels a thread ran as fast and 1
+//   (1024 threads, a warp per patch) slower (PERF.md §6).
+// - Staging a chunk computes each slot's cull rectangle for q <= q_cut
+//   (slot_cull) and from it a mask of the tile's 32 patches (bit 4w + j).
+//   Each warp ballots the slots whose mask meets its 4 patches and walks
+//   only those, in stream order, and per slot only its patches in the
+//   mask: warp-uniform branches, in both walks.
+// - Threads 0-63 load the next chunk's rows into registers during the
+//   walk; the backward walks the chunks last to first, so the chunk the
+//   forward staged last is walked again without staging.
+// - The backward sums a slot's eight live terms over the warp in one
+//   reduce-scatter butterfly (warp_sum8: 9 shuffles, where eight trees
+//   take 40; alpha's cotangent is 0 in K3, so its dcm term is 0 and is
+//   not summed), then over the warps that met the slot in warp order.
+// The image is K1's bit for bit: the cull skips only pairs that fail the
+// gate, and each pixel adds its pairs in stream order. No atomics, in
 // shared or global memory: the result is deterministic.
 
 #include <cuda_runtime.h>
@@ -72,7 +99,6 @@ constexpr int kMoments = 9;  // cx, cy, sum dq dx^2, dq dx dy, dq dy^2, dcm0..3
 struct BwdShared {
   Chunk s;
   float part[kWarps][kMoments][kBK];  // per-warp partial sums per instance
-  float red[kWarps];                  // per-warp partial SSE
 };
 
 // Sum over the warp in a fixed tree; lane 0 holds the result.
@@ -196,40 +222,302 @@ rasterize_sum_bwd_kernel(Stream st, const float* __restrict__ g,
   tile_backward<kBlocks>(sh, st, tg, G, q_cut, dgfeat);
 }
 
+// ---------------------------------------------------------------------------
+// K3
+// ---------------------------------------------------------------------------
+
+constexpr int kPatchW = 8;  // a patch: 8 columns x 4 rows, one pixel a lane
+constexpr int kPatchH = 4;
+constexpr int kTerms = 8;   // cx, cy, sum dq dx^2, dq dx dy, dq dy^2, dcm0..2
+
+// A staged chunk: per-slot columns as in Chunk, and the slot's patch mask
+// (bit 4w + j: patch j of warp w meets the slot's cull rectangle).
+struct L2Chunk {
+  float gx[kBK], gy[kBK], a[kBK], b2[kBK], c[kBK];
+  float cm[kC][kBK];
+  unsigned hit[kBK];
+};
+
+struct L2Shared {
+  L2Chunk s;
+  float part[kWarps][kTerms][kBK];  // per-warp sums per slot
+  float sum[kTerms][kBK];           // the tile's sums per slot
+  unsigned long long live[kWarps];  // slots with a part from the warp
+  float red[kWarps];                // per-warp partial SSE
+};
+
+// The thread's pixels: j = jx + 2 jy at tile-local (X[jx], Y[jy]).
+struct L2Pixels {
+  int start, end;  // the tile's window of the stream
+  float tx0, ty0;  // the tile's origin, pixels
+  int x0, y0;      // the tile's origin, integer
+  int warp, lane;
+  float X[2], Y[2];
+  bool inside[kRowsPerThread];
+};
+
 template <bool kBlocks>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ L2Pixels l2_pixels(const Stream& st, int H, int W, int tiles_x) {
+  L2Pixels p;
+  const int t = blockIdx.x;
+  p.x0 = (t % tiles_x) * kTile;
+  p.y0 = (t / tiles_x) * kTile;
+  p.tx0 = static_cast<float>(p.x0);
+  p.ty0 = static_cast<float>(p.y0);
+  p.start = st.starts[t];
+  p.end = kBlocks ? p.start + st.counts[t] : st.starts[t + 1];
+  p.warp = threadIdx.x >> 5;
+  p.lane = threadIdx.x & 31;
+  int lx[2], ly[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lx[i] = 2 * kPatchW * (p.warp % 2) + kPatchW * i + p.lane % kPatchW;
+    ly[i] = 2 * kPatchH * (p.warp / 2) + kPatchH * i + p.lane / kPatchW;
+    p.X[i] = static_cast<float>(lx[i]);
+    p.Y[i] = static_cast<float>(ly[i]);
+  }
+#pragma unroll
+  for (int j = 0; j < kRowsPerThread; ++j)
+    p.inside[j] = p.x0 + lx[j & 1] < W && p.y0 + ly[j >> 1] < H;
+  return p;
+}
+
+// Thread k < kBK stages slot k of the chunk (its row `v`, where k < n)
+// with its patch mask; slots n..kBK-1 meet no patch. The caller
+// synchronises before the chunk is read.
+__device__ __forceinline__ void stage_l2(L2Chunk& s, const SlotRow& v, int n, float tx0,
+                                         float ty0, float q_cut) {
+  const int k = threadIdx.x;
+  if (k >= kBK) return;
+  unsigned hit = 0;
+  if (k < n) {
+    const float gx = __fsub_rn(v.x, tx0);
+    const float gy = __fsub_rn(v.y, ty0);
+    s.gx[k] = gx;
+    s.gy[k] = gy;
+    s.a[k] = v.a;
+    s.b2[k] = __fmul_rn(2.0f, v.b);
+    s.c[k] = v.c;
+#pragma unroll
+    for (int ch = 0; ch < kC; ++ch) s.cm[ch][k] = v.f[ch];
+    const SlotCull cl = slot_cull(gx, gy, v.a, v.b, v.c, q_cut, kTile);
+    if (cl.x0 <= cl.x1 && cl.y0 <= cl.y1) {
+      // the patch columns (0..3) and rows (0..7) the rectangle meets
+      const unsigned cols = (2u << (cl.x1 / kPatchW)) - (1u << (cl.x0 / kPatchW));
+      const unsigned rows = (2u << (cl.y1 / kPatchH)) - (1u << (cl.y0 / kPatchH));
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const unsigned cb = (cols >> (2 * (w % 2))) & 3u;
+        const unsigned rb = (rows >> (2 * (w / 2))) & 3u;
+        hit |= (((rb & 1u) ? cb : 0u) | ((rb & 2u) ? cb << 2 : 0u)) << (4 * w);
+      }
+    }
+  }
+  s.hit[k] = hit;
+}
+
+// The warp's slots of the staged chunk: bit k set where slot k's mask
+// meets one of the warp's patches.
+__device__ __forceinline__ unsigned long long l2_slots(const L2Chunk& s, int warp,
+                                                       int lane) {
+  const unsigned lo = __ballot_sync(0xffffffffu, (s.hit[lane] >> (4 * warp)) & 0xFu);
+  const unsigned hi = __ballot_sync(0xffffffffu, (s.hit[lane + 32] >> (4 * warp)) & 0xFu);
+  return (static_cast<unsigned long long>(hi) << 32) | lo;
+}
+
+// The forward walk over a staged chunk: acc[j] += cm w on the warp's
+// slots, in stream order (K1's sum, pair for pair).
+__device__ __forceinline__ void l2_forward(const L2Chunk& s, const L2Pixels& p, float q_cut,
+                                           float (&acc)[kRowsPerThread][kC]) {
+  unsigned long long m = l2_slots(s, p.warp, p.lane);
+  while (m) {
+    const int k = __ffsll(static_cast<long long>(m)) - 1;
+    m &= m - 1;
+    const unsigned nib = (s.hit[k] >> (4 * p.warp)) & 0xFu;
+    float adxdx[2], b2dx[2], dy[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float dx = __fsub_rn(p.X[i], s.gx[k]);
+      adxdx[i] = __fmul_rn(__fmul_rn(s.a[k], dx), dx);
+      b2dx[i] = __fmul_rn(s.b2[k], dx);
+      dy[i] = __fsub_rn(p.Y[i], s.gy[k]);
+    }
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j) {
+      if (!((nib >> j) & 1u)) continue;  // warp-uniform
+      const float q = quad_form(adxdx[j & 1], b2dx[j & 1], s.c[k], dy[j >> 1]);
+      if (q <= q_cut) {
+        const float w = pair_weight(q);
+#pragma unroll
+        for (int ch = 0; ch < kC; ++ch)
+          acc[j][ch] = __fadd_rn(acc[j][ch], __fmul_rn(s.cm[ch][k], w));
+      }
+    }
+  }
+}
+
+// The backward walk over a staged chunk, then its gradient rows: per
+// slot the warp's eight terms (one butterfly), the tile's sums over the
+// warps in warp order, and one row (flat) or the chunk's block (aligned)
+// written by threads 0-63. G is the rgb cotangent; alpha's is 0.
+template <bool kBlocks>
+__device__ __forceinline__ void l2_backward(L2Shared& sh, const L2Pixels& p,
+                                            const float (&G)[kRowsPerThread][3],
+                                            float q_cut, int base, int n,
+                                            float* __restrict__ dgfeat) {
+  const L2Chunk& s = sh.s;
+  unsigned long long m = l2_slots(s, p.warp, p.lane);
+  unsigned long long live = 0;
+  while (m) {
+    const int k = __ffsll(static_cast<long long>(m)) - 1;
+    m &= m - 1;
+    const unsigned nib = (s.hit[k] >> (4 * p.warp)) & 0xFu;
+    float dx[2], adxdx[2], b2dx[2], dy[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      dx[i] = __fsub_rn(p.X[i], s.gx[k]);
+      adxdx[i] = __fmul_rn(__fmul_rn(s.a[k], dx[i]), dx[i]);
+      b2dx[i] = __fmul_rn(s.b2[k], dx[i]);
+      dy[i] = __fsub_rn(p.Y[i], s.gy[k]);
+    }
+    float v[kTerms];
+#pragma unroll
+    for (int t = 0; t < kTerms; ++t) v[t] = 0.0f;
+    bool on = false;
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j) {
+      if (!((nib >> j) & 1u)) continue;  // warp-uniform
+      if (!p.inside[j]) continue;
+      const float q = quad_form(adxdx[j & 1], b2dx[j & 1], s.c[k], dy[j >> 1]);
+      if (q <= q_cut) {
+        const float w = pair_weight(q);
+        // alpha's term cm3 * 0 keeps a non-finite opacity's NaN, as the
+        // plain version's sum over the four channels does
+        const float dw = s.cm[0][k] * G[j][0] + s.cm[1][k] * G[j][1]
+                         + s.cm[2][k] * G[j][2] + s.cm[3][k] * 0.0f;
+        const float dq = -0.5f * w * dw;
+        const float dqdx = dq * dx[j & 1];
+        const float dqdy = dq * dy[j >> 1];
+        v[0] += dqdx;
+        v[1] += dqdy;
+        v[2] += dqdx * dx[j & 1];
+        v[3] += dqdx * dy[j >> 1];
+        v[4] += dqdy * dy[j >> 1];
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) v[5 + ch] += w * G[j][ch];
+        on = true;
+      }
+    }
+    // warp-uniform: a slot with no gated pixel in the warp adds nothing
+    if (__any_sync(0xffffffffu, on)) {
+      int t;
+      const float tot = warp_sum8(v, p.lane, t);
+      if ((p.lane & 3) == 0) sh.part[p.warp][t][k] = tot;
+      live |= 1ull << k;
+    }
+  }
+  if (p.lane == 0) sh.live[p.warp] = live;
+  __syncthreads();
+  for (int i = threadIdx.x; i < kTerms * kBK; i += kThreads) {
+    const int t = i / kBK, k = i % kBK;
+    float a = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      if ((sh.live[w] >> k) & 1ull) a += sh.part[w][t][k];
+    sh.sum[t][k] = a;
+  }
+  __syncthreads();
+  // thread k writes slot k's row; it is also the thread that stages slot
+  // k of the next chunk, so its reads of this chunk come first
+  const int k = threadIdx.x;
+  if (k >= kBK) return;
+  float row[kFW];  // the slot's gradient row; a dead lane's stays zero
+#pragma unroll
+  for (int f = 0; f < kFW; ++f) row[f] = 0.0f;
+  if (k < n) {
+    const float a = s.a[k];
+    const float b = 0.5f * s.b2[k];  // exact: b2 = 2b
+    const float c = s.c[k];
+    const float cx = sh.sum[0][k], cy = sh.sum[1][k];
+    row[0] = -2.0f * a * cx - 2.0f * b * cy;
+    row[1] = -2.0f * b * cx - 2.0f * c * cy;
+    row[2] = sh.sum[2][k];
+    row[3] = 2.0f * sh.sum[3][k];
+#pragma unroll
+    for (int t = 4; t < kTerms; ++t) row[t] = sh.sum[t][k];
+    // row[8], alpha's dcm, is 0
+  }
+  if (kBlocks) {
+    float* out = dgfeat + static_cast<size_t>(base / kBK) * (kFW * kBK) + k;
+#pragma unroll
+    for (int f = 0; f < kFW; ++f) out[f * kBK] = row[f];
+  } else if (k < n) {
+    float4* out = reinterpret_cast<float4*>(dgfeat + static_cast<size_t>(base + k) * kFW);
+#pragma unroll
+    for (int f = 0; f < kFW / 4; ++f)
+      out[f] = make_float4(row[4 * f], row[4 * f + 1], row[4 * f + 2], row[4 * f + 3]);
+  }
+}
+
+template <bool kBlocks>
+__global__ void __launch_bounds__(kThreads, 3)
 rasterize_sum_l2_kernel(Stream st, const float* __restrict__ gt,
                         float* __restrict__ sse, float* __restrict__ dgfeat,
                         int H, int W, int tiles_x, float q_cut, float gscale,
                         int clamp) {
-  __shared__ BwdShared sh;
-  const TileGeom tg = tile_geom<kBlocks>(st, H, W, tiles_x);
+  __shared__ L2Shared sh;
+  const L2Pixels p = l2_pixels<kBlocks>(st, H, W, tiles_x);
+  const int len = p.end - p.start;
+  const int nch = len > 0 ? (len + kBK - 1) / kBK : 0;
+  const int k_own = threadIdx.x;  // the slot this thread loads and stages
+  SlotRow row;                    // its row in the next chunk to stage
 
-  // forward: K1's walk (tile_forward), so img is bit-equal to K1's image
+  // forward: K1's sums, chunk by chunk in stream order
   float acc[kRowsPerThread][kC];
-  tile_forward<kBlocks>(sh.s, st, tg, q_cut, acc);
+#pragma unroll
+  for (int j = 0; j < kRowsPerThread; ++j)
+#pragma unroll
+    for (int ch = 0; ch < kC; ++ch) acc[j][ch] = 0.0f;
+  if (k_own < min(kBK, len)) row = load_slot<kBlocks>(st, p.start, k_own);
+  prefetch_ids<kBlocks>(st, p.start + kBK, len - kBK);
+  for (int ci = 0; ci < nch; ++ci) {
+    const int base = p.start + ci * kBK;
+    stage_l2(sh.s, row, min(kBK, p.end - base), p.tx0, p.ty0, q_cut);
+    __syncthreads();
+    // the next chunk's rows (or, after the last, the backward's first
+    // chunk to stage) and the ids of the one after load during the walk
+    if (ci + 1 < nch) {
+      if (k_own < min(kBK, p.end - base - kBK)) row = load_slot<kBlocks>(st, base + kBK, k_own);
+      prefetch_ids<kBlocks>(st, base + 2 * kBK, p.end - base - 2 * kBK);
+    } else if (nch > 1 && k_own < kBK) {
+      row = load_slot<kBlocks>(st, base - kBK, k_own);
+    }
+    l2_forward(sh.s, p, q_cut, acc);
+    if (ci + 1 < nch) __syncthreads();  // every warp is done with the chunk
+  }
 
   // clip, masked L2 and its cotangent, per pixel; the tile's SSE
   const size_t plane = static_cast<size_t>(H) * W;
-  float G[kRowsPerThread][kC];
+  float G[kRowsPerThread][3];
   float e = 0.0f;
 #pragma unroll
   for (int j = 0; j < kRowsPerThread; ++j) {
+    const size_t pix = p.inside[j]
+        ? static_cast<size_t>(p.y0 + static_cast<int>(p.Y[j >> 1])) * W + p.x0
+              + static_cast<int>(p.X[j & 1])
+        : 0;
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) {
       const float img = acc[j][ch];
       const float imgc = clamp ? fminf(fmaxf(img, 0.0f), 1.0f) : img;
       const bool live = !clamp || (img > 0.0f && img < 1.0f);
-      const float diff = tg.inside[j] ? __fsub_rn(imgc, gt[ch * plane + tg.pix[j]]) : 0.0f;
+      const float diff = p.inside[j] ? __fsub_rn(imgc, gt[ch * plane + pix]) : 0.0f;
       e = __fadd_rn(e, __fmul_rn(diff, diff));
       G[j][ch] = __fmul_rn(gscale, live ? diff : 0.0f);
     }
-    G[j][3] = 0.0f;
   }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   e = warp_sum(e);
-  if (lane == 0) sh.red[warp] = e;
+  if (p.lane == 0) sh.red[p.warp] = e;
   __syncthreads();
   if (threadIdx.x == 0) {
     float total = sh.red[0];
@@ -238,7 +526,17 @@ rasterize_sum_l2_kernel(Stream st, const float* __restrict__ gt,
     sse[blockIdx.x] = total;
   }
 
-  tile_backward<kBlocks>(sh, st, tg, G, q_cut, dgfeat);
+  // backward: the chunks last to first; the last is still staged
+  for (int ci = nch - 1; ci >= 0; --ci) {
+    const int base = p.start + ci * kBK;
+    if (ci < nch - 1) {
+      stage_l2(sh.s, row, kBK, p.tx0, p.ty0, q_cut);  // only the last chunk is partial
+      __syncthreads();
+      if (ci > 0 && k_own < kBK) row = load_slot<kBlocks>(st, base - kBK, k_own);
+      if (ci > 1) prefetch_ids<kBlocks>(st, base - 2 * kBK, kBK);
+    }
+    l2_backward<kBlocks>(sh, p, G, q_cut, base, min(kBK, p.end - base), dgfeat);
+  }
 }
 
 int check_args(int n_tiles, int n_rows) {

@@ -4,7 +4,10 @@
 // memory, the quadratic form, gate and weight of one (instance, pixel)
 // pair, and the forward walk of a tile's window. All three kernels evaluate
 // a pair through these functions, so they make bit-identical gate decisions
-// and weights, and K1 and K3 compute the same image bit for bit.
+// and weights, and K1 and K3 compute the same image bit for bit. Also
+// shared with the alpha-blend kernels K8 / K9 (rasterize_blend_common.cuh):
+// a slot's row loaded into registers (load_slot), the per-slot cull
+// rectangle (slot_cull) and the eight-term warp reduction (warp_sum8).
 //
 // Two stream layouts (`Stream`), a template parameter kBlocks of the
 // staging, the geometry and the walk: the flat stream, rows feat[gids[s]]
@@ -20,10 +23,33 @@
 // __fadd_rn: no FMA contraction) and expf, not __expf, so q and w are
 // bit-equal to the plain PyTorch versions'. That matters at the q <= q_cut
 // gate, where one ulp of q decides whether exp(-4.5) ~ 0.011 is added.
+// The gate takes max(form, 0) as the JAX kernel's jnp.maximum does: a
+// negative form (a near-degenerate or indefinite conic) counts as q = 0,
+// and a NaN form stays NaN and fails q <= q_cut.
+//
+// The cull (slot_cull, mirrored op for op by rasterize_sum.py's
+// slot_cull_plain). Per staged slot, the tile-local pixel rectangle that
+// holds every pixel whose computed form can reach a gate qc: K3 takes qc
+// = q_cut, K8 / K9 qc = 2 log(o / alpha_min) + kQMargin. A pair outside
+// it fails the gate, so skipping it leaves every pixel's sum as it was.
+// The rectangle bounds the ellipse a dx^2 + 2b dx dy + c dy^2 <= Q, half
+// extents sqrt(Q c / det) and sqrt(Q a / det) with det = ac - b^2, for Q
+// = qc / (1 - 2e-6 kappa), kappa = ac / det: the float32 form rounds each
+// of its three terms and two sums, which moves q by at most 24 u kappa F
+// (u = 2^-24) at a point where the exact form is F, so Q covers every
+// pixel whose computed form is <= qc (a form that rounds below 0 needs
+// kappa > 1 / (24 u) ~ 7e5, above the whole-tile limit below). The half
+// extents are then padded by a relative 1e-3 and one pixel. The rectangle
+// is computed in double (the products of two floats are exact there). A
+// row with a NaN (center, conic) or a qc that is NaN or negative takes no
+// pixel (its pairs compare false at the gate, as in the plain versions); a
+// row that is not positive definite (det <= 0 or a <= 0), holds an
+// infinity or has kappa above 2.5e5 takes the whole tile.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace gsum {
 
@@ -91,12 +117,13 @@ __device__ __forceinline__ void stage_chunk(Chunk& s, const Stream& st, int base
 }
 
 // q = max(a dx^2 + 2b dx dy + c dy^2, 0) from the per-column terms
-// adxdx = (a dx) dx and b2dx = (2b) dx, in the plain version's order.
+// adxdx = (a dx) dx and b2dx = (2b) dx, in the plain version's order. A
+// NaN form stays NaN (fmaxf would return 0 and let the pair in with w = 1).
 __device__ __forceinline__ float quad_form(float adxdx, float b2dx, float c,
                                            float dy) {
   const float q = __fadd_rn(__fadd_rn(adxdx, __fmul_rn(b2dx, dy)),
                             __fmul_rn(__fmul_rn(c, dy), dy));
-  return fmaxf(q, 0.0f);
+  return q < 0.0f ? 0.0f : q;
 }
 
 // The pair's weight exp(-q/2), called only where q <= q_cut.
@@ -173,6 +200,102 @@ __device__ __forceinline__ void tile_forward(Chunk& s, const Stream& st, const T
     }
     __syncthreads();
   }
+}
+
+// A slot's feature row in registers: center, conic (a, b, c) and the four
+// features after them (K1-K3: o*r, o*g, o*b, o; K8 / K9: r, g, b, o).
+struct SlotRow {
+  float x, y, a, b, c, f[4];
+};
+
+// Slot base + k's row (slot_features: feat[gids[s]], or the aligned
+// stream's blocks). A kernel loads a chunk's rows while its warps walk the
+// chunk before it, so the loads' latency hides behind the walk.
+template <bool kBlocks>
+__device__ __forceinline__ SlotRow load_slot(const Stream& st, int base, int k) {
+  int step;
+  const float* r = slot_features<kBlocks>(st, base, k, step);
+  SlotRow v;
+  v.x = r[0];
+  v.y = r[step];
+  v.a = r[2 * step];
+  v.b = r[3 * step];
+  v.c = r[4 * step];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v.f[i] = r[(5 + i) * step];
+  return v;
+}
+
+// On the flat stream, ask for the ids of slots base..base+n-1 to be
+// brought into L1 a chunk before load_slot reads them, so that the row
+// loads wait on no id.
+template <bool kBlocks>
+__device__ __forceinline__ void prefetch_ids(const Stream& st, int base, int n) {
+  if (!kBlocks && static_cast<int>(threadIdx.x) < n)
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(st.gids + base + threadIdx.x));
+}
+
+// The tile-local pixel rectangle [x0, x1] x [y0, y1] (empty: x0 > x1 or
+// y0 > y1) a slot can reach under the gate qc (see the head of this file).
+struct SlotCull {
+  float qc;
+  int x0, x1, y0, y1;
+};
+
+__device__ __forceinline__ SlotCull slot_cull(float gx, float gy, float a, float b,
+                                              float c, float qc, int tile) {
+  SlotCull r;
+  r.qc = qc;
+  r.x0 = r.y0 = tile;  // empty
+  r.x1 = r.y1 = -1;
+  const double X = gx, Y = gy, A = a, B = b, C = c, Q = qc;
+  if (isnan(X) || isnan(Y) || isnan(A) || isnan(B) || isnan(C) || !(Q >= 0.0))
+    return r;
+  r.x0 = r.y0 = 0;  // the whole tile
+  r.x1 = r.y1 = tile - 1;
+  if (isinf(X) || isinf(Y) || isinf(A) || isinf(B) || isinf(C) || isinf(Q)) return r;
+  // rounded op by op (no contraction), as slot_cull_plain computes it
+  const double AC = __dmul_rn(A, C);
+  const double det = __dsub_rn(AC, __dmul_rn(B, B));
+  if (!(det > 0.0 && A > 0.0)) return r;
+  const double e = __dmul_rn(2e-6, __ddiv_rn(AC, det));
+  if (!(e < 0.5)) return r;
+  const double Qp = __ddiv_rn(Q, __dsub_rn(1.0, e));
+  const double rx =
+      __dadd_rn(__dmul_rn(__dsqrt_rn(__ddiv_rn(__dmul_rn(Qp, C), det)), 1.001), 1.0);
+  const double ry =
+      __dadd_rn(__dmul_rn(__dsqrt_rn(__ddiv_rn(__dmul_rn(Qp, A), det)), 1.001), 1.0);
+  const double lx = ceil(__dsub_rn(X, rx)), hx = floor(__dadd_rn(X, rx));
+  const double ly = ceil(__dsub_rn(Y, ry)), hy = floor(__dadd_rn(Y, ry));
+  r.x0 = lx > tile - 1 ? tile : (lx < 0.0 ? 0 : static_cast<int>(lx));
+  r.x1 = hx < 0.0 ? -1 : (hx > tile - 1 ? tile - 1 : static_cast<int>(hx));
+  r.y0 = ly > tile - 1 ? tile : (ly < 0.0 ? 0 : static_cast<int>(ly));
+  r.y1 = hy < 0.0 ? -1 : (hy > tile - 1 ? tile - 1 : static_cast<int>(hy));
+  return r;
+}
+
+// Eight per-lane values v[0..7] summed over the warp with 9 shuffles,
+// where eight trees take 40: at each butterfly step a lane keeps the half
+// of its values that its lane bit selects and adds its partner's copy of
+// that half. Returns term (lane bits 4, 3, 2) of the eight, summed over
+// all 32 lanes (the four lanes of a group hold the same sum); the order of
+// the additions is fixed, so the result is deterministic.
+__device__ __forceinline__ float warp_sum8(const float* v, int lane, int& term) {
+  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
+  float w4[4], w2[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w4[i] = (h16 ? v[i + 4] : v[i])
+            + __shfl_xor_sync(0xffffffffu, h16 ? v[i] : v[i + 4], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    w2[i] = (h8 ? w4[i + 2] : w4[i])
+            + __shfl_xor_sync(0xffffffffu, h8 ? w4[i] : w4[i + 2], 8);
+  float w1 = (h4 ? w2[1] : w2[0]) + __shfl_xor_sync(0xffffffffu, h4 ? w2[0] : w2[1], 4);
+  w1 += __shfl_xor_sync(0xffffffffu, w1, 2);
+  w1 += __shfl_xor_sync(0xffffffffu, w1, 1);
+  term = (h16 ? 4 : 0) + (h8 ? 2 : 0) + (h4 ? 1 : 0);
+  return w1;
 }
 
 }  // namespace gsum

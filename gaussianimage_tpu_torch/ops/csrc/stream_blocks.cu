@@ -18,15 +18,24 @@
 // writes 64 bytes per slot; K11b reads and writes 64 bytes per slot. No
 // arithmetic beyond the addresses.
 //
-// Design: one block of 256 threads per stream block. The 64 x 16 floats
-// go through shared memory padded to [16][65] so the transpose has no
-// bank conflicts on its column side. The row side moves as float4: in
-// K11a thread i loads quarter i % 4 of slot i / 4's row (the rows are 64
-// bytes, 16-byte aligned), so four threads read one row's 64 bytes
-// together; in K11b thread i stores the same quarter of the same row, so a
-// warp writes 512 contiguous bytes. The block side moves as floats, thread
-// i at element r * 256 + i of the block's 1024 for r = 0..3: a warp reads
-// or writes 128 contiguous bytes of one feature's 256-byte line.
+// K11a's design: one block of 256 threads per stream block. The 64 x 16
+// floats go through shared memory padded to [16][65] so the transpose has
+// no bank conflicts on its column side. The row side moves as float4:
+// thread i loads quarter i % 4 of slot i / 4's row (the rows are 64 bytes,
+// 16-byte aligned), so four threads read one row's 64 bytes together. The
+// block side moves as floats, thread i at element r * 256 + i of the
+// block's 1024 for r = 0..3: a warp writes 128 contiguous bytes of one
+// feature's 256-byte line.
+//
+// K11b's design: every access 16 bytes wide, no shared memory, no
+// barrier. Thread i of the grid takes stream block i / 64, features
+// 4 fq .. 4 fq + 3 (fq = (i / 16) % 4) and lanes 4 kq .. 4 kq + 3 (kq =
+// i % 16): it loads four float4s, one per feature, transposes the 4 x 4
+// in registers and stores four float4s, one per slot. A warp's loads
+// cover 512 contiguous bytes (two features' 256-byte lines), and each of
+// its stores fills whole 32-byte sectors (two adjacent quarters of 16
+// rows). Four loads are in flight per thread, and a block of 256 threads
+// moves four stream blocks.
 
 #include <cuda_runtime.h>
 
@@ -34,7 +43,7 @@ namespace {
 
 constexpr int kBK = 64;          // slots per block
 constexpr int kFW = 16;          // floats per feature row
-constexpr int kThreads = 256;    // kBK * kFW / 4: one float4 per thread
+constexpr int kThreads = 256;    // K11a: kBK * kFW / 4, one float4 per thread
 constexpr int kPad = kBK + 1;    // shared row stride: no bank conflicts
 
 __global__ void __launch_bounds__(kThreads)
@@ -62,21 +71,23 @@ stream_blockize_kernel(const float* __restrict__ feat, int n_rows,
 }
 
 __global__ void __launch_bounds__(kThreads)
-stream_unblockize_kernel(const float* __restrict__ dgb, float* __restrict__ rows) {
-  __shared__ float tile[kFW][kPad];
-  const int b = blockIdx.x;
-  const int i = threadIdx.x;
-  const float* in = dgb + static_cast<size_t>(b) * (kFW * kBK);
-#pragma unroll
-  for (int r = 0; r < kFW * kBK / kThreads; ++r) {
-    const int e = r * kThreads + i;
-    tile[e / kBK][e % kBK] = in[e];
-  }
-  __syncthreads();
-  const int k = i >> 2;
-  const int q = (i & 3) * 4;
-  *reinterpret_cast<float4*>(rows + (static_cast<size_t>(b) * kBK + k) * kFW + q) =
-      make_float4(tile[q + 0][k], tile[q + 1][k], tile[q + 2][k], tile[q + 3][k]);
+stream_unblockize_kernel(const float4* __restrict__ dgb, float4* __restrict__ rows,
+                         int n_threads) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n_threads) return;
+  constexpr int kQuads = kBK / 4;  // float4s per feature line of a block
+  const int fq = (i / kQuads) % 4;
+  const int kq = i % kQuads;
+  // block b = i / 64 is kFW * kQuads = 256 float4s in both layouts:
+  // [feature][lane quad] in, [slot][feature quarter] out
+  const size_t b = static_cast<size_t>(i / (4 * kQuads)) * (kFW * kQuads);
+  const float4* in = dgb + b + (4 * fq) * kQuads + kq;
+  const float4 f0 = in[0], f1 = in[kQuads], f2 = in[2 * kQuads], f3 = in[3 * kQuads];
+  float4* out = rows + b + (4 * kq) * 4 + fq;
+  out[0] = make_float4(f0.x, f1.x, f2.x, f3.x);
+  out[4] = make_float4(f0.y, f1.y, f2.y, f3.y);
+  out[8] = make_float4(f0.z, f1.z, f2.z, f3.z);
+  out[12] = make_float4(f0.w, f1.w, f2.w, f3.w);
 }
 
 }  // namespace
@@ -92,11 +103,14 @@ extern "C" int stream_blockize(const float* feat, int n_rows, const int* gids,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K11b. dgb [n_blocks, 16, 64] f32, rows [n_blocks * 64, 16] f32 (16-byte
-// aligned); device pointers. As K11a for the stream and the return value.
+// K11b. dgb [n_blocks, 16, 64] f32, rows [n_blocks * 64, 16] f32, both
+// 16-byte aligned; device pointers. As K11a for the stream and the return
+// value.
 extern "C" int stream_unblockize(const float* dgb, float* rows, int n_blocks,
                                  cudaStream_t stream) {
-  if (n_blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  stream_unblockize_kernel<<<n_blocks, kThreads, 0, stream>>>(dgb, rows);
+  if (n_blocks <= 0 || n_blocks > (1 << 30) / kBK) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_threads = n_blocks * kBK;  // 16 floats a thread
+  stream_unblockize_kernel<<<(n_threads + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(dgb), reinterpret_cast<float4*>(rows), n_threads);
   return static_cast<int>(cudaGetLastError());
 }

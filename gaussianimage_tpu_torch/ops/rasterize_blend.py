@@ -58,13 +58,15 @@ import torch
 
 from gaussianimage_tpu_torch.ops import _build
 from gaussianimage_tpu_torch.ops import stream_common as sc
-from gaussianimage_tpu_torch.ops.rasterize_sum import (_check_aligned_launch,
+from gaussianimage_tpu_torch.ops.rasterize_sum import (Cull,
+                                                       _check_aligned_launch,
                                                        _check_launch,
                                                        _check_tiles,
                                                        _raise_on,
                                                        _stream_ptr,
                                                        _tile_image,
                                                        _untile_image,
+                                                       slot_cull_plain,
                                                        stream_from_keys,
                                                        window_counts)
 
@@ -180,70 +182,27 @@ def _alpha_terms(rows, live, tx0, ty0, X, Y, alpha_clip, alpha_min):
     return alpha, on & (raw <= alpha_clip), w, q, dx, dy
 
 
-class Cull(NamedTuple):
-    """Each slot's cull: the gate q_cut and the tile-local pixel rectangle
-    [x0, x1] x [y0, y1] it can reach (empty where x0 > x1 or y0 > y1)."""
-    q_cut: torch.Tensor  # float32
-    x0: torch.Tensor     # int32
-    x1: torch.Tensor
-    y0: torch.Tensor
-    y1: torch.Tensor
-
-
 def blend_cull_plain(rows: torch.Tensor, tx0, ty0, alpha_min: float,
                      tile_px: int = 32) -> Cull:
     """The cull K8 and K9 apply to each staged slot, op for op as
-    ``slot_cull`` in csrc/rasterize_blend_common.cuh computes it (whose
-    head derives the rectangle): rows [..., 16] feature rows, tx0 / ty0
-    their tiles' origins (broadcastable). Every pair whose alpha
+    ``blend_cull`` in csrc/rasterize_blend_common.cuh computes it: q_cut =
+    2 log(o / alpha_min) + Q_MARGIN and its rectangle
+    (``rasterize_sum.slot_cull_plain``). rows [..., 16] feature rows, tx0 /
+    ty0 their tiles' origins (broadcastable). Every pair whose alpha
     ``_alpha_terms`` makes nonzero has q <= q_cut and its pixel inside the
     rectangle. The kernels' main path computes this on the card; the plain
     versions do not cull, so nothing but tests and measurements calls it.
     """
     gx = rows[..., 0] - tx0
     gy = rows[..., 1] - ty0
-    a, b, c, op = rows[..., 2], rows[..., 3], rows[..., 4], rows[..., 8]
+    op = rows[..., 8]
     if alpha_min > 0:
         am = torch.tensor(alpha_min, dtype=torch.float32, device=rows.device)
         qc = 2.0 * torch.log(op / am) + Q_MARGIN
     else:
         qc = torch.full_like(op, math.inf)
-    X, Y, A, B, C, Q = (t.double() for t in (gx, gy, a, b, c, qc))
-    empty = (X.isnan() | Y.isnan() | A.isnan() | B.isnan() | C.isnan()
-             | ~(Q >= 0.0))
-    AC = A * C
-    det = AC - B * B
-    e = 2e-6 * (AC / det)
-    whole = (~empty & (X.isinf() | Y.isinf() | A.isinf() | B.isinf()
-                       | C.isinf() | Q.isinf() | ~((det > 0.0) & (A > 0.0))
-                       | ~(e < 0.5)))
-    Qp = Q / (1.0 - e)
-    top = tile_px - 1
-
-    def side(center, extent):
-        r = torch.sqrt(Qp * extent / det) * 1.001 + 1.0
-        lo, hi = torch.ceil(center - r), torch.floor(center + r)
-        lo = torch.where(lo > top, tile_px, torch.where(lo < 0.0, 0.0, lo))
-        hi = torch.where(hi < 0.0, -1.0, torch.where(hi > top, top, hi))
-        lo = torch.where(empty, tile_px, torch.where(whole, 0.0, lo))
-        hi = torch.where(empty, -1.0, torch.where(whole, top, hi))
-        return lo.int(), hi.int()
-
-    x0, x1 = side(X, C)
-    y0, y1 = side(Y, A)
-    return Cull(qc, x0, x1, y0, y1)
-
-
-def cull_patches(cull: Cull, tile_px: int) -> torch.Tensor:
-    """[S, tile_px^2] bool, pixel p = y * tile_px + x of the tile: the
-    pixels whose warp's patch meets each slot's rectangle, the pairs the
-    kernels evaluate (``stage_slot`` in csrc/rasterize_blend_common.cuh)."""
-    pidx = torch.arange(tile_px * tile_px, device=cull.x0.device)
-    pw, ph = PATCH
-    px0 = (pidx % tile_px) // pw * pw
-    py0 = torch.div(pidx, tile_px, rounding_mode="floor") // ph * ph
-    return ((cull.x0[:, None] <= px0 + pw - 1) & (cull.x1[:, None] >= px0)
-            & (cull.y0[:, None] <= py0 + ph - 1) & (cull.y1[:, None] >= py0))
+    return slot_cull_plain(gx, gy, rows[..., 2], rows[..., 3], rows[..., 4],
+                           qc, tile_px)
 
 
 def _blend_fwd_rows(stream_rows, starts, counts, H, W, tile_px, bk, alpha_clip,

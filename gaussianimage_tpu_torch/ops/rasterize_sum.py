@@ -22,7 +22,10 @@ CUDA tensor launches the kernel or raises:
   from a [4, H, W] cotangent, the backward of ``rasterize_gaussians_sum``;
 - K3 ``sum_l2`` (same file): render, clip, masked L2 against a target and
   K2's backward in one pass, the training step of
-  ``rasterize_gaussians_sum_l2``.
+  ``rasterize_gaussians_sum_l2``. K3 skips the pairs that fail the gate:
+  each staged slot carries the tile-local pixel rectangle it can reach
+  (``sum_cull_plain`` is its plain mirror), and a warp walks a slot only
+  on its 8 x 4 patches (``PATCH``) that the rectangle meets.
 
 The kernels gather the rows themselves and read and write [C, H, W]
 images directly, so neither the JAX package's stream gather nor its tiling
@@ -61,6 +64,10 @@ from gaussianimage_tpu_torch.ops.tiles import INT32_MAX, sorted_window_bounds
 _C = 4  # output channels: rgb + alpha
 _PLAIN_CHUNK = 4096  # stream slots per step of the plain versions
 _KERNEL_TILE = 32  # the CUDA kernels' tile side
+PATCH = (8, 4)        # K3's patch, columns x rows (kPatchW, kPatchH in
+#   csrc/rasterize_sum_bwd.cu): a warp skips a slot per patch
+WARP_BLOCK = (16, 8)  # K3's warp: a block of 2 x 2 patches, one pixel of
+#   each per thread
 
 
 class RasterizeConfig(NamedTuple):
@@ -166,6 +173,78 @@ def window_pairs(rows: torch.Tensor, starts: torch.Tensor,
                         min=0.0)
         inside = (X + tx0 < W) & (Y + ty0 < H)
         yield Pairs(slot, t, g, dx, dy, q, inside)
+
+
+class Cull(NamedTuple):
+    """Each slot's cull: its gate q_cut and the tile-local pixel rectangle
+    [x0, x1] x [y0, y1] it can reach (empty where x0 > x1 or y0 > y1)."""
+    q_cut: torch.Tensor  # float32
+    x0: torch.Tensor     # int32
+    x1: torch.Tensor
+    y0: torch.Tensor
+    y1: torch.Tensor
+
+
+def slot_cull_plain(gx, gy, a, b, c, qc, tile_px: int) -> Cull:
+    """The rectangle of the cull that K3 (gate q_cut) and K8 / K9 (gate 2
+    log(o / alpha_min) + margin) apply to each staged slot, op for op as
+    ``slot_cull`` in csrc/rasterize_sum_common.cuh computes it (whose head
+    derives it): gx / gy the tile-local center, a, b, c the conic, qc the
+    gate, float32 tensors of one shape. Every pixel of the tile whose
+    float32 form (the kernels', rounded op by op) is <= qc lies in it."""
+    X, Y, A, B, C, Q = (t.double() for t in (gx, gy, a, b, c, qc))
+    empty = (X.isnan() | Y.isnan() | A.isnan() | B.isnan() | C.isnan()
+             | ~(Q >= 0.0))
+    AC = A * C
+    det = AC - B * B
+    e = 2e-6 * (AC / det)
+    whole = (~empty & (X.isinf() | Y.isinf() | A.isinf() | B.isinf()
+                       | C.isinf() | Q.isinf() | ~((det > 0.0) & (A > 0.0))
+                       | ~(e < 0.5)))
+    Qp = Q / (1.0 - e)
+    top = tile_px - 1
+
+    def side(center, extent):
+        r = torch.sqrt(Qp * extent / det) * 1.001 + 1.0
+        lo, hi = torch.ceil(center - r), torch.floor(center + r)
+        lo = torch.where(lo > top, tile_px, torch.where(lo < 0.0, 0.0, lo))
+        hi = torch.where(hi < 0.0, -1.0, torch.where(hi > top, top, hi))
+        lo = torch.where(empty, tile_px, torch.where(whole, 0.0, lo))
+        hi = torch.where(empty, -1.0, torch.where(whole, top, hi))
+        return lo.int(), hi.int()
+
+    x0, x1 = side(X, C)
+    y0, y1 = side(Y, A)
+    return Cull(qc, x0, x1, y0, y1)
+
+
+def sum_cull_plain(rows: torch.Tensor, tx0, ty0, q_cut: float) -> Cull:
+    """The cull K3 applies to each staged slot (``stage_l2`` in
+    csrc/rasterize_sum_bwd.cu): the rectangle of ``slot_cull_plain`` for
+    the gate q <= q_cut on K3's 32-pixel tiles. rows [..., 16] feature
+    rows, tx0 / ty0 their tiles' origins (broadcastable). The kernel's
+    main path computes this
+    on the card; the plain versions do not cull, so nothing but tests and
+    measurements calls it."""
+    gx = rows[..., 0] - tx0
+    gy = rows[..., 1] - ty0
+    return slot_cull_plain(gx, gy, rows[..., 2], rows[..., 3], rows[..., 4],
+                           torch.full_like(gx, q_cut), _KERNEL_TILE)
+
+
+def cull_patches(cull: Cull, tile_px: int, patch) -> torch.Tensor:
+    """[S, tile_px^2] bool, pixel p = y * tile_px + x of the tile: the
+    pixels whose ``patch`` (columns, rows; the patches tile the tile from
+    its origin) meets each slot's rectangle. With a kernel's warp patch:
+    the pairs it evaluates (K8 / K9 ``rasterize_blend.PATCH``, K3
+    ``PATCH``); with K3's ``WARP_BLOCK``: the pixels of the warps that
+    visit the slot."""
+    pidx = torch.arange(tile_px * tile_px, device=cull.x0.device)
+    pw, ph = patch
+    px0 = (pidx % tile_px) // pw * pw
+    py0 = torch.div(pidx, tile_px, rounding_mode="floor") // ph * ph
+    return ((cull.x0[:, None] <= px0 + pw - 1) & (cull.x1[:, None] >= px0)
+            & (cull.y0[:, None] <= py0 + ph - 1) & (cull.y1[:, None] >= py0))
 
 
 def _tile_image(img: torch.Tensor, tile_px: int, tiles_x: int,

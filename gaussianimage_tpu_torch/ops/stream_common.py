@@ -209,6 +209,8 @@ def unblockize_stream(blocks: torch.Tensor) -> torch.Tensor:
         return unblockize_stream_plain(blocks)
     _cuda_only("K11b", blocks)
     _check_blocks("K11b", blocks)
+    if blocks.data_ptr() % 16:
+        raise ValueError("K11b: blocks must be 16-byte aligned")
     NB = blocks.shape[0]
     rows = torch.empty(NB * BK, FW, dtype=torch.float32, device=blocks.device)
     _raise_on("K11b stream_unblockize", _build.load("stream_blocks")

@@ -1,6 +1,7 @@
 """The cull of the alpha-blend kernels K8 and K9 (ops/rasterize_blend.py
-``blend_cull_plain``, the op-for-op mirror of ``slot_cull`` in
-csrc/rasterize_blend_common.cuh): each staged slot's gate q_cut and the
+``blend_cull_plain``, the op-for-op mirror of ``blend_cull`` in
+csrc/rasterize_blend_common.cuh and the ``slot_cull`` it calls in
+csrc/rasterize_sum_common.cuh): each staged slot's gate q_cut and the
 tile-local pixel rectangle it can reach. The kernels skip every pair
 outside the rectangle or with q > q_cut, so their output stays that of
 the plain versions only if no pair that the plain versions composite
@@ -41,7 +42,7 @@ from gaussianimage_tpu_torch.models import make_model  # noqa: E402
 from gaussianimage_tpu_torch.ops import rasterize_blend as trb  # noqa: E402
 from gaussianimage_tpu_torch.ops import stream_common as tsc  # noqa: E402
 from gaussianimage_tpu_torch.ops.rasterize_sum import (  # noqa: E402
-    window_pairs)
+    cull_patches, window_pairs)
 
 AMIN = 1.0 / 255.0
 CLIP = 0.999
@@ -242,7 +243,7 @@ def test_cull_efficacy_on_a_3dgs_state():
                * tp).float()
         cl = trb.blend_cull_plain(pr.rows, tx0, ty0, cfg.alpha_min,
                                   tile_px=tp)
-        meets = trb.cull_patches(cl, tp)
+        meets = cull_patches(cl, tp, trb.PATCH)
         o = pr.rows[:, 8:9]
         on = pr.inside & (o * torch.exp(-0.5 * pr.q) >= cfg.alpha_min)
         handed += int(pr.inside.sum())
