@@ -10,15 +10,19 @@ Phases, one JSON line each (with ``elapsed_s``):
 2. build     every CUDA kernel of the port from the sources in this
              checkout (one nvcc per source, started together);
 3. kernel    each kernel against its plain PyTorch version on the card, at
-             the main path's shapes: K1 (render) to max |diff| <= 1e-5; K2
-             (backward) and K3 (fused render + L2 + backward) on the
-             flower@10k stream, their gradient rows to 1e-4 of each
-             column's largest magnitude; K3 also against K1 -> L2
-             cotangent -> K2 (1e-6), and twice on the same step (K3 and the
-             scatter), which must give bit-identical gradients; no pair
-             that passes the gate outside K3's cull (``sum_cull_plain``),
-             with the pairs K3's patches keep and the (slot, warp) visits
-             reported; case nan_form: the 300-point state's stream with
+             the main path's shapes: K1 (render) to max |diff| <= 1e-5 and
+             bit for bit (NaN where it is NaN) to the plain version that
+             adds each pixel's pairs in stream order (``in_order``), on
+             every K1 case below too; K2 (backward) and K3 (fused render +
+             L2 + backward) on the flower@10k stream, their gradient rows
+             to 1e-4 of each column's largest magnitude; K3 also against
+             K1 -> L2 cotangent -> K2 (1e-6); K2 twice on the same inputs
+             and K3 twice on the same step (K3 and the scatter), which
+             must give bit-identical rows and gradients; no pair that
+             passes the gate outside the cull K1-K3 share
+             (``sum_cull_plain``), with the pairs their patches keep and
+             the (slot, warp) visits reported under each of K1-K3; case
+             nan_form: the 300-point state's stream with
              rows of an infinite conic coefficient (a NaN form where the
              pixel offset is 0) and of indefinite conics (a negative form,
              q = 0), flat and aligned: K1, K2 and K3 against their plain
@@ -149,10 +153,11 @@ Phases, one JSON line each (with ``elapsed_s``):
              slots) passes flat_stream_limit and takes the aligned layout:
              K11a (``blockize_stream``) and K11b (``unblockize_stream``)
              bit-equal to their plain versions and K11b(K11a(x)) ==
-             feat[gids]; the aligned K1 to K1_TOL, K2 and K3 to ROW_TOL of
-             the column max (K3 with the clip-flip allowance of phase 3)
-             and K3 + the scatter twice bit-identical, no gated pair
-             outside K3's cull; the image, the SSE
+             feat[gids]; the aligned K1 to K1_TOL and bit for bit to the
+             in-order plain version, K2 and K3 to ROW_TOL of
+             the column max (K3 with the clip-flip allowance of phase 3),
+             K2 twice and K3 + the scatter twice bit-identical, no gated
+             pair outside the cull; the image, the SSE
              and the scattered K2 / K3 gradients bit-equal to the flat
              twin's (flat_stream_limit raised) with equal n_dropped;
 8k. aligned_slice the evaluation entry point ``--iterations 0`` on the
@@ -367,11 +372,11 @@ def pair_work(torch, rs, sc, feat, sp, H, W, q_cut):
     walk); of their (slot, pixel) pairs with the pixel inside the image,
     ``pairs``, all of them; ``gated``, those that pass the q <= q_cut gate;
     ``nan_pairs``, those whose form is NaN (they fail it); ``cull_pairs``,
-    those in a K3 patch (``rs.PATCH``) that meets the slot's rectangle
-    (``rs.sum_cull_plain``), the pairs K3 evaluates; ``visits``, the
-    (slot, warp) pairs K3 walks (a warp's 16 x 8 block meets the
-    rectangle); and ``culled_gated``, gated pairs outside the rectangle
-    (must be 0)."""
+    those in a patch (``rs.PATCH``) that meets the slot's rectangle
+    (``rs.sum_cull_plain``), the pairs each walk of K1-K3 evaluates;
+    ``visits``, the (slot, warp) pairs each walk visits (a warp's 16 x 8
+    block meets the rectangle); and ``culled_gated``, gated pairs outside
+    the rectangle (must be 0)."""
     work = dict(slots=0, pairs=0, gated=0, nan_pairs=0, cull_pairs=0,
                 visits=0, culled_gated=0)
     tp = 32
@@ -483,6 +488,15 @@ def blend_all_pairs(case, near):
     terms on the near pairs, no cull."""
     return 9 * case["pairs"] + near[0] * case["near_pairs"], \
         near[1] * case["near_pairs"]
+
+
+def same_bits(torch, got, want) -> bool:
+    """Whether ``got`` is NaN exactly where ``want`` is and equal to it bit
+    for bit elsewhere."""
+    nan = want.isnan()
+    return bool(torch.equal(nan, got.isnan())
+                and torch.equal(got[~nan].view(torch.int32),
+                                want[~nan].view(torch.int32)))
 
 
 def row_err(torch, got, want):
@@ -732,7 +746,11 @@ def main() -> None:
         if not (math.isfinite(err) and err <= K1_TOL):
             fail(f"K1 disagrees with its plain version on {name}: "
                  f"max |diff| {err} > {K1_TOL}")
+        if not same_bits(torch, out, rs.sum_fwd_plain(
+                feat, sp.gids, sp.starts, Hm, Wm, in_order=True)):
+            fail(f"K1 differs from the in-order plain version on {name}")
         cases[name] = {"shape": list(out.shape), "max_abs_err": err,
+                       "in_order_bit_equal": True,
                        "instances": int(sp.starts[sp.T]),
                        "n_dropped": int(sp.n_dropped)}
     k1_err = max(c["max_abs_err"] for c in cases.values())
@@ -756,6 +774,9 @@ def main() -> None:
     if not (torch.isfinite(dg2).all() and float(e2.max()) <= ROW_TOL):
         fail(f"K2 disagrees with its plain version: worst row "
              f"{float(e2.max())} > {ROW_TOL} of the column max")
+    if not same_bits(torch, rs.sum_bwd(feat, sp.gids, sp.starts, g, Hf, Wf),
+                     dg2):
+        fail("two runs of K2 on flower@10k differ")
 
     def window_slots(sp_, H_):
         """The live slots of the windows of ``sp_`` (flat or aligned) and
@@ -818,10 +839,11 @@ def main() -> None:
         return float(e.max())
 
     def cull_check(label, work):
-        """No pair that passes the gate falls outside K3's cull."""
+        """No pair that passes the gate falls outside the cull that K1, K2
+        and K3 share."""
         if work["culled_gated"]:
-            fail(f"{label}: K3's cull drops {work['culled_gated']} pairs that "
-                 "pass the gate")
+            fail(f"{label}: K1-K3's cull drops {work['culled_gated']} pairs "
+                 "that pass the gate")
         return work
 
     # K3 against its plain version, against K1 -> L2 -> K2, and twice
@@ -851,9 +873,11 @@ def main() -> None:
 
     def sum_case(label, feat_, sp_, H_, W_, g_, gt_, clamp=True):
         """K1, K2 and K3 on the stream ``sp_`` (flat or aligned) over the
-        rows ``feat_`` against their plain versions (K1 to K1_TOL, K2's rows
-        to ROW_TOL, K3 by k3_check), K3 against K1 -> L2 -> K2, and the
-        cull's work (no gated pair culled); K3's L2 clipped or not."""
+        rows ``feat_`` against their plain versions (K1 to K1_TOL and bit
+        for bit to the in-order plain version, K2's rows to ROW_TOL and
+        bit-identical twice, K3 by k3_check), K3 against K1 -> L2 -> K2,
+        and the cull's work (no gated pair culled); K3's L2 clipped or
+        not."""
         slot_, tile_ = window_slots(sp_, H_)
         if sp_.aligned:
             src = (sc.blockize_stream(feat_, sp_.gids), sp_.starts,
@@ -881,20 +905,25 @@ def main() -> None:
         if not (bool(torch.isfinite(img).all()) and k1e <= K1_TOL):
             fail(f"{label}: K1 disagrees with its plain version: max |diff| "
                  f"{k1e} of max(1, |pixel|) (<= {K1_TOL})")
+        if not same_bits(torch, img, ref[0](*src, H_, W_, in_order=True)):
+            fail(f"{label}: K1 differs from the in-order plain version")
         e2_, same2 = rows_err(torch, rows(dg2_)[slot_], rows(dg2_p)[slot_])
         if not (same2 and float(e2_.max()) <= ROW_TOL):
             fail(f"{label}: K2 disagrees with its plain version: worst row "
                  f"{float(e2_.max())} (<= {ROW_TOL}), NaN elsewhere "
                  f"{not same2}")
+        if not same_bits(torch, run[1](*src, g_, H_, W_), dg2_):
+            fail(f"{label}: two runs of K2 differ")
         k3 = k3_check(label, rows(dg3_)[slot_], rows(dg3_p)[slot_], sse_,
                       sse_p, img[:3], img_p_[:3], tile_, sp_.T, sp_.tiles_x,
                       clamp)
         _, G_ = rs.l2_cotangent(img[:3], gt_, H_, W_, clamp)
         chain = chain_check(label, rows(dg3_)[slot_], rows(
             run[1](*src, G_.contiguous(), H_, W_))[slot_])
-        return {"k1_max_rel_err": k1e,
+        return {"k1_max_rel_err": k1e, "k1_in_order_bit_equal": True,
                 "img_max": float(img_p_.abs().max()),
                 "k2_worst_row": float(e2_.max()),
+                "k2_bit_identical_twice": True,
                 "k3": k3, "k3_vs_k1_l2_k2_worst_row": chain,
                 "nan_rows": int(rows(dg3_p)[slot_].isnan().any(dim=1).sum()),
                 "work": cull_check(label, pair_work(
@@ -1061,9 +1090,11 @@ def main() -> None:
                       "counts_equal": True}
     k7_err = max(k7["B2"]["max_abs_err"], k7["B6"]["max_abs_err"])
 
-    phase("kernel", k5=k5, k4=k4, k7=k7, k1={"tol": K1_TOL, "cases": cases},
+    phase("kernel", k5=k5, k4=k4, k7=k7, k1={"tol": K1_TOL, "cases": cases,
+                                             "work": work10},
           k2={"row_tol": ROW_TOL, "worst_row": float(e2.max()),
-              "max_abs_err": k2_err, "instances": n_live},
+              "max_abs_err": k2_err, "instances": n_live,
+              "bit_identical_twice": True, "work": work10},
           k3={"row_tol": ROW_TOL, **k3_case, "flip_row_tol": FLIP_ROW_TOL,
               "vs_k1_l2_k2_worst_row": e_chain, "chain_tol": CHAIN_TOL,
               "bit_identical_twice": deterministic, "work": work10},
@@ -2071,12 +2102,19 @@ def main() -> None:
     torch.cuda.synchronize()
     imgA_p = rs.sum_fwd_aligned_plain(blocksA, spA.starts, spA.counts, Hf, Wf)
     k1a_err = float((imgA - imgA_p).abs().max())
+    if not same_bits(torch, imgA, rs.sum_fwd_aligned_plain(
+            blocksA, spA.starts, spA.counts, Hf, Wf, in_order=True)):
+        fail("aligned flower@40k: K1 differs from the in-order plain "
+             "version")
     gA = torch.as_tensor(np.random.default_rng(1).standard_normal(
         (4, Hf, Wf)).astype(np.float32) * 1e-5, device=dev)
     dg2A = rs.sum_bwd_aligned(blocksA, spA.starts, spA.counts, gA, Hf, Wf)
     torch.cuda.synchronize()
     dg2A_p = rs.sum_bwd_aligned_plain(blocksA, spA.starts, spA.counts, gA,
                                       Hf, Wf)
+    if not same_bits(torch, rs.sum_bwd_aligned(
+            blocksA, spA.starts, spA.counts, gA, Hf, Wf), dg2A):
+        fail("two runs of the aligned K2 on flower@40k differ")
     sse3A, dg3A = rs.sum_l2_aligned(blocksA, spA.starts, spA.counts, gt_f, Hf,
                                     Wf)
     torch.cuda.synchronize()
@@ -2131,9 +2169,11 @@ def main() -> None:
           live=int(spA.counts.sum()), blocks=blocksA.shape[0],
           k11a_bit_equal=k11a_equal, k11b_bit_equal=k11b_equal,
           k11b_of_k11a_is_gather=roundtrip,
-          k1={"max_abs_err": k1a_err, "tol": K1_TOL},
+          k1={"max_abs_err": k1a_err, "tol": K1_TOL,
+              "in_order_bit_equal": True, "work": work40},
           k2={"worst_row": e2A, "row_tol": ROW_TOL, "max_abs_err": float(
-              (dg2A - dg2A_p).abs().max())},
+              (dg2A - dg2A_p).abs().max()), "bit_identical_twice": True,
+              "work": work40},
           k3={**k3A, "bit_identical_twice": True, "work": work40},
           vs_flat_twin=vs_flat)
 
@@ -2739,9 +2779,10 @@ def main() -> None:
                "splat_prep_blend3d": "splat_prep3d.cu",
                "stream_blockize": "stream_blocks.cu",
                "stream_unblockize": "stream_blocks.cu"}
-    # each kernel's launches in the run of the path that drives it (K2: the
-    # QAT run, which trains through K1 and K2)
-    launches = {"rasterize_sum_fwd": eval_counts["rasterize_sum_fwd"],
+    # each kernel's launches in the run of the path that drives it (K1 and
+    # K2: the QAT run, which trains through them; K1's in the evaluation
+    # beside it)
+    launches = {"rasterize_sum_fwd": qat_counts["rasterize_sum_fwd"],
                 "rasterize_sum_bwd": qat_counts["rasterize_sum_bwd"],
                 "rasterize_sum_l2": fit_counts["rasterize_sum_l2"],
                 "splat_prep_raw": serve_counts["splat_prep_raw"],
@@ -2814,6 +2855,8 @@ def main() -> None:
         "bound_by": bounds[k][1],
         "library_ms": library[k],
         "library_device_ms": library_device[k],
+        **({"launches_evaluation": eval_counts[k]}
+           if k == "rasterize_sum_fwd" else {}),
         **aligned_entry(k),
     } for k in counters]})
     emit({"ok": True, "device": {"platform": "gpu",

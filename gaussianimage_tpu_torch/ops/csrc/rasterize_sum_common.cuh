@@ -1,13 +1,31 @@
 // Device code shared by the accumulated-summation rasterizer kernels K1
-// (rasterize_sum_fwd.cu), K2 and K3 (rasterize_sum_bwd.cu): the tile and
-// chunk geometry, the staging of a chunk of the instance stream in shared
-// memory, the quadratic form, gate and weight of one (instance, pixel)
-// pair, and the forward walk of a tile's window. All three kernels evaluate
-// a pair through these functions, so they make bit-identical gate decisions
-// and weights, and K1 and K3 compute the same image bit for bit. Also
-// shared with the alpha-blend kernels K8 / K9 (rasterize_blend_common.cuh):
-// a slot's row loaded into registers (load_slot), the per-slot cull
-// rectangle (slot_cull) and the eight-term warp reduction (warp_sum8).
+// (rasterize_sum_fwd.cu), K2 and K3 (rasterize_sum_bwd.cu): the layout of
+// a tile's pixels over a CTA's warps, the staging of a chunk of the
+// instance stream in shared memory with each slot's cull, the quadratic
+// form, gate and weight of one (instance, pixel) pair, and the forward walk
+// of a tile's window. All three kernels stage and walk through these
+// functions, so they visit the same pairs and make bit-identical gate
+// decisions and weights, and K1 and K3 compute the same image bit for bit.
+// Also shared with the alpha-blend kernels K8 / K9
+// (rasterize_blend_common.cuh): a slot's row loaded into registers
+// (load_slot), the per-slot cull rectangle (slot_cull) and the eight-term
+// warp reduction (warp_sum8).
+//
+// Layout (Pixels). One CTA of 256 threads a 32 x 32 tile. Warp w owns the
+// 16 x 8 block at (16 (w % 2), 8 (w / 2)), four 8 x 4 patches; each of its
+// threads owns one pixel of each patch j = jx + 2 jy, lane l at (l % 8,
+// l / 8) of the patch. The cull tests patches (the fewest pairs), and a
+// warp reduces per slot once for its four patches (the fewest visits). A
+// warp's store of one pixel index writes one 32-byte sector per patch row.
+//
+// The walk (stage_slots, warp_slots, forward_slots, walk_forward). Threads
+// 0-63 stage a chunk of at most 64 slots from registers, each with its cull
+// rectangle at q_cut (slot_cull) as a 32-bit mask of the tile's patches
+// (bit 4w + j), and load the next chunk's rows while the warps walk this
+// one. Each warp ballots the slots whose mask meets its patches and walks
+// only those, in stream order, and per slot only its patches in the mask:
+// warp-uniform branches. A pair outside the rectangle fails the gate, so
+// each pixel adds the same pairs in the same order as a walk of every pair.
 //
 // Two stream layouts (`Stream`), a template parameter kBlocks of the
 // staging, the geometry and the walk: the flat stream, rows feat[gids[s]]
@@ -29,7 +47,7 @@
 //
 // The cull (slot_cull, mirrored op for op by rasterize_sum.py's
 // slot_cull_plain). Per staged slot, the tile-local pixel rectangle that
-// holds every pixel whose computed form can reach a gate qc: K3 takes qc
+// holds every pixel whose computed form can reach a gate qc: K1-K3 take qc
 // = q_cut, K8 / K9 qc = 2 log(o / alpha_min) + kQMargin. A pair outside
 // it fails the gate, so skipping it leaves every pixel's sum as it was.
 // The rectangle bounds the ellipse a dx^2 + 2b dx dy + c dy^2 <= Q, half
@@ -55,18 +73,13 @@ namespace gsum {
 
 constexpr int kTile = 32;
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;                     // 8
-constexpr int kRowsPerThread = kTile * kTile / kThreads;  // 4
-constexpr int kBK = 64;                                   // instances per chunk
-constexpr int kFW = 16;                                   // floats per feature row
-constexpr int kC = 4;                                     // rgb + alpha
-
-// One chunk of at most kBK instances, as per-instance columns: tile-local
-// center, conic (a, 2b, c), premultiplied color matrix (o*r, o*g, o*b, o).
-struct Chunk {
-  float gx[kBK], gy[kBK], a[kBK], b2[kBK], c[kBK];
-  float cm[kC][kBK];
-};
+constexpr int kWarps = kThreads / 32;               // 8
+constexpr int kPixels = kTile * kTile / kThreads;   // 4, one per patch
+constexpr int kBK = 64;                             // instances per chunk
+constexpr int kFW = 16;                             // floats per feature row
+constexpr int kC = 4;                               // rgb + alpha
+constexpr int kPatchW = 8;  // a patch: 8 columns x 4 rows, one pixel a lane
+constexpr int kPatchH = 4;
 
 // The stream a kernel walks. Flat: feat [n_rows, 16], gids [I], starts
 // [T+1]; counts and blocks unused. Aligned: blocks [NB, 16, 64], starts
@@ -97,25 +110,6 @@ __device__ __forceinline__ const float* slot_features(const Stream& st, int base
   return st.feat + static_cast<size_t>(g) * kFW;
 }
 
-// Threads 0..n-1 stage stream slots base..base+n-1. The caller
-// synchronises before the chunk is read.
-template <bool kBlocks>
-__device__ __forceinline__ void stage_chunk(Chunk& s, const Stream& st, int base, int n,
-                                            float tx0, float ty0) {
-  const int k = threadIdx.x;
-  if (k < n) {
-    int step;
-    const float* r = slot_features<kBlocks>(st, base, k, step);
-    s.gx[k] = __fsub_rn(r[0], tx0);
-    s.gy[k] = __fsub_rn(r[step], ty0);
-    s.a[k] = r[2 * step];
-    s.b2[k] = __fmul_rn(2.0f, r[3 * step]);
-    s.c[k] = r[4 * step];
-#pragma unroll
-    for (int ch = 0; ch < kC; ++ch) s.cm[ch][k] = r[(5 + ch) * step];
-  }
-}
-
 // q = max(a dx^2 + 2b dx dy + c dy^2, 0) from the per-column terms
 // adxdx = (a dx) dx and b2dx = (2b) dx, in the plain version's order. A
 // NaN form stays NaN (fmaxf would return 0 and let the pair in with w = 1).
@@ -129,77 +123,6 @@ __device__ __forceinline__ float quad_form(float adxdx, float b2dx, float c,
 // The pair's weight exp(-q/2), called only where q <= q_cut.
 __device__ __forceinline__ float pair_weight(float q) {
   return expf(__fmul_rn(-0.5f, q));
-}
-
-// The block's tile and the thread's 4 pixels. Thread (warp w, lane l) owns
-// column l of the contiguous rows 4w..4w+3, so stores are coalesced along x
-// and a small Gaussian touches few warps.
-struct TileGeom {
-  int start, end;               // the tile's window of the stream
-  float tx0, ty0;               // the tile's origin, pixels
-  float X;                      // the thread's tile-local column
-  float Y[kRowsPerThread];      // its tile-local rows
-  bool inside[kRowsPerThread];  // pixel within H x W
-  size_t pix[kRowsPerThread];   // py * W + px
-};
-
-template <bool kBlocks>
-__device__ __forceinline__ TileGeom tile_geom(const Stream& st, int H, int W, int tiles_x) {
-  TileGeom g;
-  const int t = blockIdx.x;
-  const int tx = t % tiles_x;
-  const int ty = t / tiles_x;
-  g.tx0 = static_cast<float>(tx * kTile);
-  g.ty0 = static_cast<float>(ty * kTile);
-  g.start = st.starts[t];
-  g.end = kBlocks ? g.start + st.counts[t] : st.starts[t + 1];
-  const int lx = threadIdx.x % kTile;
-  const int warp = threadIdx.x / kTile;
-  const int px = tx * kTile + lx;
-  g.X = static_cast<float>(lx);
-#pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j) {
-    const int ly = warp * kRowsPerThread + j;
-    const int py = ty * kTile + ly;
-    g.Y[j] = static_cast<float>(ly);
-    g.inside[j] = px < W && py < H;
-    g.pix[j] = g.inside[j] ? static_cast<size_t>(py) * W + px : 0;
-  }
-  return g;
-}
-
-// The forward walk: acc[j] = sum over the tile's window, in stream order,
-// of (o*r, o*g, o*b, o) * w at the thread's pixel j. Every thread of the
-// block must call it (it stages chunks and synchronises).
-template <bool kBlocks>
-__device__ __forceinline__ void tile_forward(Chunk& s, const Stream& st, const TileGeom& tg,
-                                             float q_cut,
-                                             float (&acc)[kRowsPerThread][kC]) {
-#pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j)
-#pragma unroll
-    for (int ch = 0; ch < kC; ++ch) acc[j][ch] = 0.0f;
-  for (int base = tg.start; base < tg.end; base += kBK) {
-    const int n = min(kBK, tg.end - base);
-    stage_chunk<kBlocks>(s, st, base, n, tg.tx0, tg.ty0);
-    __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      const float dx = __fsub_rn(tg.X, s.gx[k]);
-      const float adxdx = __fmul_rn(__fmul_rn(s.a[k], dx), dx);
-      const float b2dx = __fmul_rn(s.b2[k], dx);
-#pragma unroll
-      for (int j = 0; j < kRowsPerThread; ++j) {
-        const float q = quad_form(adxdx, b2dx, s.c[k], __fsub_rn(tg.Y[j], s.gy[k]));
-        if (q <= q_cut) {
-          const float w = pair_weight(q);
-#pragma unroll
-          for (int ch = 0; ch < kC; ++ch)
-            acc[j][ch] = __fadd_rn(acc[j][ch], __fmul_rn(s.cm[ch][k], w));
-        }
-      }
-    }
-    __syncthreads();
-  }
 }
 
 // A slot's feature row in registers: center, conic (a, b, c) and the four
@@ -296,6 +219,167 @@ __device__ __forceinline__ float warp_sum8(const float* v, int lane, int& term) 
   w1 += __shfl_xor_sync(0xffffffffu, w1, 1);
   term = (h16 ? 4 : 0) + (h8 ? 2 : 0) + (h4 ? 1 : 0);
   return w1;
+}
+
+// The thread's pixels: j = jx + 2 jy at tile-local (X[jx], Y[jy]).
+struct Pixels {
+  int start, end;  // the tile's window of the stream
+  float tx0, ty0;  // the tile's origin, pixels
+  int x0, y0;      // the tile's origin, integer
+  int warp, lane;
+  float X[2], Y[2];
+  bool inside[kPixels];  // pixel within H x W
+};
+
+template <bool kBlocks>
+__device__ __forceinline__ Pixels pixels_of(const Stream& st, int H, int W, int tiles_x) {
+  Pixels p;
+  const int t = blockIdx.x;
+  p.x0 = (t % tiles_x) * kTile;
+  p.y0 = (t / tiles_x) * kTile;
+  p.tx0 = static_cast<float>(p.x0);
+  p.ty0 = static_cast<float>(p.y0);
+  p.start = st.starts[t];
+  p.end = kBlocks ? p.start + st.counts[t] : st.starts[t + 1];
+  p.warp = threadIdx.x >> 5;
+  p.lane = threadIdx.x & 31;
+  int lx[2], ly[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lx[i] = 2 * kPatchW * (p.warp % 2) + kPatchW * i + p.lane % kPatchW;
+    ly[i] = 2 * kPatchH * (p.warp / 2) + kPatchH * i + p.lane / kPatchW;
+    p.X[i] = static_cast<float>(lx[i]);
+    p.Y[i] = static_cast<float>(ly[i]);
+  }
+#pragma unroll
+  for (int j = 0; j < kPixels; ++j)
+    p.inside[j] = p.x0 + lx[j & 1] < W && p.y0 + ly[j >> 1] < H;
+  return p;
+}
+
+// Pixel j's offset py * W + px in an [H, W] plane (0 outside H x W).
+__device__ __forceinline__ size_t pixel_index(const Pixels& p, int j, int W) {
+  return p.inside[j] ? static_cast<size_t>(p.y0 + static_cast<int>(p.Y[j >> 1])) * W
+                           + p.x0 + static_cast<int>(p.X[j & 1])
+                     : 0;
+}
+
+// A staged chunk of at most kBK slots, as per-slot columns: tile-local
+// center, conic (a, 2b, c), premultiplied color matrix (o*r, o*g, o*b, o)
+// and the slot's patch mask (bit 4w + j: patch j of warp w meets the
+// slot's cull rectangle).
+struct Slots {
+  float gx[kBK], gy[kBK], a[kBK], b2[kBK], c[kBK];
+  float cm[kC][kBK];
+  unsigned hit[kBK];
+};
+
+// Thread k < kBK stages slot k of the chunk (its row `v`, where k < n)
+// with its patch mask; slots n..kBK-1 meet no patch. The caller
+// synchronises before the chunk is read.
+__device__ __forceinline__ void stage_slots(Slots& s, const SlotRow& v, int n, float tx0,
+                                            float ty0, float q_cut) {
+  const int k = threadIdx.x;
+  if (k >= kBK) return;
+  unsigned hit = 0;
+  if (k < n) {
+    const float gx = __fsub_rn(v.x, tx0);
+    const float gy = __fsub_rn(v.y, ty0);
+    s.gx[k] = gx;
+    s.gy[k] = gy;
+    s.a[k] = v.a;
+    s.b2[k] = __fmul_rn(2.0f, v.b);
+    s.c[k] = v.c;
+#pragma unroll
+    for (int ch = 0; ch < kC; ++ch) s.cm[ch][k] = v.f[ch];
+    const SlotCull cl = slot_cull(gx, gy, v.a, v.b, v.c, q_cut, kTile);
+    if (cl.x0 <= cl.x1 && cl.y0 <= cl.y1) {
+      // the patch columns (0..3) and rows (0..7) the rectangle meets
+      const unsigned cols = (2u << (cl.x1 / kPatchW)) - (1u << (cl.x0 / kPatchW));
+      const unsigned rows = (2u << (cl.y1 / kPatchH)) - (1u << (cl.y0 / kPatchH));
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const unsigned cb = (cols >> (2 * (w % 2))) & 3u;
+        const unsigned rb = (rows >> (2 * (w / 2))) & 3u;
+        hit |= (((rb & 1u) ? cb : 0u) | ((rb & 2u) ? cb << 2 : 0u)) << (4 * w);
+      }
+    }
+  }
+  s.hit[k] = hit;
+}
+
+// The warp's slots of the staged chunk: bit k set where slot k's mask
+// meets one of the warp's patches.
+__device__ __forceinline__ unsigned long long warp_slots(const Slots& s, int warp, int lane) {
+  const unsigned lo = __ballot_sync(0xffffffffu, (s.hit[lane] >> (4 * warp)) & 0xFu);
+  const unsigned hi = __ballot_sync(0xffffffffu, (s.hit[lane + 32] >> (4 * warp)) & 0xFu);
+  return (static_cast<unsigned long long>(hi) << 32) | lo;
+}
+
+// The forward walk over a staged chunk: acc[j] += cm w on the warp's
+// slots, in stream order.
+__device__ __forceinline__ void forward_slots(const Slots& s, const Pixels& p, float q_cut,
+                                              float (&acc)[kPixels][kC]) {
+  unsigned long long m = warp_slots(s, p.warp, p.lane);
+  while (m) {
+    const int k = __ffsll(static_cast<long long>(m)) - 1;
+    m &= m - 1;
+    const unsigned nib = (s.hit[k] >> (4 * p.warp)) & 0xFu;
+    float adxdx[2], b2dx[2], dy[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float dx = __fsub_rn(p.X[i], s.gx[k]);
+      adxdx[i] = __fmul_rn(__fmul_rn(s.a[k], dx), dx);
+      b2dx[i] = __fmul_rn(s.b2[k], dx);
+      dy[i] = __fsub_rn(p.Y[i], s.gy[k]);
+    }
+#pragma unroll
+    for (int j = 0; j < kPixels; ++j) {
+      if (!((nib >> j) & 1u)) continue;  // warp-uniform
+      const float q = quad_form(adxdx[j & 1], b2dx[j & 1], s.c[k], dy[j >> 1]);
+      if (q <= q_cut) {
+        const float w = pair_weight(q);
+#pragma unroll
+        for (int ch = 0; ch < kC; ++ch)
+          acc[j][ch] = __fadd_rn(acc[j][ch], __fmul_rn(s.cm[ch][k], w));
+      }
+    }
+  }
+}
+
+// The forward walk of the tile's window: acc[j] = sum over the window, in
+// stream order, of cm w at the thread's pixel j. Threads 0-63 stage each
+// chunk from `row` and, while the warps walk it, load the next chunk's
+// rows into `row` and the ids of the one after into L1. kThenBack: after
+// the last of several chunks `row` holds the chunk before it, the first a
+// backward walk from the last chunk stages. Every thread of the CTA calls
+// it; the last chunk stays staged in `s`.
+template <bool kBlocks, bool kThenBack>
+__device__ __forceinline__ void walk_forward(Slots& s, const Stream& st, const Pixels& p,
+                                             float q_cut, float (&acc)[kPixels][kC],
+                                             SlotRow& row) {
+  const int len = p.end - p.start;
+  const int nch = len > 0 ? (len + kBK - 1) / kBK : 0;
+  const int k_own = threadIdx.x;  // the slot this thread loads and stages
+#pragma unroll
+  for (int j = 0; j < kPixels; ++j)
+#pragma unroll
+    for (int ch = 0; ch < kC; ++ch) acc[j][ch] = 0.0f;
+  if (k_own < min(kBK, len)) row = load_slot<kBlocks>(st, p.start, k_own);
+  prefetch_ids<kBlocks>(st, p.start + kBK, len - kBK);
+  for (int ci = 0; ci < nch; ++ci) {
+    const int base = p.start + ci * kBK;
+    stage_slots(s, row, min(kBK, p.end - base), p.tx0, p.ty0, q_cut);
+    __syncthreads();
+    if (ci + 1 < nch) {
+      if (k_own < min(kBK, p.end - base - kBK)) row = load_slot<kBlocks>(st, base + kBK, k_own);
+      prefetch_ids<kBlocks>(st, base + 2 * kBK, p.end - base - 2 * kBK);
+    } else if (kThenBack && nch > 1 && k_own < kBK) {
+      row = load_slot<kBlocks>(st, base - kBK, k_own);
+    }
+    forward_slots(s, p, q_cut, acc);
+    if (ci + 1 < nch) __syncthreads();  // every warp is done with the chunk
+  }
 }
 
 }  // namespace gsum

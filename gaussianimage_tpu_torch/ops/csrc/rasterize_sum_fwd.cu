@@ -17,21 +17,33 @@
 // and write acc once into the [4, H, W] channel-major image, masking the
 // pixels past H x W on the ragged edge.
 //
-// Bound on the H100: FP32 and MUFU work, about I_live * 1024 (instance,
-// pixel) pairs with one exp and ~20 float operations each. The bytes are a
-// few MB (the feature rows, the stream, the 4 x H x W output).
+// Bound on the H100: FP32 issue slots and MUFU ex2. Each pair that passes
+// the gate takes q and the gate (~9 slots), -q/2, expf (one ex2) and four
+// multiply-adds; on the flower@10k fit's stream 3.19M of the windows'
+// 26.21M (instance, pixel) pairs pass (12%). The bytes are a few MB (the
+// feature rows, the stream, the 4 x H x W output).
 //
-// Design: one thread block per tile, 256 threads, each owning 4 pixels of
-// one column (rasterize_sum_common.cuh's TileGeom), so stores are coalesced
-// along x. The block stages each chunk of BK instances' rows in shared
-// memory (every thread then reads the same word: a broadcast, no bank
-// conflicts) and each thread keeps its 4 x 4 accumulators in registers.
-// Instances are summed in stream order: deterministic, no atomics.
+// Design: 88% of a window's pairs fail the gate on the fit stream, so K1
+// walks only the pairs that can pass, on the layout, staging and walk of
+// rasterize_sum_common.cuh that it shares with K3 (Pixels, walk_forward).
+// One CTA of 256 threads per tile (a window holds 67 slots on the mean
+// tile at 10k points, at most 3 chunks; 177 and 7 at 40k: too shallow to
+// split a tile over a cluster); each warp owns a 16 x 8 block of four
+// 8 x 4 patches, one pixel of each per thread.
+// Staging a chunk gives each slot its cull rectangle at q_cut as a mask of
+// the tile's patches, and each warp walks only the slots that meet its
+// patches, and per slot only those patches, with the next chunk's rows
+// loading into registers meanwhile. The thread's 4 x 4 accumulators stay
+// in registers and each pixel adds its gated pairs in stream order, so the
+// image is the all-pairs walk's bit for bit (the cull drops only pairs
+// that fail the gate), deterministic, with no atomics. A warp's store of
+// one channel of one of its pixels writes 32 contiguous bytes per patch
+// row.
 //
-// Arithmetic: the walk, and the pair's q, gate and weight, come from
-// rasterize_sum_common.cuh (tile_forward), shared with K3 (which must
-// reproduce K1's image bit for bit) and K2, rounded op by op so they are
-// bit-equal to the plain PyTorch version's.
+// Arithmetic: the pair's q, gate and weight come from
+// rasterize_sum_common.cuh, shared with K3 (which must reproduce K1's
+// image bit for bit) and K2, rounded op by op so they are bit-equal to the
+// plain PyTorch version's.
 
 #include <cuda_runtime.h>
 
@@ -45,17 +57,19 @@ template <bool kBlocks>
 __global__ void __launch_bounds__(kThreads)
 rasterize_sum_fwd_kernel(Stream st, float* __restrict__ out, int H, int W, int tiles_x,
                          float q_cut) {
-  __shared__ Chunk s;
-  const TileGeom tg = tile_geom<kBlocks>(st, H, W, tiles_x);
-  float acc[kRowsPerThread][kC];
-  tile_forward<kBlocks>(s, st, tg, q_cut, acc);
+  __shared__ Slots s;
+  const Pixels p = pixels_of<kBlocks>(st, H, W, tiles_x);
+  float acc[kPixels][kC];
+  SlotRow row;
+  walk_forward<kBlocks, false>(s, st, p, q_cut, acc, row);
 
   const size_t plane = static_cast<size_t>(H) * W;
 #pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j) {
-    if (tg.inside[j]) {
+  for (int j = 0; j < kPixels; ++j) {
+    if (p.inside[j]) {
+      const size_t pix = pixel_index(p, j, W);
 #pragma unroll
-      for (int ch = 0; ch < kC; ++ch) out[ch * plane + tg.pix[j]] = acc[j][ch];
+      for (int ch = 0; ch < kC; ++ch) out[ch * plane + pix] = acc[j][ch];
     }
   }
 }

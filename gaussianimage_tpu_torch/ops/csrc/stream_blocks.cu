@@ -10,7 +10,7 @@
 // s = b * 64 + k of block b, lane k.
 //   K11a: blocks[b][f][k] = feat[gids[b * 64 + k]][f] for the 16 features
 //     f, with ids outside [0, n_rows) reading the sentinel row n_rows - 1
-//     (as the rasterizers' stage_chunk does);
+//     (as the rasterizers' slot_features does);
 //   K11b: rows[b * 64 + k][f] = dgb[b][f][k].
 // A pure copy: both are bit-equal to their plain versions.
 //

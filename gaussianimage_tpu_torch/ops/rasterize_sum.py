@@ -22,10 +22,14 @@ CUDA tensor launches the kernel or raises:
   from a [4, H, W] cotangent, the backward of ``rasterize_gaussians_sum``;
 - K3 ``sum_l2`` (same file): render, clip, masked L2 against a target and
   K2's backward in one pass, the training step of
-  ``rasterize_gaussians_sum_l2``. K3 skips the pairs that fail the gate:
-  each staged slot carries the tile-local pixel rectangle it can reach
-  (``sum_cull_plain`` is its plain mirror), and a warp walks a slot only
-  on its 8 x 4 patches (``PATCH``) that the rectangle meets.
+  ``rasterize_gaussians_sum_l2``.
+
+The three share one walk (``csrc/rasterize_sum_common.cuh``), which skips
+the pairs that fail the gate: each staged slot carries the tile-local pixel
+rectangle it can reach (``sum_cull_plain`` is its plain mirror), and a warp
+walks a slot only on its 8 x 4 patches (``PATCH``) that the rectangle
+meets. Each pixel still adds its gated pairs in stream order, so K1's
+image is bit-equal to ``sum_fwd_plain(..., in_order=True)``.
 
 The kernels gather the rows themselves and read and write [C, H, W]
 images directly, so neither the JAX package's stream gather nor its tiling
@@ -64,9 +68,9 @@ from gaussianimage_tpu_torch.ops.tiles import INT32_MAX, sorted_window_bounds
 _C = 4  # output channels: rgb + alpha
 _PLAIN_CHUNK = 4096  # stream slots per step of the plain versions
 _KERNEL_TILE = 32  # the CUDA kernels' tile side
-PATCH = (8, 4)        # K3's patch, columns x rows (kPatchW, kPatchH in
-#   csrc/rasterize_sum_bwd.cu): a warp skips a slot per patch
-WARP_BLOCK = (16, 8)  # K3's warp: a block of 2 x 2 patches, one pixel of
+PATCH = (8, 4)        # K1-K3's patch, columns x rows (kPatchW, kPatchH in
+#   csrc/rasterize_sum_common.cuh): a warp skips a slot per patch
+WARP_BLOCK = (16, 8)  # K1-K3's warp: a block of 2 x 2 patches, one pixel of
 #   each per thread
 
 
@@ -186,7 +190,7 @@ class Cull(NamedTuple):
 
 
 def slot_cull_plain(gx, gy, a, b, c, qc, tile_px: int) -> Cull:
-    """The rectangle of the cull that K3 (gate q_cut) and K8 / K9 (gate 2
+    """The rectangle of the cull that K1-K3 (gate q_cut) and K8 / K9 (gate 2
     log(o / alpha_min) + margin) apply to each staged slot, op for op as
     ``slot_cull`` in csrc/rasterize_sum_common.cuh computes it (whose head
     derives it): gx / gy the tile-local center, a, b, c the conic, qc the
@@ -219,13 +223,12 @@ def slot_cull_plain(gx, gy, a, b, c, qc, tile_px: int) -> Cull:
 
 
 def sum_cull_plain(rows: torch.Tensor, tx0, ty0, q_cut: float) -> Cull:
-    """The cull K3 applies to each staged slot (``stage_l2`` in
-    csrc/rasterize_sum_bwd.cu): the rectangle of ``slot_cull_plain`` for
-    the gate q <= q_cut on K3's 32-pixel tiles. rows [..., 16] feature
-    rows, tx0 / ty0 their tiles' origins (broadcastable). The kernel's
-    main path computes this
-    on the card; the plain versions do not cull, so nothing but tests and
-    measurements calls it."""
+    """The cull K1-K3 apply to each staged slot (``stage_slots`` in
+    csrc/rasterize_sum_common.cuh): the rectangle of ``slot_cull_plain``
+    for the gate q <= q_cut on their 32-pixel tiles. rows [..., 16] feature
+    rows, tx0 / ty0 their tiles' origins (broadcastable). The kernels
+    compute this on the card; the plain versions do not cull, so nothing
+    but tests and measurements calls it."""
     gx = rows[..., 0] - tx0
     gy = rows[..., 1] - ty0
     return slot_cull_plain(gx, gy, rows[..., 2], rows[..., 3], rows[..., 4],
@@ -236,8 +239,8 @@ def cull_patches(cull: Cull, tile_px: int, patch) -> torch.Tensor:
     """[S, tile_px^2] bool, pixel p = y * tile_px + x of the tile: the
     pixels whose ``patch`` (columns, rows; the patches tile the tile from
     its origin) meets each slot's rectangle. With a kernel's warp patch:
-    the pairs it evaluates (K8 / K9 ``rasterize_blend.PATCH``, K3
-    ``PATCH``); with K3's ``WARP_BLOCK``: the pixels of the warps that
+    the pairs it evaluates (K8 / K9 ``rasterize_blend.PATCH``, K1-K3
+    ``PATCH``); with K1-K3's ``WARP_BLOCK``: the pixels of the warps that
     visit the slot."""
     pidx = torch.arange(tile_px * tile_px, device=cull.x0.device)
     pw, ph = patch
@@ -339,10 +342,50 @@ def _backward_rows(gated, G: torch.Tensor, n_slots: int) -> torch.Tensor:
     return dg
 
 
-def _fwd_rows(rows, starts, counts, H, W, tile_px, q_cut) -> torch.Tensor:
+def _accumulate_in_order(rows, starts, counts, H, W, tile_px, q_cut
+                         ) -> torch.Tensor:
+    """[T, 4, P] per-tile sums of cm * w, each pixel's gated pairs added
+    one at a time in stream order, as K1 adds them: a loop over the
+    position p within the windows, vectorised over the tiles, with q and w
+    op for op as ``window_pairs`` and ``gated_pairs`` compute them. Reads
+    the deepest window's length back to the host."""
     tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
-    acc = _accumulate(gated_pairs(rows, starts, counts, H, W, tile_px, q_cut),
-                      tiles_x * tiles_y, tile_px * tile_px, rows.device)
+    T, P = tiles_x * tiles_y, tile_px * tile_px
+    dev = rows.device
+    cnt = counts[:T].long()
+    first = starts[:T].long()
+    t = torch.arange(T, device=dev)
+    tx0 = ((t % tiles_x) * tile_px).float()[:, None]
+    ty0 = (torch.div(t, tiles_x, rounding_mode="floor")
+           * tile_px).float()[:, None]
+    pidx = torch.arange(P, device=dev)
+    X = (pidx % tile_px).float()[None, :]
+    Y = (pidx // tile_px).float()[None, :]
+    acc = torch.zeros(T, _C, P, dtype=torch.float32, device=dev)
+    for p in range(int(cnt.max()) if T else 0):
+        live = cnt > p  # [T] tiles whose window reaches position p
+        g = rows[torch.where(live, first + p, 0)]  # [T, 16]
+        dx = X - (g[:, 0:1] - tx0)
+        dy = Y - (g[:, 1:2] - ty0)
+        a, b, c = g[:, 2:3], g[:, 3:4], g[:, 4:5]
+        q = torch.clamp(a * dx * dx + 2.0 * b * dx * dy + c * dy * dy,
+                        min=0.0)
+        on = live[:, None] & (q <= q_cut)  # [T, P]
+        w = torch.exp(-0.5 * q)
+        acc = torch.where(on[:, None], acc + g[:, 5:5 + _C, None] * w[:, None],
+                          acc)
+    return acc
+
+
+def _fwd_rows(rows, starts, counts, H, W, tile_px, q_cut, in_order=False
+              ) -> torch.Tensor:
+    tiles_x, tiles_y = _check_tiles(H, W, tile_px, starts)
+    if in_order:
+        acc = _accumulate_in_order(rows, starts, counts, H, W, tile_px, q_cut)
+    else:
+        acc = _accumulate(
+            gated_pairs(rows, starts, counts, H, W, tile_px, q_cut),
+            tiles_x * tiles_y, tile_px * tile_px, rows.device)
     return _untile_image(acc, tile_px, tiles_x, tiles_y, H, W)
 
 
@@ -368,16 +411,19 @@ def _l2_rows(rows, starts, counts, gt, H, W, tile_px, q_cut, clamp):
 
 def sum_fwd_plain(feat: torch.Tensor, gids: torch.Tensor,
                   starts: torch.Tensor, H: int, W: int, tile_px: int = 32,
-                  q_cut: float = 9.0) -> torch.Tensor:
+                  q_cut: float = 9.0, in_order: bool = False) -> torch.Tensor:
     """Plain PyTorch version of K1 -> [4, H, W] float32.
 
     feat [N+1, 16] packed rows, gids [I] int32 stream, starts [>= T+1]
     int32 window bounds. Sums cm * w over the gated pairs of every window
-    (``gated_pairs``) onto the tiles with ``index_add_``. The arithmetic of
-    each term is K1's, op for op.
+    (``gated_pairs``) onto the tiles with ``index_add_``, which adds in
+    stream order on the CPU and in the atomics' order on the card. The
+    arithmetic of each term is K1's, op for op. ``in_order`` adds each
+    pixel's pairs one at a time in stream order on any device
+    (``_accumulate_in_order``): K1's sum, bit for bit.
     """
     return _fwd_rows(sc.gather_stream(gids, feat), starts,
-                     window_counts(starts), H, W, tile_px, q_cut)
+                     window_counts(starts), H, W, tile_px, q_cut, in_order)
 
 
 def sum_bwd_plain(feat: torch.Tensor, gids: torch.Tensor,
@@ -412,14 +458,15 @@ def sum_l2_plain(feat: torch.Tensor, gids: torch.Tensor,
 
 def sum_fwd_aligned_plain(blocks: torch.Tensor, starts: torch.Tensor,
                           counts: torch.Tensor, H: int, W: int,
-                          tile_px: int = 32, q_cut: float = 9.0
-                          ) -> torch.Tensor:
+                          tile_px: int = 32, q_cut: float = 9.0,
+                          in_order: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the aligned K1 -> [4, H, W] float32:
     ``sum_fwd_plain`` over the aligned stream, whose feature blocks
     [NB, 16, 64] hold slot s's row down lane s % 64 of block s / 64 and
-    whose windows are [starts[t], starts[t] + counts[t])."""
+    whose windows are [starts[t], starts[t] + counts[t]); ``in_order`` as
+    there."""
     return _fwd_rows(sc.unblockize_stream_plain(blocks), starts, counts, H,
-                     W, tile_px, q_cut)
+                     W, tile_px, q_cut, in_order)
 
 
 def sum_bwd_aligned_plain(blocks: torch.Tensor, starts: torch.Tensor,

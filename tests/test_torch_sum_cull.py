@@ -1,11 +1,10 @@
-"""The cull of the fused render + L2 + backward kernel K3
-(ops/rasterize_sum.py ``sum_cull_plain``, the op-for-op mirror of
-``stage_l2`` in csrc/rasterize_sum_bwd.cu, whose rectangle is
-``slot_cull_plain``, the mirror of ``slot_cull`` in
-csrc/rasterize_sum_common.cuh): each staged slot's tile-local pixel
-rectangle for the gate q <= q_cut. K3 skips every pair outside it, so
-its output stays that of the plain version only if no pair that passes
-the gate lies outside. The oracle is the JAX kernel's gate
+"""The cull that K1, K2 and K3 share (ops/rasterize_sum.py
+``sum_cull_plain``, the op-for-op mirror of ``stage_slots`` in
+csrc/rasterize_sum_common.cuh, whose rectangle is ``slot_cull_plain``,
+the mirror of ``slot_cull`` there): each staged slot's tile-local pixel
+rectangle for the gate q <= q_cut. The kernels skip every pair outside
+it, so their output stays that of the plain versions only if no pair that
+passes the gate lies outside. The oracle is the JAX kernel's gate
 (gaussianimage_tpu/ops/rasterize_sum.py ``_tile_acc``: q =
 jnp.maximum(form, 0) <= q_cut, jitted on the CPU), beside the port's own
 (``window_pairs``' q, the kernels' op order). Exact: no tolerance.
@@ -20,9 +19,10 @@ jnp.maximum(form, 0) <= q_cut, jitted on the CPU), beside the port's own
 - near-degenerate conics whose float32 form cancels below 0, which the
   gate's clamp lets in with q = 0, and rows with a NaN or an infinity;
 - hypothesis: single rows over the same families and wider ranges;
-- the pixel patches on a seeded Cholesky state: the pairs K3 evaluates
-  (its 8 x 4 patches), the warps that visit a slot (16 x 8 blocks) and
-  today's K2's 32 x 4 strips, against the window's pairs.
+- the pixel patches on a seeded Cholesky state: the pairs K1-K3
+  evaluate (their 8 x 4 patches), the warps that visit a slot (16 x 8
+  blocks) and the 32 x 4 strips of the earlier K1 / K2 layout, against
+  the window's pairs.
 """
 
 import math
@@ -48,9 +48,9 @@ from gaussianimage_tpu_torch.utils.checkpoint import (  # noqa: E402
     params_from_numpy)
 
 Q_CUT = 9.0  # RasterizeConfig's default gate
-TILE = 32    # K3's tile
-SOURCE = (Path(rs.__file__).parent / "csrc" / "rasterize_sum_bwd.cu"
-          ).read_text()
+TILE = 32    # K1-K3's tile
+CSRC = Path(rs.__file__).parent / "csrc"
+HEADER = (CSRC / "rasterize_sum_common.cuh").read_text()
 
 
 @pytest.fixture(autouse=True)
@@ -115,9 +115,27 @@ def _missed(rows, tx0, ty0):
 
 
 def test_patch_matches_the_kernel():
-    """The mirror's patch and warp block are K3's kPatchW x kPatchH and
-    the 2 x 2 patches of a warp (``l2_pixels``)."""
-    patch = tuple(int(re.search(rf"constexpr int {k} = (\d+);", SOURCE)
+    """The mirror's patch and warp block are the shared layout's kPatchW x
+    kPatchH and the 2 x 2 patches of a warp (``pixels_of`` in
+    csrc/rasterize_sum_common.cuh), and K1, K2 and K3 all take that layout
+    and staging: each kernel places its pixels with ``pixels_of`` and stages
+    through ``stage_slots`` (K1 and K3 in ``walk_forward``), and neither
+    kernel source defines a patch of its own."""
+    for src, kernels in (("rasterize_sum_fwd.cu",
+                          ("rasterize_sum_fwd_kernel",)),
+                         ("rasterize_sum_bwd.cu",
+                          ("rasterize_sum_bwd_kernel",
+                           "rasterize_sum_l2_kernel"))):
+        text = (CSRC / src).read_text()
+        assert '#include "rasterize_sum_common.cuh"' in text
+        assert "kPatchW =" not in text and "kPatchH =" not in text
+        for kernel in kernels:
+            body = text[text.index(kernel + "("):]
+            body = body[:body.index("\n}\n")]
+            assert "pixels_of<kBlocks>" in body, kernel
+            assert "walk_forward<" in body or "stage_slots(" in body, kernel
+    assert "stage_slots(" in HEADER.split("walk_forward(")[1]
+    patch = tuple(int(re.search(rf"constexpr int {k} = (\d+);", HEADER)
                       .group(1)) for k in ("kPatchW", "kPatchH"))
     assert patch == rs.PATCH
     assert rs.WARP_BLOCK == (2 * patch[0], 2 * patch[1])
@@ -281,8 +299,8 @@ def test_cull_keeps_every_gated_pair_property(row):
 
 def test_patch_choice_on_a_cholesky_state():
     """A seeded Cholesky state (300 points, 96 x 128, 32-pixel tiles):
-    of the window's pairs, K3 evaluates those in 8 x 4 patches that meet a
-    slot's rectangle, fewer than the 16 x 8 warp blocks or 32 x 4 strips
+    of the window's pairs, K1-K3 evaluate those in 8 x 4 patches that meet
+    a slot's rectangle, fewer than the 16 x 8 warp blocks or 32 x 4 strips
     would; every gated pair is among them; and the warps visit a share of
     the (slot, warp) pairs."""
     N, H, W = 300, 96, 128
