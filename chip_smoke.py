@@ -34,12 +34,15 @@ Phases, one JSON line each (with ``elapsed_s``):
              splat prep, K5 on the flower@10k fit and K4 on the china@10k
              QAT codes under ``RasterizeConfig.serving(10000)``: sorted
              keys, trunc and n_total integer-exact, feature rows to 1e-6,
-             and K5's stream (gids, starts) against the generic binning;
-             K7, the batched decode prep, on the china and flower QAT codes
-             stacked (B = 2, and B = 6 with each three times) under the
-             batched config, held to its plain version the same way, and
-             at B = 1 equal to K4 (rows max |diff| 0, keys and counts
-             equal);
+             the keys in their slot-major [M, N+1] layout and the per-row
+             counts equal (torch.equal), and K5's stream (gids, starts)
+             against the generic binning; K4 also with its rows bit for
+             bit, there and on its first N = 1, 31, 33, 63, 65 and 1000
+             rows (EDGE_ROWS: a partial last CTA and warp); K7, the batched
+             decode prep, on the china and flower QAT codes stacked (B =
+             2, and B = 6 with each three times) under the batched config,
+             held to its plain version as K5 is, and at B = 1 equal to K4
+             (rows max |diff| 0, keys and counts equal);
 4. slice     the evaluation entry point ``gaussianimage_tpu_torch.train
              --iterations 0`` on the fitted flower@10k checkpoint
              (768x512): PSNR within 0.01 dB of 41.906, n_dropped == 0, K1
@@ -100,8 +103,9 @@ Phases, one JSON line each (with ``elapsed_s``):
              state's K6a decode against its evaluation render;
 8e. rs_kernel K6b on the RS fit's parameters and K6a on the RS QAT codes
              under serving(10000), each against its plain version (sorted
-             keys, trunc and n_total integer-exact, feature rows to 1e-6),
-             and K6b's stream (gids, starts) equal to the generic binning;
+             keys, trunc and n_total integer-exact, feature rows to 1e-6,
+             keys [M, N+1] and per-row counts equal), and K6b's stream
+             (gids, starts) equal to the generic binning;
 8f. rs_codec the codec CLI ``test_quantize --model_name GaussianImage_RS`` on
              that QAT state, as a two-image dataset (the flower photo and
              state twice, so the dataset decode stacks two frames): decode
@@ -146,9 +150,10 @@ Phases, one JSON line each (with ``elapsed_s``):
              on both states, reported: n_dropped of both paths, the rows
              whose keys differ from the generic binning's, the image error
              before the first tile the stream cap cuts; K10 against its
-             plain version (feature rows to 1e-6, sorted keys and counts
-             exact) on both states and on seeded models at sh_degree 0, 1,
-             2 and 4;
+             plain version bit for bit (rows, keys [M, N+1] and per-row
+             counts, torch.equal) on both states, on seeded models at
+             sh_degree 0-4 and on each seeded model's first EDGE_ROWS
+             rows;
 8j. aligned_kernel on the committed flower@40k fit, whose stream (144,576
              slots) passes flat_stream_limit and takes the aligned layout:
              K11a (``blockize_stream``) and K11b (``unblockize_stream``)
@@ -201,7 +206,10 @@ Phases, one JSON line each (with ``elapsed_s``):
              the training step of the 50,000-point fit (aligned) timed and
              traced. K1-K3's bounds count the gated pairs and a cull per
              slot and walk (``sum_ops``); the older count, which charges q
-             to every pair of the windows, is ``sum_bound_ms_all_pairs``.
+             to every pair of the windows, is ``sum_bound_ms_all_pairs``;
+             the fused prep's floor (``prep_floor``): K4, K7 (B = 2) and
+             K10 at each sh_degree 0-4 traced beside zero_() of each of
+             their three outputs and of one buffer of those bytes.
 
 Then the raw ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 line (the 13 kernels; K1-K3, K8 and K9 with their aligned branch's numbers
@@ -238,6 +246,9 @@ CODEC_ANCHORS = {
 }
 SERVE_N = 10000
 PREP_TOL = 1e-6    # feature rows, K4 / K5 against their plain versions
+# row counts of K4's and K10's extra cases: a partial last CTA of 64 rows
+# and a partial last warp
+EDGE_ROWS = (1, 31, 33, 63, 65, 1000)
 IMG_TOL = 2e-5     # fused against generic images, but for MAX_EDGE_PX
 MAX_EDGE_PX = 16   # pixels above 1e-4 where an instance crosses a tile edge
 MIN_K4 = 300       # K4 launches in the codec run: two timed decode bursts
@@ -991,22 +1002,34 @@ def main() -> None:
     I_s, m_s, _ = sc.stream_caps(SERVE_N, serve_cfg)
     q_s = float(serve_cfg.q_cut)
 
-    def prep_check(name, out, ref):
+    def prep_check(name, out, ref, bits=False):
+        """A fused prep's (feat, keys [M, N+1], stats [2, N+1]) against its
+        plain version's: sorted keys, (trunc, n_total) and feature rows to
+        PREP_TOL, the keys in their slot-major layout and the per-row
+        counts equal (torch.equal); with ``bits`` (K4 and K10, whose
+        stores are staged) also the rows bit for bit."""
         (feat_k, keys_k, stats_k), (feat_p, keys_p, stats_p) = out, ref
         err = float((feat_k - feat_p).abs().max())
         keys_equal = bool(torch.equal(torch.sort(keys_k.flatten()).values,
                                       torch.sort(keys_p.flatten()).values))
         tot, tot_p = stats_k.sum(dim=1).tolist(), stats_p.sum(dim=1).tolist()
+        res = {"max_abs_err": err, "tol": PREP_TOL,
+               "bit_equal": bool(torch.equal(feat_k, feat_p)),
+               "sorted_keys_equal": keys_equal,
+               "keys_equal": bool(torch.equal(keys_k, keys_p)),
+               "row_counts_equal": bool(torch.equal(stats_k, stats_p)),
+               "trunc": tot[0], "n_total": tot[1], "span": keys_k.shape[0]}
         if not (keys_equal and tot == tot_p and math.isfinite(err)
-                and err <= PREP_TOL):
+                and err <= PREP_TOL and res["keys_equal"]
+                and res["row_counts_equal"]
+                and (res["bit_equal"] or not bits)):
             fail(f"{name} disagrees with its plain version: sorted keys "
                  f"equal {keys_equal}, (trunc, n_total) {tot} against "
-                 f"{tot_p}, feature rows max |diff| {err} (<= {PREP_TOL})")
-        return {"max_abs_err": err, "tol": PREP_TOL,
-                "bit_equal": bool(torch.equal(feat_k, feat_p)),
-                "sorted_keys_equal": keys_equal,
-                "row_counts_equal": bool(torch.equal(stats_k, stats_p)),
-                "trunc": tot[0], "n_total": tot[1], "span": m_s}
+                 f"{tot_p}, feature rows max |diff| {err} (<= {PREP_TOL}), "
+                 f"keys [M, N+1] equal {res['keys_equal']}, row counts "
+                 f"equal {res['row_counts_equal']}, rows bit-equal "
+                 f"{res['bit_equal']} (required: {bits})")
+        return res
 
     flower_s = make_model("GaussianImage_Cholesky", device=dev,
                           num_points=SERVE_N, H=512, W=768, raster=serve_cfg)
@@ -1041,7 +1064,14 @@ def main() -> None:
                CHOLESKY_BOUND, 512, 768, serve_cfg.tile_px, m_s, q_s)
     out4 = prep.decode_prep(*k4_args)
     torch.cuda.synchronize()
-    k4 = prep_check("K4", out4, prep.decode_prep_plain(*k4_args))
+    k4 = prep_check("K4", out4, prep.decode_prep_plain(*k4_args), bits=True)
+    # K4 on the first n code rows: a partial last CTA (64 rows) and warp
+    for n in EDGE_ROWS:
+        args = (*(a[:n] for a in k4_args[:3]), *k4_args[3:])
+        out = prep.decode_prep(*args)
+        torch.cuda.synchronize()
+        k4[f"n{n}"] = prep_check(f"K4 (N = {n})", out,
+                                 prep.decode_prep_plain(*args), bits=True)
     # K7 on the QAT codes stacked, under the batched decode's config
     flower_q = make_model("GaussianImage_Cholesky", device=dev,
                           num_points=SERVE_N, H=512, W=768, quantize=True,
@@ -2041,15 +2071,26 @@ def main() -> None:
                 gm._scaling.add_(torch.randn(SERVE_N, 3, device=dev,
                                              generator=gen), alpha=0.4)
             k10_cases[f"seeded_sh{deg}"] = gm
+        # and each seeded model's first n depth-ordered rows: a partial last
+        # CTA (64 rows) and warp
+        k10_deg_args = {}
         for name, gm in k10_cases.items():
             _, rows10 = gm.prep_rows()
             args = (*(r.contiguous() for r in rows10), gm.cam,
                     gm.cfg.sh_degree, Hf, Wf, gs_bcfg.tile_px, m_g)
-            out10 = p3.blend3d_prep(*args)
-            torch.cuda.synchronize()
-            k10[name] = prep_check(f"K10 ({name})", out10,
-                                   p3.blend3d_prep_plain(*args))
-            k10[name].update(span=m_g, sh_degree=gm.cfg.sh_degree)
+            cases10 = [(name, args)]
+            if name.startswith("seeded"):
+                k10_deg_args[gm.cfg.sh_degree] = args
+                cases10 += [(f"{name}_n{n}", (*(r[:n] for r in args[:5]),
+                                              *args[5:]))
+                            for n in EDGE_ROWS]
+            for case, a in cases10:
+                out10 = p3.blend3d_prep(*a)
+                torch.cuda.synchronize()
+                k10[case] = prep_check(f"K10 ({case})", out10,
+                                       p3.blend3d_prep_plain(*a),
+                                       bits=True)
+                k10[case]["sh_degree"] = gm.cfg.sh_degree
             if name == "fit":
                 k10_args = args
         phase("gs3d_serve", config="RasterizeConfig(fused_prep=True)",
@@ -2614,6 +2655,52 @@ def main() -> None:
         if None not in flat_twin_device_ms.values():
             break
 
+    # the fused prep's floor: one trace of 20 x (a launch of the kernel, a
+    # zero_() of each of its three outputs: PyTorch's fill writing the same
+    # bytes, and one zero_() of a float64 buffer of their total size, whose
+    # fill kernel has a name of its own); traced again until the profiler
+    # saw every launch. K4 (whose outputs K5, K6a and K6b share), K7 at
+    # B = 2, and K10 at each sh_degree on the seeded models' rows.
+    def prep_floor(launch_fn, kernel_key):
+        outs = launch_fn()
+        nbytes = sum(o.numel() * o.element_size() for o in outs)
+        flat = torch.empty(-(-nbytes // 8), dtype=torch.float64, device=dev)
+
+        def reps():
+            for _ in range(20):
+                launch_fn()
+                for o in (*outs, flat):
+                    o.zero_()
+
+        for _ in range(5):
+            us = traced_us(torch, reps)
+            kind = {"kernel": [], "fills": [], "one_buffer": []}
+            for key, v in us.items():
+                kind["kernel" if kernel_key in key else "one_buffer"
+                     if "double" in key else "fills"].append(v)
+            seen = {k: sum(n for _, n in v) for k, v in kind.items()}
+            if seen == {"kernel": 20, "fills": 60, "one_buffer": 20}:
+                break
+        per = {k: sum(u for u, _ in v) / seen[k] / 1e3 if seen[k] else None
+               for k, v in kind.items()}
+        return {"device_ms": per["kernel"],
+                "fills_ms": None if per["fills"] is None
+                else per["fills"] * len(outs),
+                "fill_launch_ms": per["fills"],
+                "one_buffer_fill_ms": per["one_buffer"], "bytes": nbytes,
+                "launches_seen": seen}
+
+    floors = {"splat_prep_decode": prep_floor(
+                  lambda: prep.decode_prep(*k4_args),
+                  "splat_prep_decode_kernel("),
+              "splat_prep_decode_batch": prep_floor(
+                  lambda: prep.batch_decode_prep(*k7_main),
+                  "splat_prep_decode_batch_kernel"),
+              **{f"splat_prep_blend3d_sh{d}": prep_floor(
+                  lambda a=a: p3.blend3d_prep(*a),
+                  f"splat_prep_blend3d_kernel<{d}>")
+                 for d, a in sorted(k10_deg_args.items())}}
+
     plane = Hf * Wf
     stream_bytes = 4 * (feat.numel() + n_live + sp.starts.numel())
     # K1-K3 on the gated pairs and a cull per slot and walk (sum_ops); the
@@ -2719,7 +2806,7 @@ def main() -> None:
           bytes={k: v[2] for k, v in work.items()},
           sum_work=work10, instances=n_live,
           sum_bound_ms_all_pairs=sum_bounds_all_pairs,
-          k11b_vs_copy=k11b_l2,
+          k11b_vs_copy=k11b_l2, prep_floor=floors,
           render_ms=render_ms, train_step_ms=step_ms,
           fps_probe={k: r["fps"] for k, r in by_image.items()},
           render_profile=render_prof, train_step_profile=step_prof,

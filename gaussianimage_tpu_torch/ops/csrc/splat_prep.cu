@@ -26,24 +26,30 @@
 //   means = tanh(f16 xyz codes), s = |code * scale + beta + bound|,
 //   theta = code * scale + beta (the codec quantizes the activated angle,
 //   so no sigmoid), colors from the combined codebook as in K4.
-// All five then run splat_prep_common.cuh's project_pack_bin: pixel mapping,
-// conic with the 1e-6 det floor, 3-sigma radius, the exact q <= q_cut axis
-// extents, the [N+1, 16] feature row, M packed keys (tile << id_bits) | row
-// with dead slots at INT32_MAX, and the (trunc, live) counts.
+// All five then run splat_prep_common.cuh's head and tail (project_head,
+// then pack_bin, or K4's pack_bin_staged): pixel mapping, conic with the
+// 1e-6 det floor, 3-sigma radius, the exact q <= q_cut axis extents, the
+// [N+1, 16] feature row, M packed keys (tile << id_bits) | row with dead
+// slots at INT32_MAX, and the (trunc, live) counts.
 //
 // Bound on the H100: bytes. At N = 10,000 and M = 9 a launch reads 28-32 B
 // and writes 64 + 4M + 8 B per row, about 1.4 MB (0.4 us at 3.35 TB/s),
 // against about 2M FP32 slots (0.06 us); K7 at B frames moves B times that.
 // K6a/K6b add sinf, cosf (and K6b expf) to a row: about 3M slots, still
-// under the byte time.
-// Launch latency dominates. K7's per-frame tables (2 * 3 B + 64 * 3 B
-// floats) are read through the cache.
+// under the byte time. Launch latency and one round of loads dominate.
+// K7's per-frame tables (2 * 3 B + 64 * 3 B floats) are read through the
+// cache.
 //
-// Design: the simple one, one thread per row r in [0, N]: coalesced row
-// reads, float4 stores of the feature row, and slot-major keys [M, N+1] so
-// that neighbouring threads write neighbouring keys. No shared memory, no
-// atomics; the counts go out per row and the caller sums them, so a run is
-// deterministic.
+// Design. K5, K6a, K6b and K7: the simple one, one thread per row r in
+// [0, N] in CTAs of 256: coalesced row reads, float4 stores of the feature
+// row (splat_prep_common.cuh's pack_bin), and slot-major keys [M, N+1] so
+// that neighbouring threads write neighbouring keys. K4 as K10
+// (splat_prep3d.cu): CTAs of kStagedRows = 64 rows, so that 10,001 rows
+// cover every SM; its rows of xyz, codes and idx staged in shared memory
+// with 16-byte loads (RowStage), the combined codebook, scale and beta
+// there too, so that the color is a shared-memory read; and the rows out
+// through pack_bin_staged. No atomics; the counts go out per row and the
+// caller sums them, so a run is deterministic.
 
 #include <cuda_runtime.h>
 
@@ -74,7 +80,9 @@ splat_prep_raw_kernel(const float* __restrict__ xyz,
       colors[3 * i + 1], colors[3 * i + 2], g, Band{}, feat, keys, stats);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K4: rows staged as K10's are (RowStage), with the combined codebook,
+// scale and beta in shared memory, then the staged tail.
+__global__ void __launch_bounds__(kStagedRows)
 splat_prep_decode_kernel(const float* __restrict__ xyz,
                          const int* __restrict__ codes,
                          const int* __restrict__ idx,
@@ -83,27 +91,71 @@ splat_prep_decode_kernel(const float* __restrict__ xyz,
                          const float* __restrict__ embed, float b0, float b1,
                          float b2, Geom g, float* __restrict__ feat,
                          int* __restrict__ keys, int* __restrict__ stats) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= g.n_rows) return;
+  using Mean = RowStage<float, 2>;
+  using Code = RowStage<int, 3>;
+  using Idx = RowStage<int, 2>;
+  constexpr int kTable = 64 * 3;  // the combined codebook's floats
+  constexpr int kPer = (kTable + kStagedRows - 1) / kStagedRows;
+  __shared__ __align__(16) float s_xyz[Mean::kSize];
+  __shared__ __align__(16) int s_codes[Code::kSize];
+  __shared__ __align__(16) int s_idx[Idx::kSize];
+  __shared__ float s_embed[kTable];
+  __shared__ float s_sb[6];  // scale, then beta
+  __shared__ float4 s_feat[kStagedRows / 32][128];
+  const int t = threadIdx.x;
+  const int r0 = blockIdx.x * kStagedRows;
+  const int rows = min(kStagedRows, g.N - r0);
+  {
+    Mean m;
+    Code c;
+    Idx x;
+    float e[kPer];
+    m.load(xyz, r0, rows, t);
+    c.load(codes, r0, rows, t);
+    x.load(idx, r0, rows, t);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k)
+      if (t + k * kStagedRows < kTable)
+        e[k] = __ldg(embed + t + k * kStagedRows);
+    const float sb =
+        t < 3 ? __ldg(scale + t) : t < 6 ? __ldg(beta + t - 3) : 0.0f;
+    m.store(s_xyz, t);
+    c.store(s_codes, t);
+    x.store(s_idx, t);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k)
+      if (t + k * kStagedRows < kTable) s_embed[t + k * kStagedRows] = e[k];
+    if (t < 6) s_sb[t] = sb;
+  }
+  __syncthreads();
+  // every thread runs to the end (pack_bin_staged is warp-collective);
+  // rows past N read zeros and store nothing but the sentinel's zeros
+  const int r = r0 + t;
   const bool valid = r < g.N;
-  const int i = valid ? r : 0;
-  const float mx = tanhf(xyz[2 * i]);
-  const float my = tanhf(xyz[2 * i + 1]);
+  float mean[2];
+  int code[3], ix[2];
+  Mean::read(s_xyz, t, mean);
+  Code::read(s_codes, t, code);
+  Idx::read(s_idx, t, ix);
+  const float mx = tanhf(mean[0]);
+  const float my = tanhf(mean[1]);
   // dequantize as the generic path does: code * scale + beta, then + bound
   const float l11 = __fadd_rn(
-      __fadd_rn(__fmul_rn((float)codes[3 * i], scale[0]), beta[0]), b0);
+      __fadd_rn(__fmul_rn((float)code[0], s_sb[0]), s_sb[3]), b0);
   const float l21 = __fadd_rn(
-      __fadd_rn(__fmul_rn((float)codes[3 * i + 1], scale[1]), beta[1]), b1);
+      __fadd_rn(__fmul_rn((float)code[1], s_sb[1]), s_sb[4]), b1);
   const float l22 = __fadd_rn(
-      __fadd_rn(__fmul_rn((float)codes[3 * i + 2], scale[2]), beta[2]), b2);
+      __fadd_rn(__fmul_rn((float)code[2], s_sb[2]), s_sb[5]), b2);
   // the combined codebook holds every sum embed0[a] + embed1[b] at a*8 + b;
   // indices outside it read entry 0 rather than past the table
-  int comb = idx[2 * i] * 8 + idx[2 * i + 1];
+  int comb = ix[0] * 8 + ix[1];
   if (comb < 0 || comb >= 64) comb = 0;
-  project_pack_bin<false>(
-      r, valid, mx, my, __fmul_rn(l11, l11), __fmul_rn(l11, l21),
-      __fadd_rn(__fmul_rn(l21, l21), __fmul_rn(l22, l22)), embed[3 * comb],
-      embed[3 * comb + 1], embed[3 * comb + 2], g, Band{}, feat, keys, stats);
+  const float* col = s_embed + 3 * comb;
+  const Splat sp = project_head<false>(
+      mx, my, __fmul_rn(l11, l11), __fmul_rn(l11, l21),
+      __fadd_rn(__fmul_rn(l21, l21), __fmul_rn(l22, l22)), g, Band{});
+  pack_bin_staged(r, valid, sp, col[0], col[1], col[2], 1.0f, g,
+                  s_feat[t / 32], feat, keys, stats);
 }
 
 // K7: g.N = B * n_per rows, g.H the frame's height, g.tiles_y the canvas's
@@ -246,7 +298,8 @@ extern "C" int splat_prep_raw(const float* xyz, const float* chol,
 }
 
 // K4. xyz [N, 2] f32 (the f16 codes, widened), codes [N, 3] i32,
-// idx [N, 2] i32, scale [3], beta [3], embed [64, 3] f32; outputs as K5's.
+// idx [N, 2] i32 (these three and feat 16-byte aligned), scale [3],
+// beta [3], embed [64, 3] f32; outputs as K5's.
 extern "C" int splat_prep_decode(const float* xyz, const int* codes,
                                  const int* idx, const float* scale,
                                  const float* beta, const float* embed, int N,
@@ -256,7 +309,8 @@ extern "C" int splat_prep_decode(const float* xyz, const int* codes,
                                  int* keys, int* stats, cudaStream_t stream) {
   if (N < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Geom g = make_geom(N, H, W, tile_px, tiles_x, tiles_y, M, id_bits, q_cut);
-  splat_prep_decode_kernel<<<blocks_for(g.n_rows), kThreads, 0, stream>>>(
+  splat_prep_decode_kernel<<<(g.n_rows + kStagedRows - 1) / kStagedRows,
+                             kStagedRows, 0, stream>>>(
       xyz, codes, idx, scale, beta, embed, b0, b1, b2, g, feat, keys, stats);
   return static_cast<int>(cudaGetLastError());
 }

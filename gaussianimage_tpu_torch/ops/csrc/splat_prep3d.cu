@@ -34,15 +34,25 @@
 // Bound on the H100: bytes. At sh_degree 3 and M = 12 a row reads 236 B
 // (xyz, scales, quaternion, opacity, 48 coefficients) and writes 64 + 4M + 8
 // = 120 B: 3.56 MB over 10,001 rows, 1.06 us at 3.35 TB/s, against ~640
-// FP32 issue slots a row (0.19 us). Both sit under the launch latency; a
-// row's dependent chain (16 IEEE divisions, three expf, the SH) is about
-// three times K5's, so K10 takes longer than K4-K7 (PERF.md).
+// FP32 issue slots a row (0.19 us). The time is latency: 10,001 rows are
+// fewer than one warp for each of the card's 528 schedulers, so a launch
+// takes about a load's round trip plus the instruction stream of one row
+// (16 IEEE divisions with their slow-path branches, four expf, the SH)
+// issued by a lone warp.
 //
-// Design: the simple one, as K4-K7: one thread per row r in [0, N], row N
-// the zero sentinel. No shared memory, no atomics; the counts go out per
-// row and the caller sums them. The JAX kernel's [1, blk] lane layout and
-// its 512-row block cap fit the TPU's vector lanes and VMEM; neither
-// carries over.
+// Design: a CTA of kThreads3d = 128 threads on kStagedRows = 64 rows, so
+// that 10,001 rows make 157 CTAs and every SM works (256-thread CTAs of
+// one row a thread left 92 of the 132 idle), and each row's work is split
+// between two warp groups (see the kernel): the colors run beside the
+// projection instead of after it. Each group brings its inputs' rows to
+// shared memory with splat_prep_common.cuh's RowStage (every load issued
+// before any is used, 16-byte vectors over the rows' contiguous span; each
+// thread then reads its row without bank conflicts), where one thread a
+// row read a 192-byte SH row a float at a time, 32 lines a warp load. The
+// rows leave through pack_bin_staged: 2 KB of contiguous feature rows a
+// warp. No atomics; the counts go out per row and the caller sums them.
+// The JAX kernel's [1, blk] lane layout and its 512-row block cap fit the
+// TPU's vector lanes and VMEM; neither carries over.
 
 #include <cuda_runtime.h>
 
@@ -143,8 +153,7 @@ __device__ __forceinline__ void sh_factors(float x, float y, float z,
 // One channel of _sh_eval: C0 cf(0), then the terms in order (degree 1's
 // first and third subtracted), with cf(b) = cf[3 b].
 template <int kDeg>
-__device__ __forceinline__ float sh_channel(const float* f,
-                                            const float* __restrict__ cf) {
+__device__ __forceinline__ float sh_channel(const float* f, const float* cf) {
   constexpr int K = (kDeg + 1) * (kDeg + 1);
   float res = mul(kC0, cf[0]);
   if constexpr (kDeg >= 1) {
@@ -157,25 +166,16 @@ __device__ __forceinline__ float sh_channel(const float* f,
   return res;
 }
 
-template <int kDeg>
-__global__ void __launch_bounds__(kThreads)
-splat_prep_blend3d_kernel(const float* __restrict__ xyz,
-                          const float* __restrict__ scaling,
-                          const float* __restrict__ quat,
-                          const float* __restrict__ opac,
-                          const float* __restrict__ coeffs, Cam cam, Geom g,
-                          float* __restrict__ feat, int* __restrict__ keys,
-                          int* __restrict__ stats) {
-  constexpr int K = (kDeg + 1) * (kDeg + 1);
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= g.n_rows) return;
-  const bool valid = r < g.N;
-  const int i = valid ? r : 0;  // the sentinel row reads row 0, unused
-  const float x3 = xyz[3 * i], y3 = xyz[3 * i + 1], z3 = xyz[3 * i + 2];
-
+// One row's projection (camera3d.project_gaussians): the normalised
+// quaternion's rotation, Sigma3D, the view transform and perspective,
+// cov2d = J W Sigma W^T J^T + 0.3 I, its conic and 3-sigma radius (zero
+// behind the near plane); x3, y3, z3 the mean, scl the log scales.
+__device__ __forceinline__ Splat project3d(float x3, float y3, float z3,
+                                           const float (&scl)[3],
+                                           const float (&qt)[4],
+                                           const Cam& cam) {
   // quat -> rotation, normalised (camera3d.quat_to_rotmat)
-  float w = quat[4 * i], qx = quat[4 * i + 1], qy = quat[4 * i + 2],
-        qz = quat[4 * i + 3];
+  float w = qt[0], qx = qt[1], qy = qt[2], qz = qt[3];
   const float qn = fmaxf(
       __fsqrt_rn(add(add(add(mul(w, w), mul(qx, qx)), mul(qy, qy)),
                      mul(qz, qz))),
@@ -195,9 +195,9 @@ splat_prep_blend3d_kernel(const float* __restrict__ xyz,
   const float r22 = sub(1.0f, mul(2.0f, add(mul(qx, qx), mul(qy, qy))));
 
   // Sigma3D = (R S)(R S)^T
-  const float s0 = expf(scaling[3 * i]);
-  const float s1 = expf(scaling[3 * i + 1]);
-  const float s2 = expf(scaling[3 * i + 2]);
+  const float s0 = expf(scl[0]);
+  const float s1 = expf(scl[1]);
+  const float s2 = expf(scl[2]);
   const float m00 = mul(r00, s0), m01 = mul(r01, s1), m02 = mul(r02, s2);
   const float m10 = mul(r10, s0), m11 = mul(r11, s1), m12 = mul(r12, s2);
   const float m20 = mul(r20, s0), m21 = mul(r21, s1), m22 = mul(r22, s2);
@@ -243,15 +243,22 @@ splat_prep_blend3d_kernel(const float* __restrict__ xyz,
   float radii;
   conic_radius(s11, s12, s22, s.ca, s.cb, s.cc, radii);
   s.rx = s.ry = in_front ? radii : 0.0f;
+  return s;
+}
 
-  // colors: SH at the view direction, or sigmoid of the DC row
-  const float* cf = coeffs + static_cast<size_t>(i) * 3 * K;
+// One row's colors and opacity: SH at the view direction + 0.5 clamped at
+// 0, or sigmoid of the DC row at degree 0; sigmoid of the opacity logit.
+template <int kDeg>
+__device__ __forceinline__ float4 colors3d(float x3, float y3, float z3,
+                                           const float* cf, float logit,
+                                           const Cam& cam) {
   float rgb[3];
   if constexpr (kDeg > 0) {
     const float vx = sub(x3, cam.ox), vy = sub(y3, cam.oy),
                 vz = sub(z3, cam.oz);
     const float vn = fmaxf(
         __fsqrt_rn(add(add(mul(vx, vx), mul(vy, vy)), mul(vz, vz))), 1e-30f);
+    constexpr int K = (kDeg + 1) * (kDeg + 1);
     float f[K];
     sh_factors<kDeg>(dvd(vx, vn), dvd(vy, vn), dvd(vz, vn), f);
 #pragma unroll
@@ -261,17 +268,92 @@ splat_prep_blend3d_kernel(const float* __restrict__ xyz,
 #pragma unroll
     for (int c = 0; c < 3; ++c) rgb[c] = torch_sigmoid(cf[c]);
   }
-  pack_bin<false>(r, valid, s, rgb[0], rgb[1], rgb[2], torch_sigmoid(opac[i]),
-                  g, Band{}, feat, keys, stats);
+  return make_float4(rgb[0], rgb[1], rgb[2], torch_sigmoid(logit));
+}
+
+// Two groups of kStagedRows threads, warp-uniform, on the CTA's rows:
+// group 0 (warps 0-1) stages xyz, scaling and the quaternion and projects
+// each row; group 1 (warps 2-3) stages the opacity and the SH coefficients
+// and computes each row's colors and opacity, which it hands over in
+// shared memory; group 0 then stores the rows through the staged tail.
+constexpr int kThreads3d = 2 * kStagedRows;
+
+template <int kDeg>
+__global__ void __launch_bounds__(kThreads3d)
+splat_prep_blend3d_kernel(const float* __restrict__ xyz,
+                          const float* __restrict__ scaling,
+                          const float* __restrict__ quat,
+                          const float* __restrict__ opac,
+                          const float* __restrict__ coeffs, Cam cam, Geom g,
+                          float* __restrict__ feat, int* __restrict__ keys,
+                          int* __restrict__ stats) {
+  constexpr int K = (kDeg + 1) * (kDeg + 1);
+  using Vec3 = RowStage<float, 3>;
+  using Quat = RowStage<float, 4>;
+  using Opac = RowStage<float, 1>;
+  using Coef = RowStage<float, 3 * K>;
+  __shared__ __align__(16) float s_xyz[Vec3::kSize];
+  __shared__ __align__(16) float s_scl[Vec3::kSize];
+  __shared__ __align__(16) float s_quat[Quat::kSize];
+  __shared__ __align__(16) float s_opac[Opac::kSize];
+  __shared__ __align__(16) float s_cf[Coef::kSize];
+  __shared__ float4 s_col[kStagedRows];  // rgb, opacity
+  __shared__ float4 s_feat[kStagedRows / 32][128];
+  const int t = threadIdx.x % kStagedRows;  // the row in the CTA
+  const bool colors = threadIdx.x >= kStagedRows;
+  const int r0 = blockIdx.x * kStagedRows;
+  const int rows = min(kStagedRows, g.N - r0);
+  if (colors) {
+    Opac o;
+    Coef c;
+    o.load(opac, r0, rows, t);
+    c.load(coeffs, r0, rows, t);
+    o.store(s_opac, t);
+    c.store(s_cf, t);
+  } else {
+    Vec3 a, b;
+    Quat q;
+    a.load(xyz, r0, rows, t);
+    b.load(scaling, r0, rows, t);
+    q.load(quat, r0, rows, t);
+    a.store(s_xyz, t);
+    b.store(s_scl, t);
+    q.store(s_quat, t);
+  }
+  __syncthreads();
+  // rows past N read zeros; group 0 runs to the end (pack_bin_staged is
+  // warp-collective) and stores nothing for them but the sentinel's zeros
+  const int r = r0 + t;
+  const bool valid = r < g.N;
+  float pos[3];
+  Vec3::read(s_xyz, t, pos);
+  Splat s;
+  if (colors) {
+    float cf[3 * K], op[1];
+    Coef::read(s_cf, t, cf);
+    Opac::read(s_opac, t, op);
+    s_col[t] = colors3d<kDeg>(pos[0], pos[1], pos[2], cf, op[0], cam);
+  } else {
+    float scl[3], qt[4];
+    Vec3::read(s_scl, t, scl);
+    Quat::read(s_quat, t, qt);
+    s = project3d(pos[0], pos[1], pos[2], scl, qt, cam);
+  }
+  __syncthreads();
+  if (colors) return;
+  const float4 col = s_col[t];
+  pack_bin_staged(r, valid, s, col.x, col.y, col.z, col.w, g,
+                  s_feat[t / 32], feat, keys, stats);
 }
 
 }  // namespace
 
 // K10. xyz [N, 3], scaling [N, 3] (log scales), quat [N, 4], opac [N, 1]
-// (logits), coeffs [N, 3K] f32 basis-major, all in depth order; the camera's
-// 20 floats; feat [N+1, 16] f32, keys [M, N+1] i32, stats [2, N+1] i32; all
-// device pointers. Launches on `stream` and returns the launch's
-// cudaError_t (0 = success; cudaErrorInvalidValue for a degree outside 0-4).
+// (logits), coeffs [N, 3K] f32 basis-major, all in depth order and 16-byte
+// aligned; the camera's 20 floats; feat [N+1, 16] f32 (16-byte aligned),
+// keys [M, N+1] i32, stats [2, N+1] i32; all device pointers. Launches on
+// `stream` and returns the launch's cudaError_t (0 = success;
+// cudaErrorInvalidValue for a degree outside 0-4).
 extern "C" int splat_prep_blend3d(
     const float* xyz, const float* scaling, const float* quat,
     const float* opac, const float* coeffs, int N, int H, int W, int tile_px,
@@ -294,9 +376,9 @@ extern "C" int splat_prep_blend3d(
   g.q_cut = 0.0f;  // the sum path's gate: unused here
   const Cam cam{w00, w01, w02, w10, w11, w12, w20, w21, w22, tv0,
                 tv1, tv2, fx,  fy,  cx,  cy,  ox,  oy,  oz,  clip_near};
-  const int blocks = (g.n_rows + kThreads - 1) / kThreads;
+  const int blocks = (g.n_rows + kStagedRows - 1) / kStagedRows;
 #define K10_LAUNCH(D)                                                     \
-  splat_prep_blend3d_kernel<D><<<blocks, kThreads, 0, stream>>>(          \
+  splat_prep_blend3d_kernel<D><<<blocks, kThreads3d, 0, stream>>>(        \
       xyz, scaling, quat, opac, coeffs, cam, g, feat, keys, stats)
   switch (sh_degree) {
     case 0: K10_LAUNCH(0); break;

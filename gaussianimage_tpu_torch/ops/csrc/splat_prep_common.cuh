@@ -3,7 +3,10 @@
 // (conic_radius); the sum path's head, from a mean in NDC and a covariance
 // to the pixel center, conic and binning extents (project_head); and the
 // tail every front ends with, the packed feature row with its colors and
-// opacity, the binning keys and the counts of one Gaussian (pack_bin).
+// opacity, the binning keys and the counts of one Gaussian: its arithmetic
+// (feat_row, bin_row, write_bins) under two stores, pack_bin (one thread a
+// row, K5-K7) and pack_bin_staged (a warp's rows through shared memory, K4
+// and K10, which stage their input rows with RowStage).
 // Counterpart of gaussianimage_tpu/ops/splat_prep.py _project_pack_bin
 // (:61) and _pack_bin (:110), which replicate core/covariance.py,
 // rasterize_sum._axis_radii and tiles._expand_instances; and the RS model's
@@ -123,31 +126,34 @@ __device__ __forceinline__ Splat project_head(float mx, float my, float s11,
   return o;
 }
 
-// The tail of every front (JAX _pack_bin): row r's outputs feat[r] (16
-// floats: x, y, conic, the three colors, the opacity, zero pad), its M keys
-// keys[j * n_rows + r] (slot-major, as the JAX kernel lays them out) from
-// the bbox half-extents rx, ry, and its counts stats[r] = trunc,
-// stats[n_rows + r] = live instances. Rows r >= N (valid == false) write a
-// zero row, dead keys and zero counts. kBand (K7 only) clips the tile rows
-// to [band.lo, band.hi]; without it `band` is not read.
-template <bool kBand>
-__device__ __forceinline__ void pack_bin(
-    int r, bool valid, const Splat& s, float c0, float c1, float c2,
-    float opac, const Geom& g, Band band, float* __restrict__ feat,
-    int* __restrict__ keys, int* __restrict__ stats) {
-  const float x = s.x, y = s.y, rx = s.rx, ry = s.ry;
-  // ---- the feature row -------------------------------------------------
-  float4* row = reinterpret_cast<float4*>(feat + static_cast<size_t>(r) * kFW);
-  if (valid) {
-    row[0] = make_float4(x, y, s.ca, s.cb);
-    row[1] = make_float4(s.cc, c0, c1, c2);
-    row[2] = make_float4(opac, 0.0f, 0.0f, 0.0f);
-  } else {
-    row[0] = row[1] = row[2] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  }
-  row[3] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+// The tail of every front (JAX _pack_bin), in three parts. feat_row: row
+// r's 16 floats (x, y, conic, the three colors, the opacity, zero pad; a
+// zero row for rows r >= N, valid == false). bin_row: the tiles of the bbox
+// of half-extents rx, ry. write_bins: its M keys keys[j * n_rows + r]
+// (slot-major, as the JAX kernel lays them out; dead slots at INT32_MAX)
+// and its counts stats[r] = trunc, stats[n_rows + r] = live instances.
+// kBand (K7 only) clips the tile rows to [band.lo, band.hi]; without it
+// `band` is not read.
+__device__ __forceinline__ void feat_row(bool valid, const Splat& s, float c0,
+                                         float c1, float c2, float opac,
+                                         float4 (&v)[4]) {
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  v[0] = valid ? make_float4(s.x, s.y, s.ca, s.cb) : zero;
+  v[1] = valid ? make_float4(s.cc, c0, c1, c2) : zero;
+  v[2] = valid ? make_float4(opac, 0.0f, 0.0f, 0.0f) : zero;
+  v[3] = zero;
+}
 
-  // ---- binning keys (_expand_instances + the packed key) ---------------
+// A row's tiles: the first tile column and row of its bbox, the bbox's
+// width in tiles, its live slots min(area, M) and the slots cut, area - M.
+struct Bins {
+  int x0, y0, span_w, n_live, trunc;
+};
+
+template <bool kBand>
+__device__ __forceinline__ Bins bin_row(bool valid, const Splat& s,
+                                        const Geom& g, Band band) {
+  const float x = s.x, y = s.y, rx = s.rx, ry = s.ry;
   const float tp = (float)g.tile_px;
   const float hx = (float)(g.tiles_x - 1);
   const float ly = kBand ? band.lo : 0.0f;
@@ -162,23 +168,196 @@ __device__ __forceinline__ void pack_bin(
                       __fadd_rn(y, ry) >= 0.0f &&
                       __fsub_rn(y, ry) < (float)(g.tiles_y * g.tile_px);
   // the spans are small whole numbers: float and int arithmetic agree
-  const int span_w = inside ? (int)x1 - (int)x0 + 1 : 1;
-  const int area = inside ? span_w * ((int)y1 - (int)y0 + 1) : 0;
-  const int n_live = area < g.M ? area : g.M;
-  for (int j = 0; j < g.M; ++j) {
-    int key = kIntMax;
-    if (j < n_live) {
-      const int jy = j / span_w;
-      const int tile = ((int)y0 + jy) * g.tiles_x + ((int)x0 + (j - jy * span_w));
-      key = (tile << g.id_bits) | r;
-    }
-    keys[static_cast<size_t>(j) * g.n_rows + r] = key;
-  }
-  stats[r] = area > g.M ? area - g.M : 0;
-  stats[g.n_rows + r] = n_live;
+  Bins b;
+  b.x0 = (int)x0;
+  b.y0 = (int)y0;
+  b.span_w = inside ? (int)x1 - b.x0 + 1 : 1;
+  const int area = inside ? b.span_w * ((int)y1 - b.y0 + 1) : 0;
+  b.n_live = area < g.M ? area : g.M;
+  b.trunc = area > g.M ? area - g.M : 0;
+  return b;
 }
 
-// K4-K7: the head, then the tail with opacity 1 (the Cholesky and RS
+// Slot j is the tile (y0 + j / span_w, x0 + j % span_w): counted along the
+// row (jx) and down (tile_row), the same integers without a division.
+__device__ __forceinline__ void write_bins(int r, const Bins& b, const Geom& g,
+                                           int* __restrict__ keys,
+                                           int* __restrict__ stats) {
+  int jx = 0;
+  int tile_row = b.y0 * g.tiles_x + b.x0;
+  for (int j = 0; j < g.M; ++j) {
+    keys[static_cast<size_t>(j) * g.n_rows + r] =
+        j < b.n_live ? ((tile_row + jx) << g.id_bits) | r : kIntMax;
+    if (++jx == b.span_w) {
+      jx = 0;
+      tile_row += g.tiles_x;
+    }
+  }
+  stats[r] = b.trunc;
+  stats[g.n_rows + r] = b.n_live;
+}
+
+// The tail, one thread a row: four 16-byte stores of its row at a 64-byte
+// stride between lanes, then its keys and counts.
+template <bool kBand>
+__device__ __forceinline__ void pack_bin(
+    int r, bool valid, const Splat& s, float c0, float c1, float c2,
+    float opac, const Geom& g, Band band, float* __restrict__ feat,
+    int* __restrict__ keys, int* __restrict__ stats) {
+  float4 v[4];
+  feat_row(valid, s, c0, c1, c2, opac, v);
+  float4* row = reinterpret_cast<float4*>(feat + static_cast<size_t>(r) * kFW);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) row[k] = v[k];
+  write_bins(r, bin_row<kBand>(valid, s, g, band), g, keys, stats);
+}
+
+// Rows (and threads) of a CTA of the staged fronts K4 and K10: 10,001 rows
+// make 157 CTAs, more than the card's 132 SMs.
+constexpr int kStagedRows = 64;
+
+// The tail through shared memory, for the 32 lanes of a warp together, on
+// rows r - lane .. r - lane + 31 (lane = r % 32): every lane of the warp
+// calls it, rows r >= n_rows included, whose stores are masked. The rows
+// go to `stage` (the warp's 128 float4s) as lane l's part k at 4 l + (k ^
+// ((l >> 1) & 3)), then out as 2 KB of consecutive float4s, lane l storing
+// float4s l, l + 32, l + 64 and l + 96 of the span: 512 contiguous bytes a
+// warp store. The swizzle keeps both sides free of bank conflicts (each
+// quarter-warp meets 8 distinct 16-byte bank groups).
+__device__ __forceinline__ void pack_bin_staged(
+    int r, bool valid, const Splat& s, float c0, float c1, float c2,
+    float opac, const Geom& g, float4* __restrict__ stage,
+    float* __restrict__ feat, int* __restrict__ keys,
+    int* __restrict__ stats) {
+  const int lane = threadIdx.x & 31;
+  float4 v[4];
+  feat_row(valid, s, c0, c1, c2, opac, v);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) stage[4 * lane + (k ^ ((lane >> 1) & 3))] = v[k];
+  __syncwarp();
+  const int r0 = r - lane;
+  float4* out = reinterpret_cast<float4*>(feat) + static_cast<size_t>(r0) * 4;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int q = lane + 32 * k;  // row q / 4 of the warp's, part q % 4
+    const int row = q >> 2;
+    if (r0 + row < g.n_rows)
+      out[q] = stage[4 * row + ((q & 3) ^ ((row >> 1) & 3))];
+  }
+  if (r < g.n_rows)
+    write_bins(r, bin_row<false>(valid, s, g, Band{}), g, keys, stats);
+}
+
+// 8- and 16-byte vectors of a 4-byte type
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  using V2 = float2;
+  using V4 = float4;
+};
+template <>
+struct Vec<int> {
+  using V2 = int2;
+  using V4 = int4;
+};
+
+// A CTA's rows [r0, r0 + kStagedRows) of a row-major [N, kW] array of
+// 4-byte values, brought to shared memory (kSize values, 16-byte aligned)
+// in two steps, so that a kernel issues every stage's loads before it
+// stores any. load reads the rows' contiguous span as 16-byte vectors,
+// consecutive threads on consecutive vectors (the span starts on a 16-byte
+// boundary when src does: r0 is a multiple of 4); in a CTA short of rows it
+// reads the ragged end a value at a time, and rows past N as zero. store
+// puts vector q where it lands in row t's kPitch values. read gives thread
+// t its row in registers, in the widest access that keeps a warp's reads on
+// distinct banks: 16-byte vectors when kW is a multiple of 4, one 8-byte
+// vector when kW = 2, else one value at a time (kW odd). The pitch is kW,
+// or kW + 4 where kW / 4 is even (48: a row of 13 vectors), so that eight
+// threads' 16-byte reads meet eight bank groups.
+template <typename T, int kW>
+struct RowStage {
+  static_assert(kW % 2 == 1 || kW == 2 || kW % 4 == 0, "a staged row width");
+  using V2 = typename Vec<T>::V2;
+  using V4 = typename Vec<T>::V4;
+  static constexpr bool kVecRows = kW % 4 == 0;
+  static constexpr int kPitch = kVecRows && (kW / 4) % 2 == 0 ? kW + 4 : kW;
+  static constexpr int kSize = kStagedRows * kPitch;
+  static constexpr int kVecs = kStagedRows * kW / 4;  // of a whole CTA
+  static constexpr int kIters = (kVecs + kStagedRows - 1) / kStagedRows;
+  V4 v[kIters];
+
+  // rows = min(kStagedRows, N - r0), at most 0 in a CTA of the sentinel
+  // row alone; i in [0, kStagedRows), the thread's place in the group that
+  // stages the array
+  __device__ __forceinline__ void load(const T* __restrict__ src, int r0,
+                                       int rows, int i) {
+    const T* base = src + static_cast<size_t>(r0) * kW;
+    const V4* vec = reinterpret_cast<const V4*>(base);
+    if (rows == kStagedRows) {
+#pragma unroll
+      for (int k = 0; k < kIters; ++k) {
+        const int q = i + k * kStagedRows;
+        if (kVecs % kStagedRows == 0 || q < kVecs) v[k] = __ldg(vec + q);
+      }
+      return;
+    }
+    const int n = rows > 0 ? rows * kW : 0;
+#pragma unroll
+    for (int k = 0; k < kIters; ++k) {
+      const int q = i + k * kStagedRows;
+      if (4 * q + 4 <= n) {
+        v[k] = __ldg(vec + q);
+      } else {
+        T a[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          a[c] = 4 * q + c < n ? base[4 * q + c] : T(0);
+        v[k].x = a[0];
+        v[k].y = a[1];
+        v[k].z = a[2];
+        v[k].w = a[3];
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(T* s, int i) const {
+#pragma unroll
+    for (int k = 0; k < kIters; ++k) {
+      const int q = i + k * kStagedRows;
+      if (kVecs % kStagedRows == 0 || q < kVecs) {
+        const int at = kPitch == kW
+                           ? 4 * q
+                           : q / (kW / 4) * kPitch + 4 * (q % (kW / 4));
+        *reinterpret_cast<V4*>(s + at) = v[k];
+      }
+    }
+  }
+
+  static __device__ __forceinline__ void read(const T* s, int t,
+                                              T (&out)[kW]) {
+    const T* row = s + t * kPitch;
+    if constexpr (kVecRows) {
+#pragma unroll
+      for (int i = 0; i < kW / 4; ++i) {
+        const V4 x = reinterpret_cast<const V4*>(row)[i];
+        out[4 * i] = x.x;
+        out[4 * i + 1] = x.y;
+        out[4 * i + 2] = x.z;
+        out[4 * i + 3] = x.w;
+      }
+    } else if constexpr (kW == 2) {
+      const V2 x = *reinterpret_cast<const V2*>(row);
+      out[0] = x.x;
+      out[1] = x.y;
+    } else {
+#pragma unroll
+      for (int i = 0; i < kW; ++i) out[i] = row[i];
+    }
+  }
+};
+
+// K5-K7: the head, then the tail with opacity 1 (the Cholesky and RS
 // models' fixed opacity).
 template <bool kBand>
 __device__ __forceinline__ void project_pack_bin(

@@ -15,8 +15,9 @@ Per Gaussian it emits:
 
 Five CUDA kernels in ``csrc/splat_prep.cu`` share one front
 (``csrc/splat_prep_common.cuh``: the head ``project_head``, then the tail
-``pack_bin`` with opacity 1; the 3DGS prep K10, ops/splat_prep3d.py, ends
-with the same tail and a real opacity):
+with opacity 1, ``pack_bin`` or, for K4, the staged ``pack_bin_staged``;
+the 3DGS prep K10, ops/splat_prep3d.py, ends with the staged tail and a
+real opacity):
 
 - K5 ``raw_prep``: from raw parameters (tanh means, the Cholesky bound),
   the serving render's front (``fused_render_cholesky``, ``render_fast``);
@@ -302,6 +303,19 @@ def _check_inputs(kernel: str, named):
             raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
 
 
+def _check_aligned(kernel: str, named):
+    """named: (name, tensor); raises unless each tensor's data starts on a
+    16-byte boundary. K4 and K10 load their rows as 16-byte vectors; a
+    view that starts a row into its storage (``x[1:]``) is contiguous but
+    need not be aligned."""
+    for name, x in named:
+        if x.data_ptr() % 16:
+            raise ValueError(f"{kernel} loads {name} as 16-byte vectors: its "
+                             f"data must start on a 16-byte boundary (a "
+                             f"fresh tensor or .clone()), not at "
+                             f"{x.data_ptr() % 16} bytes past one")
+
+
 def _launch(fn_name: str, kernel: str, inputs, bound, H, W, tile_px, M,
             q_cut, frames=None) -> Prep:
     """Launch ``fn_name`` on the N rows of ``inputs[0]`` and a canvas of
@@ -355,7 +369,8 @@ def decode_prep(xyz, codes, idx, scale, beta, embed, bound, H: int, W: int,
     ``beta`` [3] and the combined codebook ``embed`` [64, 3].
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    version. ``decode_prep.launches`` counts the kernel's launches."""
+    version. ``decode_prep.launches`` counts the kernel's launches. The
+    row inputs must start on a 16-byte boundary (``_check_aligned``)."""
     if xyz.device.type == "cpu":
         return decode_prep_plain(xyz, codes, idx, scale, beta, embed, bound,
                                  H, W, tile_px, M, q_cut)
@@ -367,6 +382,7 @@ def decode_prep(xyz, codes, idx, scale, beta, embed, bound, H: int, W: int,
                          ("beta", beta, torch.float32, (3,)),
                          ("embed", embed, torch.float32,
                           (CODEBOOK * CODEBOOK, 3))])
+    _check_aligned("K4", [("xyz", xyz), ("codes", codes), ("idx", idx)])
     out = _launch("splat_prep_decode", "K4 splat_prep_decode",
                   (xyz, codes, idx, scale, beta, embed), bound, H, W,
                   tile_px, M, q_cut)

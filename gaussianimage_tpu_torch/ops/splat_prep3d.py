@@ -20,7 +20,7 @@ at degree 0), then the shared tail ``splat_prep.pack_bin`` with the
 isotropic 3-sigma bbox, as ``rasterize_gaussians_blend`` bins.
 
 One CUDA kernel, K10 ``blend3d_prep`` (``csrc/splat_prep3d.cu``, sharing
-``conic_radius`` and ``pack_bin`` with K4-K7 in
+``conic_radius``, the row staging and the staged tail with K4 in
 ``csrc/splat_prep_common.cuh``), with a plain PyTorch version of the same
 math beside it, op for op (``blend3d_prep_plain``). The wrapper takes the
 plain version for CPU tensors only; a CUDA tensor launches the kernel or
@@ -41,8 +41,9 @@ import torch
 from gaussianimage_tpu_torch.core.sh import num_sh_bases, spherical_harmonics
 from gaussianimage_tpu_torch.ops import _build
 from gaussianimage_tpu_torch.ops import stream_common as sc
-from gaussianimage_tpu_torch.ops.splat_prep import (Prep, _check_inputs,
-                                                    _finish, conic_radius,
+from gaussianimage_tpu_torch.ops.splat_prep import (Prep, _check_aligned,
+                                                    _check_inputs, _finish,
+                                                    conic_radius,
                                                     fused_decode_supported,
                                                     pack_bin, prep_geometry)
 
@@ -171,7 +172,8 @@ def blend3d_prep(xyz, scaling, quats, opac, coeffs, cam: Sequence[float],
     the DC colors at degree 0), and the 20 ``camera`` floats.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    version. ``blend3d_prep.launches`` counts the kernel's launches."""
+    version. ``blend3d_prep.launches`` counts the kernel's launches. The
+    row inputs must start on a 16-byte boundary (``_check_aligned``)."""
     if not 0 <= sh_degree <= 4:
         raise ValueError(f"K10 takes sh_degree 0-4, got {sh_degree}")
     if len(cam) != 20:
@@ -186,6 +188,9 @@ def blend3d_prep(xyz, scaling, quats, opac, coeffs, cam: Sequence[float],
         ("quats", quats, torch.float32, (N, 4)),
         ("opac", opac, torch.float32, (N, 1)),
         ("coeffs", coeffs, torch.float32, (N, 3 * num_sh_bases(sh_degree)))])
+    _check_aligned("K10", [("xyz", xyz), ("scaling", scaling),
+                           ("quats", quats), ("opac", opac),
+                           ("coeffs", coeffs)])
     tiles_x, tiles_y, id_bits = prep_geometry(N, H, W, tile_px)
     dev = xyz.device
     feat = torch.empty(N + 1, sc.FW, dtype=torch.float32, device=dev)

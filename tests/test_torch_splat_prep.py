@@ -19,6 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -149,6 +150,61 @@ def test_decode_prep_plain_matches_jax(cap):
                                                      l[:, 2]),
         colors, H, W, cfg.tile_px, m_span, cfg.q_cut)
     np.testing.assert_allclose(feat.numpy(), jfeat[:N + 1], **TOL)
+
+
+@pytest.mark.parametrize("n", [1, 33, 65])
+def test_decode_prep_plain_rows_match_jax(n):
+    """The plain K4 on the first n code rows (the card's K4 stages 64-row
+    blocks: n = 1, 33, 65 leave a partial block and warp) against JAX's
+    fused_prep_cholesky under a 3-tile span: the keys equal in their
+    slot-major [M, N+1] layout, and each row's counts (trunc, live) equal
+    min / excess of its area over M, the area read off JAX's keys under a
+    span of every tile."""
+    jcfg, cfg = JCfg(fused_prep=True), RasterizeConfig(fused_prep=True)
+    m_span = 3
+    all_tiles = -(-H // cfg.tile_px) * -(-W // cfg.tile_px)
+    xyz16, codes, scale, beta, idx, comb = _code_scene()
+    xyz = xyz16[:n].astype(np.float32)
+    rows = (xyz, codes[:n], idx[:n])
+
+    def jax_keys(m):
+        _, jkeys, jtrunc, jn_total = jax.jit(
+            lambda x, c, i: jsp.fused_prep_cholesky(
+                x, c, jnp.asarray(scale), jnp.asarray(beta), BOUND, i,
+                jnp.asarray(comb), H, W, jcfg, m))(
+            *(jnp.asarray(r) for r in rows))
+        jkeys = np.asarray(jkeys).reshape(m, -1)[:, :n + 1]
+        return jkeys, int(jtrunc), int(jn_total)
+
+    jkeys, jtrunc, jn_total = jax_keys(m_span)
+    area = (jax_keys(all_tiles)[0] != INT_MAX).sum(axis=0)
+    _, keys, stats = sp.decode_prep(
+        *(torch.from_numpy(np.ascontiguousarray(r)) for r in rows),
+        torch.from_numpy(scale), torch.from_numpy(beta),
+        torch.from_numpy(comb), BOUND, H, W, cfg.tile_px, m_span,
+        float(cfg.q_cut))
+    np.testing.assert_array_equal(keys.numpy(), jkeys)
+    np.testing.assert_array_equal(stats[0].numpy(),
+                                  np.maximum(area - m_span, 0))
+    np.testing.assert_array_equal(stats[1].numpy(),
+                                  np.minimum(area, m_span))
+    assert (int(stats[0].sum()), int(stats[1].sum())) == (jtrunc, jn_total)
+    if n == 65:
+        assert jtrunc > 0
+
+
+def test_decode_prep_refuses_unaligned_rows():
+    """K4 loads its row inputs as 16-byte vectors: the wrapper's alignment
+    check passes fresh tensors and refuses a view one [N, 2] row (8 bytes)
+    into its storage. CPU tensors reach the plain version, so the check is
+    called as the wrapper calls it on a CUDA tensor."""
+    xyz = torch.zeros(9, 2)
+    codes = torch.zeros(9, 3, dtype=torch.int32)
+    sp._check_aligned("K4", [("xyz", xyz), ("codes", codes)])
+    with pytest.raises(ValueError, match="16-byte"):
+        sp._check_aligned("K4", [("xyz", xyz[1:])])
+    with pytest.raises(ValueError, match="16-byte"):
+        sp._check_aligned("K4", [("codes", codes[1:])])
 
 
 @pytest.mark.parametrize("n,h,w,kw", [

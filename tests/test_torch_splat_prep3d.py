@@ -152,6 +152,58 @@ def test_blend3d_prep_plain_matches_jax(case):
     np.testing.assert_allclose(feat.numpy(), jfeat[:N + 1], **TOL)
 
 
+@pytest.mark.parametrize("deg", [0, 3])
+@pytest.mark.parametrize("n", [1, 33, 65])
+def test_blend3d_prep_plain_rows_match_jax(deg, n):
+    """The plain K10 on the first n depth-ordered rows (the card's K10
+    stages 64-row blocks: n = 1, 33, 65 leave a partial block and warp)
+    against JAX's fused_prep_blend3d, under 16-pixel tiles and a 3-tile
+    span so that rows are cut: the keys equal in their slot-major [M, N+1]
+    layout, and each row's counts (trunc, live) equal min / excess of its
+    area over M, the area read off JAX's keys under a span of every
+    tile."""
+    jm, p = _params(deg, seed=10 + deg)
+    V, tr = jm.viewmat, jm.translation
+    tile_px, m_span = 16, 3
+    bcfg = jm.blend_cfg._replace(tile_px=tile_px)
+    all_tiles = -(-H // tile_px) * -(-W // tile_px)
+    depth = p["_xyz"] @ V[2, :3] + V[2, 3]
+    rows = [r[:n] for r in _rows(p, deg, np.argsort(depth, kind="stable"))]
+
+    def jax_keys(m):
+        _, jkeys, jtrunc, jn_total = jax.jit(
+            lambda *a: j3.fused_prep_blend3d(
+                *a, V, jm.focal, jm.focal, W / 2, H / 2, tr, deg, H, W,
+                bcfg, m))(*(jnp.asarray(r) for r in rows))
+        jkeys = np.asarray(jkeys).reshape(m, -1)[:, :n + 1]
+        return jkeys, int(jtrunc), int(jn_total)
+
+    jkeys, jtrunc, jn_total = jax_keys(m_span)
+    area = (jax_keys(all_tiles)[0] != INT_MAX).sum(axis=0)
+    cam = p3.camera(V, jm.focal, jm.focal, W / 2, H / 2, tr)
+    _, keys, stats = p3.blend3d_prep(*(_t(r) for r in rows), cam, deg, H, W,
+                                     tile_px, m_span)
+    np.testing.assert_array_equal(keys.numpy(), jkeys)
+    np.testing.assert_array_equal(stats[0].numpy(),
+                                  np.maximum(area - m_span, 0))
+    np.testing.assert_array_equal(stats[1].numpy(),
+                                  np.minimum(area, m_span))
+    assert (int(stats[0].sum()), int(stats[1].sum())) == (jtrunc, jn_total)
+    if n == 65:
+        assert jtrunc > 0
+
+
+def test_blend3d_prep_refuses_unaligned_rows():
+    """K10 loads its row inputs as 16-byte vectors: the wrapper's
+    alignment check passes a fresh tensor and refuses a view one [N, 3]
+    row (12 bytes) into its storage. CPU tensors reach the plain version,
+    so the check is called as the wrapper calls it on a CUDA tensor."""
+    xyz = torch.zeros(9, 3)
+    p3._check_aligned("K10", [("xyz", xyz), ("coeffs", torch.zeros(9, 48))])
+    with pytest.raises(ValueError, match="16-byte"):
+        p3._check_aligned("K10", [("xyz", xyz[1:])])
+
+
 @pytest.mark.parametrize("n, h, w, kw", [
     (384, 64, 96, {"fused_prep": False}),                    # flag off
     (384, 64, 96, {"fused_prep": True}),
