@@ -103,9 +103,20 @@ Phases, one JSON line each (with ``elapsed_s``):
              state's K6a decode against its evaluation render;
 8e. rs_kernel K6b on the RS fit's parameters and K6a on the RS QAT codes
              under serving(10000), each against its plain version (sorted
-             keys, trunc and n_total integer-exact, feature rows to 1e-6,
-             keys [M, N+1] and per-row counts equal), and K6b's stream
-             (gids, starts) equal to the generic binning;
+             keys, trunc and n_total integer-exact, feature rows bit for
+             bit, keys [M, N+1] and per-row counts equal), there, on their
+             first EDGE_ROWS rows and on seeded adversarial rows (K6b: raw
+             rotations of +-30, angles near pi / 2 and pi, scales at the
+             conic's determinant floor, sx = sy; K6a: codes at the 6-bit
+             range's ends, VQ indices outside the codebook, held to the
+             plain version on entry 0 there); K6b's stream (gids, starts)
+             equal to the generic binning;
+8e'. scan_decode ``batched.decode_many(force="scan")`` of two stacked frames
+             at N = 9999 (SCAN_N: frame 1's code arrays start 4-12 bytes
+             off a 16-byte boundary), china + flower's QAT states cut to
+             9999 rows through K4 and the RS QAT state's first and last
+             9999 rows through K6a: two fused launches each, each frame bit
+             for bit equal to its single-frame decode;
 8f. rs_codec the codec CLI ``test_quantize --model_name GaussianImage_RS`` on
              that QAT state, as a two-image dataset (the flower photo and
              state twice, so the dataset decode stacks two frames): decode
@@ -207,9 +218,9 @@ Phases, one JSON line each (with ``elapsed_s``):
              traced. K1-K3's bounds count the gated pairs and a cull per
              slot and walk (``sum_ops``); the older count, which charges q
              to every pair of the windows, is ``sum_bound_ms_all_pairs``;
-             the fused prep's floor (``prep_floor``): K4, K7 (B = 2) and
-             K10 at each sh_degree 0-4 traced beside zero_() of each of
-             their three outputs and of one buffer of those bytes.
+             the fused prep's floor (``prep_floor``): K4, K6b, K6a, K7
+             (B = 2) and K10 at each sh_degree 0-4 traced beside zero_() of
+             each of their three outputs and of one buffer of those bytes.
 
 Then the raw ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 line (the 13 kernels; K1-K3, K8 and K9 with their aligned branch's numbers
@@ -249,6 +260,12 @@ PREP_TOL = 1e-6    # feature rows, K4 / K5 against their plain versions
 # row counts of K4's and K10's extra cases: a partial last CTA of 64 rows
 # and a partial last warp
 EDGE_ROWS = (1, 31, 33, 63, 65, 1000)
+# the scan decode of stacked frames at a row count that is not a multiple
+# of 4: frame 1's [N, 1], [N, 2] and [N, 3] code arrays start 4, 8 and 12
+# bytes past a 16-byte boundary
+SCAN_N = 9999
+RS_EDGE_SEED = 7   # K6a / K6b's adversarial rows
+RS_CODE_MAX = 63   # the RS model's 6-bit quantizers' largest code
 IMG_TOL = 2e-5     # fused against generic images, but for MAX_EDGE_PX
 MAX_EDGE_PX = 16   # pixels above 1e-4 where an instance crosses a tile edge
 MIN_K4 = 300       # K4 launches in the codec run: two timed decode bursts
@@ -262,24 +279,27 @@ QAT_BPP = 1.4285   # both models: float16 means, 3 x 6-bit codes, 2 x 3-bit VQ
 RS = "GaussianImage_RS"
 RS_QAT_ITERS = 2000
 # FP32 issue slots per row of the fused prep (an FMA as one): two tanhf
-# (~20 each), seven IEEE divisions (~10 each) and four square roots (~8
-# each) and ~70 adds, multiplies, floors and compares; K4 adds its
-# dequantization and codebook index (~10); and per key slot ~6 integer
+# (~20 each), three IEEE divisions (~10 each: the conic's and the two axis
+# extents'), four square roots (~8 each) and ~74 adds, multiplies (the
+# bbox's four by the tile's exact reciprocal), floors and compares; K4 adds
+# its dequantization and codebook index (~10); and per key slot ~6 integer
 # operations
 # K7 adds the frame's integer division (~20)
-# K6b and K6a swap the Cholesky covariance (~5) for the RS one: sinf and
-# cosf (~30 each with their range reduction), ~10 multiplies and adds, and
-# in K6b the sigmoid's expf and IEEE division (~20); K6a its angle's
+# K6b and K6a swap the Cholesky covariance (~5) for the RS one: sincosf
+# (~35: one range reduction for both), ~10 multiplies and adds, and in K6b
+# the sigmoid's expf and IEEE division (~20); K6a its angle's
 # dequantization (~3)
+# The staged fronts (K4, K6a, K6b, K10) add a few shared-memory reads a
+# row, not counted
 # K10 (3DGS, sh_degree 3): the quaternion's norm and four divisions (~55),
 # the rotation (~35), three expf (~25), Sigma (~40), the view transform and
 # projection (~45), the Jacobian and J W (~60), cov2d (~50), the conic and
 # radius (~45), the view direction (~45), 16 SH bases over three channels
 # (~140), the clamps and the opacity's sigmoid (~25), and the tail's bbox,
-# floors and compares (~75)
-PREP_ROW_SLOTS = {"splat_prep_raw": 212, "splat_prep_decode": 222,
-                  "splat_prep_decode_batch": 242, "splat_prep_rs_raw": 297,
-                  "splat_prep_rs_decode": 290, "splat_prep_blend3d": 640}
+# floors and compares (~40)
+PREP_ROW_SLOTS = {"splat_prep_raw": 176, "splat_prep_decode": 186,
+                  "splat_prep_decode_batch": 206, "splat_prep_rs_raw": 236,
+                  "splat_prep_rs_decode": 229, "splat_prep_blend3d": 605}
 PREP_KEY_SLOTS = 6
 K1_TOL = 1e-5      # max |diff| of the render, K1 against its plain version
 ROW_TOL = 1e-4     # gradient rows: |diff| <= ROW_TOL x the column's max |.|
@@ -1006,8 +1026,8 @@ def main() -> None:
         """A fused prep's (feat, keys [M, N+1], stats [2, N+1]) against its
         plain version's: sorted keys, (trunc, n_total) and feature rows to
         PREP_TOL, the keys in their slot-major layout and the per-row
-        counts equal (torch.equal); with ``bits`` (K4 and K10, whose
-        stores are staged) also the rows bit for bit."""
+        counts equal (torch.equal); with ``bits`` (K4, K6a, K6b and K10,
+        whose stores are staged) also the rows bit for bit."""
         (feat_k, keys_k, stats_k), (feat_p, keys_p, stats_p) = out, ref
         err = float((feat_k - feat_p).abs().max())
         keys_equal = bool(torch.equal(torch.sort(keys_k.flatten()).values,
@@ -1631,7 +1651,8 @@ def main() -> None:
                     SCALING_BOUND, Hf, Wf, serve_cfg.tile_px, m_s, q_s)
         out6b = prep.rs_raw_prep(*k6b_args)
         torch.cuda.synchronize()
-        k6b = prep_check("K6b", out6b, prep.rs_raw_prep_plain(*k6b_args))
+        k6b = prep_check("K6b", out6b, prep.rs_raw_prep_plain(*k6b_args),
+                         bits=True)
         gids6, starts6, _ = rs.stream_from_keys(out6b[1].reshape(-1),
                                                 SERVE_N, Hf, Wf, serve_cfg,
                                                 I_s)
@@ -1658,8 +1679,123 @@ def main() -> None:
                     SCALING_BOUND, 512, 768, serve_cfg.tile_px, m_s, q_s)
         out6a = prep.rs_decode_prep(*k6a_args)
         torch.cuda.synchronize()
-        k6a = prep_check("K6a", out6a, prep.rs_decode_prep_plain(*k6a_args))
+        k6a = prep_check("K6a", out6a, prep.rs_decode_prep_plain(*k6a_args),
+                         bits=True)
+
+        def rs_case(name, kernel, plain, args, ref_args=None):
+            out = kernel(*args)
+            torch.cuda.synchronize()
+            return prep_check(name, out, plain(*(ref_args or args)),
+                              bits=True)
+
+        # both on their first n rows: a partial last CTA (64 rows) and warp
+        for n in EDGE_ROWS:
+            k6b[f"n{n}"] = rs_case(
+                f"K6b (N = {n})", prep.rs_raw_prep, prep.rs_raw_prep_plain,
+                (*(a[:n] for a in k6b_args[:4]), *k6b_args[4:]))
+            k6a[f"n{n}"] = rs_case(
+                f"K6a (N = {n})", prep.rs_decode_prep,
+                prep.rs_decode_prep_plain,
+                (*(a[:n] for a in k6a_args[:4]), *k6a_args[4:]))
+        # seeded adversarial rows, a kind a row (row % 6; kind 0 as it is).
+        # K6b on the fit's rows: raw rotations of +-30 (the sigmoid
+        # saturates: theta 2 pi or ~0), theta near pi / 2 and near pi,
+        # scales at the conic's 1e-6 determinant floor, sx = sy
+        er = np.random.default_rng(RS_EDGE_SEED)
+        kind = torch.arange(SERVE_N, device=dev) % 6
+        n_k = [int((kind == k).sum()) for k in range(6)]
+
+        def noise(k, scale, cols=1):
+            return torch.as_tensor(er.normal(0.0, scale, (n_k[k], cols)),
+                                   device=dev, dtype=torch.float32)
+
+        rot_e = k6b_args[2].clone()
+        rot_e[kind == 1] = 30.0 * torch.as_tensor(
+            er.choice([-1.0, 1.0], (n_k[1], 1)), device=dev,
+            dtype=torch.float32)
+        rot_e[kind == 2] = -math.log(3.0) + noise(2, 1e-6)  # sigmoid 1/4
+        rot_e[kind == 3] = noise(3, 1e-6)                   # sigmoid 1/2
+        scl_e = k6b_args[1].clone()
+        scl_e[kind == 4] = -torch.as_tensor(
+            SCALING_BOUND, device=dev) + torch.as_tensor(
+            er.uniform(-0.05, 0.05, (n_k[4], 2)), device=dev,
+            dtype=torch.float32)
+        scl_e[kind == 5, 1] = (scl_e[kind == 5, 0] + SCALING_BOUND[0]
+                               - SCALING_BOUND[1])
+        k6b["adversarial"] = rs_case(
+            "K6b (adversarial rows)", prep.rs_raw_prep,
+            prep.rs_raw_prep_plain,
+            (k6b_args[0], scl_e, rot_e, *k6b_args[3:]))
+        # K6a on the QAT codes: scaling codes at the range's ends (kinds 1,
+        # 4), rotation codes there (2, 5), and combined VQ indices outside
+        # the codebook (3), which K6a reads as entry 0 (K4's clamp; JAX's
+        # one-hot lookup gives a zero color there, and the codec writes no
+        # such index): held to the plain version on indices (0, 0) there
+        sc_e, rc_e, ix_e = (a.clone() for a in k6a_args[1:4])
+        for k, codes in ((1, sc_e), (4, sc_e), (2, rc_e), (5, rc_e)):
+            codes[kind == k] = torch.as_tensor(
+                er.choice([0, RS_CODE_MAX], (n_k[k], codes.shape[1])),
+                device=dev, dtype=torch.int32)
+        ix_e[kind == 3] = torch.as_tensor(
+            er.choice(np.array([[8, 0], [-1, 3], [7, 9], [100, 100],
+                                [-9, 0]]), n_k[3]), device=dev,
+            dtype=torch.int32)
+        comb_e = ix_e[:, 0] * 8 + ix_e[:, 1]
+        outside = (comb_e < 0) | (comb_e >= 64)
+        ix_ref = torch.where(outside[:, None], torch.zeros_like(ix_e), ix_e)
+        k6a["adversarial"] = rs_case(
+            "K6a (adversarial rows)", prep.rs_decode_prep,
+            prep.rs_decode_prep_plain,
+            (k6a_args[0], sc_e, rc_e, ix_e, *k6a_args[4:]),
+            (k6a_args[0], sc_e, rc_e, ix_ref, *k6a_args[4:]))
+        k6a["adversarial"]["rows_outside_codebook"] = int(outside.sum())
         phase("rs_kernel", k6b=k6b, k6a=k6a)
+
+        # scan_decode: batched.decode_many(force="scan") of two stacked
+        # frames of SCAN_N rows, not a multiple of 4, so that frame 1's code
+        # arrays start off a 16-byte boundary: china's and flower's QAT
+        # states through K4, the RS QAT state's first and last SCAN_N rows
+        # through K6a; each frame bit-equal to its single-frame decode
+        def cut(model, lo):
+            """A fused-prep quantize twin of ``model`` on its rows lo ..
+            lo + SCAN_N."""
+            twin = make_model(model.name, device=dev, num_points=SCAN_N,
+                              H=512, W=768, quantize=True,
+                              raster=RasterizeConfig(fused_prep=True))
+            twin.load_state_dict({
+                k: v[lo:lo + SCAN_N] if v.ndim and v.shape[0] == SERVE_N
+                else v for k, v in model.state_dict().items()})
+            return twin
+
+        scan = {}
+        for name, frames, counter in (
+                ("cholesky_k4", (cut(china_s, 0), cut(flower_q, 0)),
+                 prep.decode_prep),
+                ("rs_k6a", (cut(rq, 0), cut(rq, SERVE_N - SCAN_N)),
+                 prep.rs_decode_prep)):
+            encs = [m.compress_wo_ec() for m in frames]
+            stacked = test_quantize.stack_frames(frames, encs, dev)
+            before = counter.launches
+            out = bt.decode_many(frames[0], *stacked, force="scan")
+            torch.cuda.synchronize()
+            launched = counter.launches - before
+            single = [m.decompress_wo_ec({k: torch.as_tensor(v, device=dev)
+                                          for k, v in e.items()})["render"][0]
+                      for m, e in zip(frames, encs)]
+            equal = [bool(torch.equal(out["render"][b], single[b]))
+                     for b in range(2)]
+            offsets = {k: v[1].data_ptr() % 16 for k, v in stacked[2].items()
+                       if k != "xyz"}
+            scan[name] = {"frames_bit_equal": equal, "launches": launched,
+                          "frame1_offsets_mod16": offsets,
+                          "n_dropped": out["raster_aux"]["n_dropped"]
+                          .tolist()}
+            if not all(equal) or launched != 2 or not any(offsets.values()):
+                fail(f"the scan decode at N = {SCAN_N} ({name}): frames "
+                     f"bit-equal to their single-frame decodes {equal}, "
+                     f"{launched} fused launches (want 2), frame 1's code "
+                     f"arrays at {offsets} bytes past 16")
+        phase("scan_decode", n=SCAN_N, **scan)
 
         # rs_codec: the codec CLI on that state, the flower photo and its
         # state twice as a two-image dataset, counts read around it
@@ -2659,7 +2795,7 @@ def main() -> None:
     # zero_() of each of its three outputs: PyTorch's fill writing the same
     # bytes, and one zero_() of a float64 buffer of their total size, whose
     # fill kernel has a name of its own); traced again until the profiler
-    # saw every launch. K4 (whose outputs K5, K6a and K6b share), K7 at
+    # saw every launch. K4 (whose outputs K5 shares), K6b and K6a, K7 at
     # B = 2, and K10 at each sh_degree on the seeded models' rows.
     def prep_floor(launch_fn, kernel_key):
         outs = launch_fn()
@@ -2693,6 +2829,12 @@ def main() -> None:
     floors = {"splat_prep_decode": prep_floor(
                   lambda: prep.decode_prep(*k4_args),
                   "splat_prep_decode_kernel("),
+              "splat_prep_rs_raw": prep_floor(
+                  lambda: prep.rs_raw_prep(*k6b_args),
+                  "splat_prep_rs_raw_kernel"),
+              "splat_prep_rs_decode": prep_floor(
+                  lambda: prep.rs_decode_prep(*k6a_args),
+                  "splat_prep_rs_decode_kernel"),
               "splat_prep_decode_batch": prep_floor(
                   lambda: prep.batch_decode_prep(*k7_main),
                   "splat_prep_decode_batch_kernel"),

@@ -353,7 +353,8 @@ splat_prep_blend3d_kernel(const float* __restrict__ xyz,
 // aligned; the camera's 20 floats; feat [N+1, 16] f32 (16-byte aligned),
 // keys [M, N+1] i32, stats [2, N+1] i32; all device pointers. Launches on
 // `stream` and returns the launch's cudaError_t (0 = success;
-// cudaErrorInvalidValue for a degree outside 0-4).
+// cudaErrorInvalidValue for a degree outside 0-4 or a tile_px that is not a
+// power of two).
 extern "C" int splat_prep_blend3d(
     const float* xyz, const float* scaling, const float* quat,
     const float* opac, const float* coeffs, int N, int H, int W, int tile_px,
@@ -362,7 +363,7 @@ extern "C" int splat_prep_blend3d(
     float w21, float w22, float tv0, float tv1, float tv2, float fx, float fy,
     float cx, float cy, float ox, float oy, float oz, float clip_near,
     float* feat, int* keys, int* stats, cudaStream_t stream) {
-  if (N < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!geom_ok(N, M, tile_px)) return static_cast<int>(cudaErrorInvalidValue);
   Geom g;
   g.N = N;
   g.n_rows = N + 1;
@@ -374,6 +375,7 @@ extern "C" int splat_prep_blend3d(
   g.M = M;
   g.id_bits = id_bits;
   g.q_cut = 0.0f;  // the sum path's gate: unused here
+  g.inv_tile = 1.0f / (float)tile_px;
   const Cam cam{w00, w01, w02, w10, w11, w12, w20, w21, w22, tv0,
                 tv1, tv2, fx,  fy,  cx,  cy,  ox,  oy,  oz,  clip_near};
   const int blocks = (g.n_rows + kStagedRows - 1) / kStagedRows;

@@ -5,8 +5,8 @@
 // tail every front ends with, the packed feature row with its colors and
 // opacity, the binning keys and the counts of one Gaussian: its arithmetic
 // (feat_row, bin_row, write_bins) under two stores, pack_bin (one thread a
-// row, K5-K7) and pack_bin_staged (a warp's rows through shared memory, K4
-// and K10, which stage their input rows with RowStage).
+// row, K5 and K7) and pack_bin_staged (a warp's rows through shared memory,
+// K4, K6a, K6b and K10, which stage their input rows with RowStage).
 // Counterpart of gaussianimage_tpu/ops/splat_prep.py _project_pack_bin
 // (:61) and _pack_bin (:110), which replicate core/covariance.py,
 // rasterize_sum._axis_radii and tiles._expand_instances; and the RS model's
@@ -42,11 +42,14 @@ __device__ __forceinline__ float torch_sigmoid(float x) {
 
 // The RS covariance Sigma = R(theta) diag(sx, sy)^2 R(theta)^T, as
 // core/covariance.py's cov2d_from_scale_rot computes it: full-precision
-// cosf and sinf, each product left to right, no contraction.
+// cosine and sine, each product left to right, no contraction. sincosf
+// reduces the angle once for both and gives cosf's and sinf's values bit
+// for bit (torch.cos / torch.sin on the card, which the plain versions
+// call; chip_smoke.py holds K6a and K6b to them bit for bit).
 __device__ __forceinline__ void rs_cov(float sx, float sy, float theta,
                                        float& s11, float& s12, float& s22) {
-  const float c = cosf(theta);
-  const float s = sinf(theta);
+  float s, c;
+  sincosf(theta, &s, &c);
   const float sx2 = __fmul_rn(sx, sx);
   const float sy2 = __fmul_rn(sy, sy);
   const float cc = __fmul_rn(c, c);
@@ -62,8 +65,15 @@ __device__ __forceinline__ void rs_cov(float sx, float sy, float theta,
 // for K4 and K5, one frame and B frames stacked vertically for K7.
 struct Geom {
   int N, n_rows, H, W, tile_px, tiles_x, tiles_y, M, id_bits;
-  float q_cut;
+  float q_cut, inv_tile;  // inv_tile = 1 / tile_px, exact (geom_ok)
 };
+
+// The launchers' test of a geometry: rows, key slots, and a power-of-two
+// tile side, whose reciprocal is exact, so that bin_row's x * inv_tile is
+// the float x / tile_px (both round the same exact quotient).
+inline bool geom_ok(int N, int M, int tile_px) {
+  return N >= 1 && M >= 1 && tile_px >= 1 && (tile_px & (tile_px - 1)) == 0;
+}
 
 // A row's place on K7's tall canvas: y_off shifts its pixel y into its
 // frame, and its tile rows are clipped to the band [lo, hi] of that frame
@@ -154,14 +164,14 @@ template <bool kBand>
 __device__ __forceinline__ Bins bin_row(bool valid, const Splat& s,
                                         const Geom& g, Band band) {
   const float x = s.x, y = s.y, rx = s.rx, ry = s.ry;
-  const float tp = (float)g.tile_px;
+  const float it = g.inv_tile;  // x * it == x / tile_px (geom_ok)
   const float hx = (float)(g.tiles_x - 1);
   const float ly = kBand ? band.lo : 0.0f;
   const float hy = kBand ? band.hi : (float)(g.tiles_y - 1);
-  const float x0 = fminf(fmaxf(floorf(__fdiv_rn(__fsub_rn(x, rx), tp)), 0.0f), hx);
-  const float x1 = fminf(fmaxf(floorf(__fdiv_rn(__fadd_rn(x, rx), tp)), 0.0f), hx);
-  const float y0 = fminf(fmaxf(floorf(__fdiv_rn(__fsub_rn(y, ry), tp)), ly), hy);
-  const float y1 = fminf(fmaxf(floorf(__fdiv_rn(__fadd_rn(y, ry), tp)), ly), hy);
+  const float x0 = fminf(fmaxf(floorf(__fmul_rn(__fsub_rn(x, rx), it)), 0.0f), hx);
+  const float x1 = fminf(fmaxf(floorf(__fmul_rn(__fadd_rn(x, rx), it)), 0.0f), hx);
+  const float y0 = fminf(fmaxf(floorf(__fmul_rn(__fsub_rn(y, ry), it)), ly), hy);
+  const float y1 = fminf(fmaxf(floorf(__fmul_rn(__fadd_rn(y, ry), it)), ly), hy);
   const bool inside = valid && rx > 0.0f && ry > 0.0f &&
                       __fadd_rn(x, rx) >= 0.0f &&
                       __fsub_rn(x, rx) < (float)(g.tiles_x * g.tile_px) &&
@@ -212,8 +222,8 @@ __device__ __forceinline__ void pack_bin(
   write_bins(r, bin_row<kBand>(valid, s, g, band), g, keys, stats);
 }
 
-// Rows (and threads) of a CTA of the staged fronts K4 and K10: 10,001 rows
-// make 157 CTAs, more than the card's 132 SMs.
+// Rows (and threads) of a CTA of the staged fronts K4, K6a, K6b and K10:
+// 10,001 rows make 157 CTAs, more than the card's 132 SMs.
 constexpr int kStagedRows = 64;
 
 // The tail through shared memory, for the 32 lanes of a warp together, on
@@ -357,8 +367,8 @@ struct RowStage {
   }
 };
 
-// K5-K7: the head, then the tail with opacity 1 (the Cholesky and RS
-// models' fixed opacity).
+// K5 and K7: the head, then the tail with opacity 1 (the Cholesky model's
+// fixed opacity).
 template <bool kBand>
 __device__ __forceinline__ void project_pack_bin(
     int r, bool valid, float mx, float my, float s11, float s12, float s22,

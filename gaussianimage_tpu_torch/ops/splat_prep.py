@@ -305,15 +305,31 @@ def _check_inputs(kernel: str, named):
 
 def _check_aligned(kernel: str, named):
     """named: (name, tensor); raises unless each tensor's data starts on a
-    16-byte boundary. K4 and K10 load their rows as 16-byte vectors; a
-    view that starts a row into its storage (``x[1:]``) is contiguous but
-    need not be aligned."""
+    16-byte boundary. The staged fronts (K4, K6a, K6b and K10) load their
+    rows as 16-byte vectors; a view that starts a row into its storage
+    (``x[1:]``) is contiguous but need not be aligned."""
     for name, x in named:
         if x.data_ptr() % 16:
             raise ValueError(f"{kernel} loads {name} as 16-byte vectors: its "
                              f"data must start on a 16-byte boundary (a "
                              f"fresh tensor or .clone()), not at "
                              f"{x.data_ptr() % 16} bytes past one")
+
+
+def _check_tile(kernel: str, tile_px: int):
+    """Raises unless ``tile_px`` is a power of two: the kernels bin with
+    its reciprocal, exact only there (the rasterizers take 16 or 32)."""
+    if tile_px < 1 or tile_px & (tile_px - 1):
+        raise ValueError(f"{kernel} bins on tiles of a power-of-two side, "
+                         f"got tile_px={tile_px}")
+
+
+def _aligned(x):
+    """``x`` itself when its data starts on a 16-byte boundary, else a
+    ``.clone()`` of it (a fresh allocation, which does). A frame of a
+    stacked encoding (``enc_b[b]``, the scan decode's) starts b x N rows
+    into its storage: the copy is the staged kernel's input there."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _launch(fn_name: str, kernel: str, inputs, bound, H, W, tile_px, M,
@@ -323,6 +339,7 @@ def _launch(fn_name: str, kernel: str, inputs, bound, H, W, tile_px, M,
     or with ``frames`` = B (K7) the rows, the rows of a frame and a
     frame's height (N, N / B, H / B); then the geometry and the floats of
     ``bound`` (three for Cholesky, two for RS)."""
+    _check_tile(kernel, tile_px)
     N, dev = inputs[0].shape[0], inputs[0].device
     dims = (N, H) if frames is None else (N, N // frames, H // frames)
     tiles_x, tiles_y, id_bits = prep_geometry(N, H, W, tile_px)
@@ -430,7 +447,8 @@ def rs_raw_prep(xyz, scaling, rotation, colors, bound, H: int, W: int,
     ``colors`` [N, 3]; ``bound`` two floats.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    version. ``rs_raw_prep.launches`` counts the kernel's launches."""
+    version. ``rs_raw_prep.launches`` counts the kernel's launches. The
+    row inputs must start on a 16-byte boundary (``_check_aligned``)."""
     if xyz.device.type == "cpu":
         return rs_raw_prep_plain(xyz, scaling, rotation, colors, bound, H, W,
                                  tile_px, M, q_cut)
@@ -439,6 +457,8 @@ def rs_raw_prep(xyz, scaling, rotation, colors, bound, H: int, W: int,
                           ("scaling", scaling, torch.float32, (N, 2)),
                           ("rotation", rotation, torch.float32, (N, 1)),
                           ("colors", colors, torch.float32, (N, 3))])
+    _check_aligned("K6b", [("xyz", xyz), ("scaling", scaling),
+                           ("rotation", rotation), ("colors", colors)])
     out = _launch("splat_prep_rs_raw", "K6b splat_prep_rs_raw",
                   (xyz, scaling, rotation, colors), bound, H, W, tile_px, M,
                   q_cut)
@@ -456,7 +476,8 @@ def rs_decode_prep(xyz, scodes, rcodes, idx, s_scale, s_beta, r_scale,
     codebook ``embed`` [64, 3]; ``bound`` two floats.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    version. ``rs_decode_prep.launches`` counts the kernel's launches."""
+    version. ``rs_decode_prep.launches`` counts the kernel's launches. The
+    row inputs must start on a 16-byte boundary (``_check_aligned``)."""
     if xyz.device.type == "cpu":
         return rs_decode_prep_plain(xyz, scodes, rcodes, idx, s_scale,
                                     s_beta, r_scale, r_beta, embed, bound, H,
@@ -472,6 +493,8 @@ def rs_decode_prep(xyz, scodes, rcodes, idx, s_scale, s_beta, r_scale,
                           ("r_beta", r_beta, torch.float32, (1,)),
                           ("embed", embed, torch.float32,
                            (CODEBOOK * CODEBOOK, 3))])
+    _check_aligned("K6a", [("xyz", xyz), ("scodes", scodes),
+                           ("rcodes", rcodes), ("idx", idx)])
     out = _launch("splat_prep_rs_decode", "K6a splat_prep_rs_decode",
                   (xyz, scodes, rcodes, idx, s_scale, s_beta, r_scale,
                    r_beta, embed), bound, H, W, tile_px, M, q_cut)
@@ -515,8 +538,9 @@ def fused_prep_cholesky(enc_xyz, chol_codes, quant_scale, quant_beta, bound,
     """Cholesky decode front (K4): code arrays -> (feat, keys, trunc,
     n_total). ``enc_xyz`` [N, 2] holds the float16 codes."""
     return _finish(decode_prep(
-        enc_xyz.float().contiguous(), chol_codes.int().contiguous(),
-        vq_idx.int().contiguous(), quant_scale.float().contiguous(),
+        _aligned(enc_xyz.float().contiguous()),
+        _aligned(chol_codes.int().contiguous()),
+        _aligned(vq_idx.int().contiguous()), quant_scale.float().contiguous(),
         quant_beta.float().contiguous(), embed_combined.float().contiguous(),
         tuple(float(b) for b in bound), H, W, cfg.tile_px, m_span,
         float(cfg.q_cut)))
@@ -542,9 +566,11 @@ def fused_raw_prep_rs(xyz, scaling_raw, rot_raw, colors, bound, H: int,
                       W: int, cfg, m_span: int):
     """Raw-parameter RS front (K6b) -> (feat, keys, trunc, n_total)."""
     return _finish(rs_raw_prep(
-        xyz.float().contiguous(), scaling_raw.float().contiguous(),
-        rot_raw.float().reshape(-1, 1).contiguous(),
-        colors.float().contiguous(), tuple(float(b) for b in bound), H, W,
+        _aligned(xyz.float().contiguous()),
+        _aligned(scaling_raw.float().contiguous()),
+        _aligned(rot_raw.float().reshape(-1, 1).contiguous()),
+        _aligned(colors.float().contiguous()),
+        tuple(float(b) for b in bound), H, W,
         cfg.tile_px, m_span, float(cfg.q_cut)))
 
 
@@ -554,9 +580,11 @@ def fused_prep_rs(enc_xyz, scaling_codes, rot_codes, s_scale, s_beta,
     """RS decode front (K6a): code arrays -> (feat, keys, trunc, n_total).
     ``enc_xyz`` [N, 2] holds the float16 codes."""
     return _finish(rs_decode_prep(
-        enc_xyz.float().contiguous(), scaling_codes.int().contiguous(),
-        rot_codes.int().reshape(-1, 1).contiguous(),
-        vq_idx.int().contiguous(), s_scale.float().reshape(2).contiguous(),
+        _aligned(enc_xyz.float().contiguous()),
+        _aligned(scaling_codes.int().contiguous()),
+        _aligned(rot_codes.int().reshape(-1, 1).contiguous()),
+        _aligned(vq_idx.int().contiguous()),
+        s_scale.float().reshape(2).contiguous(),
         s_beta.float().reshape(2).contiguous(),
         r_scale.float().reshape(1).contiguous(),
         r_beta.float().reshape(1).contiguous(),

@@ -42,7 +42,8 @@ from gaussianimage_tpu_torch.core.sh import num_sh_bases, spherical_harmonics
 from gaussianimage_tpu_torch.ops import _build
 from gaussianimage_tpu_torch.ops import stream_common as sc
 from gaussianimage_tpu_torch.ops.splat_prep import (Prep, _check_aligned,
-                                                    _check_inputs, _finish,
+                                                    _check_inputs,
+                                                    _check_tile, _finish,
                                                     conic_radius,
                                                     fused_decode_supported,
                                                     pack_bin, prep_geometry)
@@ -191,6 +192,7 @@ def blend3d_prep(xyz, scaling, quats, opac, coeffs, cam: Sequence[float],
     _check_aligned("K10", [("xyz", xyz), ("scaling", scaling),
                            ("quats", quats), ("opac", opac),
                            ("coeffs", coeffs)])
+    _check_tile("K10", tile_px)
     tiles_x, tiles_y, id_bits = prep_geometry(N, H, W, tile_px)
     dev = xyz.device
     feat = torch.empty(N + 1, sc.FW, dtype=torch.float32, device=dev)

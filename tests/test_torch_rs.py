@@ -309,6 +309,111 @@ def test_rs_prep_wrappers_never_fall_back():
     assert (sp.rs_raw_prep.launches, sp.rs_decode_prep.launches) == before
 
 
+def _check_prefix_rows(jax_keys, m_span, stats, keys, mask):
+    """The first n rows' keys [M, n+1] and per-row counts against JAX's
+    kernel under a 3-tile span: keys equal slot by slot on the rows of
+    ``mask`` (where both packages' angle, cos and sin agree) and on the
+    sentinel column; each such row's (trunc, live) the excess and min of
+    its area over M, the area read off JAX's keys under a span of every
+    tile."""
+    jkeys, jtrunc, jn_total = jax_keys(m_span)
+    area = (jax_keys(-(-H // 16) * -(-W // 16))[0] != INT_MAX).sum(axis=0)
+    cols = np.append(mask, True)
+    keys, stats = keys.numpy(), stats.numpy()
+    np.testing.assert_array_equal(keys[:, cols], jkeys[:, cols])
+    np.testing.assert_array_equal(stats[0][cols],
+                                  np.maximum(area - m_span, 0)[cols])
+    np.testing.assert_array_equal(stats[1][cols],
+                                  np.minimum(area, m_span)[cols])
+    if mask.all():
+        assert (int(stats[0].sum()), int(stats[1].sum())) == (jtrunc,
+                                                               jn_total)
+    return jtrunc
+
+
+def _jax_prefix_keys(fn, rows, n):
+    """m -> (JAX's keys [m, n+1], trunc, n_total) of ``fn`` (a jitted
+    fused front on ``rows``) under a span of m tiles."""
+    def keys(m):
+        _, jkeys, jtrunc, jn_total = jax.jit(
+            lambda *r: fn(*r, m))(*(jnp.asarray(r) for r in rows))
+        return (np.asarray(jkeys).reshape(m, -1)[:, :n + 1], int(jtrunc),
+                int(jn_total))
+    return keys
+
+
+@pytest.mark.parametrize("n", [1, 33, 65])
+def test_rs_raw_prep_plain_rows_match_jax(n):
+    """The plain K6b on the first n raw rows (the card's K6b stages 64-row
+    blocks: n = 1, 33, 65 leave a partial block and warp) against JAX's
+    fused_raw_prep_rs under a 3-tile span (_check_prefix_rows). The share
+    of rows off the angle mask is held over the whole scene by
+    test_rs_raw_prep_plain_matches_jax; row 0 is on it."""
+    jcfg, cfg = JCfg(fused_prep=True), RasterizeConfig(fused_prep=True)
+    m_span = 3
+    rows = tuple(np.ascontiguousarray(a[:n]) for a in _raw_scene())
+    mask = _agree(_theta_jax(rows[2]), _theta_port(rows[2]))
+    assert mask[0]
+    jax_keys = _jax_prefix_keys(
+        lambda x, s, r, c, m: jsp.fused_raw_prep_rs(x, s, r, c, BOUND, H, W,
+                                                    jcfg, m), rows, n)
+    _, keys, stats = sp.rs_raw_prep(*(_t(r) for r in rows), BOUND, H, W,
+                                    cfg.tile_px, m_span, float(cfg.q_cut))
+    jtrunc = _check_prefix_rows(jax_keys, m_span, stats, keys, mask)
+    if n == 65:
+        assert jtrunc > 0
+
+
+@pytest.mark.parametrize("n", [1, 33, 65])
+def test_rs_decode_prep_plain_rows_match_jax(n):
+    """The plain K6a on the first n code rows against JAX's fused_prep_rs
+    under a 3-tile span (_check_prefix_rows); the dequantized angle is
+    bit-equal in both, so the mask is the rows whose cos and sin agree."""
+    jcfg, cfg = JCfg(fused_prep=True), RasterizeConfig(fused_prep=True)
+    m_span = 3
+    (xyz16, scodes, rcodes, s_scale, s_beta, r_scale, r_beta, idx,
+     comb) = _code_scene()
+    rows = (xyz16[:n].astype(np.float32), scodes[:n], rcodes[:n], idx[:n])
+    theta = (rows[2].astype(np.float32) * r_scale + r_beta).astype(
+        np.float32)
+    mask = _agree(theta, theta)
+    assert mask[0]
+    tables = tuple(jnp.asarray(a) for a in (s_scale, s_beta, r_scale,
+                                            r_beta))
+    jax_keys = _jax_prefix_keys(
+        lambda x, s, r, i, m: jsp.fused_prep_rs(
+            x, s, r, *tables, BOUND, i, jnp.asarray(comb), H, W, jcfg, m),
+        rows, n)
+    _, keys, stats = sp.rs_decode_prep(
+        *(_t(r) for r in rows[:3]), _t(rows[3]), _t(s_scale), _t(s_beta),
+        _t(r_scale), _t(r_beta), _t(comb), BOUND, H, W, cfg.tile_px,
+        m_span, float(cfg.q_cut))
+    jtrunc = _check_prefix_rows(jax_keys, m_span, stats, keys, mask)
+    if n == 65:
+        assert jtrunc > 0
+
+
+@pytest.mark.parametrize("kernel,names", [
+    ("K6b", ("xyz", "scaling", "rotation", "colors")),
+    ("K6a", ("xyz", "scodes", "rcodes", "idx"))])
+def test_rs_prep_refuses_unaligned_rows(kernel, names):
+    """K6b and K6a load their row inputs as 16-byte vectors: the wrapper's
+    alignment check passes fresh tensors and refuses a view one row into
+    its storage ([N, 1] rotation codes: 4 bytes; [N, 2]: 8; [N, 3]: 12).
+    CPU tensors reach the plain version, so the check is called as the
+    wrapper calls it on a CUDA tensor."""
+    widths = {"xyz": 2, "scaling": 2, "rotation": 1, "colors": 3,
+              "scodes": 2, "rcodes": 1, "idx": 2}
+    dtypes = {"scodes": torch.int32, "rcodes": torch.int32,
+              "idx": torch.int32}
+    rows = {k: torch.zeros(9, widths[k], dtype=dtypes.get(k, torch.float32))
+            for k in names}
+    sp._check_aligned(kernel, list(rows.items()))
+    for k, x in rows.items():
+        with pytest.raises(ValueError, match=f"{kernel} loads {k} as 16-byte"):
+            sp._check_aligned(kernel, [(k, x[1:])])
+
+
 # ------------------------------------------------------ the model
 
 

@@ -207,6 +207,81 @@ def test_decode_prep_refuses_unaligned_rows():
         sp._check_aligned("K4", [("codes", codes[1:])])
 
 
+def test_prep_kernels_take_power_of_two_tiles():
+    """The fused prep kernels bin with the reciprocal of tile_px, exact
+    only for a power of two: the wrappers' check passes 16 and 32 (the
+    rasterizers' tiles) and refuses 24 and 0, as the C launchers do."""
+    for tile_px in (16, 32):
+        sp._check_tile("K4", tile_px)
+    for tile_px in (24, 0):
+        with pytest.raises(ValueError, match="power-of-two"):
+            sp._check_tile("K4", tile_px)
+
+
+STACK_N = 9999  # not a multiple of 4: frame 1 of a stack is off 16 bytes
+
+
+@pytest.mark.parametrize("front", ["cholesky", "rs_decode", "rs_raw"])
+def test_fused_fronts_hand_aligned_rows_of_a_stacked_frame(front,
+                                                           monkeypatch):
+    """The scan decode (batched.decode_many) hands each frame of a stacked
+    encoding over as a view ``enc_b[b]``, which starts b x STACK_N rows
+    into its storage. Frame 1 of a [2, STACK_N, ...] stack goes through
+    fused_prep_cholesky (K4), fused_prep_rs (K6a) and fused_raw_prep_rs
+    (K6b) with the kernel's wrapper replaced by a recorder: every row
+    input reaches it on a 16-byte boundary and equal to the frame's
+    rows."""
+    rng = np.random.default_rng(3)
+    cfg = RasterizeConfig(fused_prep=True)
+
+    def stack(width, kind):
+        if kind == "f16":
+            a = rng.uniform(-2.0, 2.0, (2, STACK_N, width)).astype(np.float16)
+        elif kind == "f32":
+            a = rng.uniform(-2.0, 2.0, (2, STACK_N, width)).astype(np.float32)
+        else:
+            a = rng.integers(0, 8, (2, STACK_N, width)).astype(np.int32)
+        return torch.from_numpy(a)[1]
+
+    f32 = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.uniform(0.01, 0.5, shape).astype(np.float32))
+    comb = torch.from_numpy(_code_scene()[5])
+    if front == "cholesky":
+        wrapper = "decode_prep"
+        rows = (stack(2, "f16"), stack(3, "i32"), stack(2, "i32"))
+        call = lambda: sp.fused_prep_cholesky(  # noqa: E731
+            rows[0], rows[1], f32(3), f32(3), BOUND, rows[2], comb, H, W,
+            cfg, 3)
+    elif front == "rs_decode":
+        wrapper = "rs_decode_prep"
+        rows = (stack(2, "f16"), stack(2, "i32"), stack(1, "i32"),
+                stack(2, "i32"))
+        call = lambda: sp.fused_prep_rs(  # noqa: E731
+            *rows[:3], f32(2), f32(2), f32(1), f32(1), (0.5, 0.5), rows[3],
+            comb, H, W, cfg, 3)
+    else:
+        wrapper = "rs_raw_prep"
+        rows = (stack(2, "f32"), stack(2, "f32"), stack(1, "f32"),
+                stack(3, "f32"))
+        call = lambda: sp.fused_raw_prep_rs(  # noqa: E731
+            *rows, (0.5, 0.5), H, W, cfg, 3)
+    assert any(r.data_ptr() % 16 for r in rows)
+    seen = []
+    real = getattr(sp, wrapper)
+
+    def recorder(*args):
+        seen.append(args[:len(rows)])
+        return real(*args)
+
+    monkeypatch.setattr(sp, wrapper, recorder)
+    call()
+    (got,) = seen
+    for g, r in zip(got, rows):
+        assert g.data_ptr() % 16 == 0
+        assert g.is_contiguous()
+        assert torch.equal(g, r.to(g.dtype))
+
+
 @pytest.mark.parametrize("n,h,w,kw", [
     (10000, 512, 768, {}),                                   # default: off
     (10000, 512, 768, {"fused_prep": True}),
