@@ -35,14 +35,21 @@ Phases, one JSON line each (with ``elapsed_s``):
              QAT codes under ``RasterizeConfig.serving(10000)``: sorted
              keys, trunc and n_total integer-exact, feature rows to 1e-6,
              the keys in their slot-major [M, N+1] layout and the per-row
-             counts equal (torch.equal), and K5's stream (gids, starts)
-             against the generic binning; K4 also with its rows bit for
-             bit, there and on its first N = 1, 31, 33, 63, 65 and 1000
-             rows (EDGE_ROWS: a partial last CTA and warp); K7, the batched
+             counts equal (torch.equal), the rows bit for bit, and K5's
+             stream (gids, starts) against the generic binning; both also
+             on their first N = 1, 31, 33, 63, 65 and 1000 rows
+             (EDGE_ROWS: a partial last CTA and warp), K5 on seeded
+             adversarial rows (K5_EDGE_SEED: Cholesky factors at the
+             determinant floor, means at the canvas's edges, bboxes
+             wider than the span M, which truncate); K7, the batched
              decode prep, on the china and flower QAT codes stacked (B =
-             2, and B = 6 with each three times) under the batched config,
-             held to its plain version as K5 is, and at B = 1 equal to K4
-             (rows max |diff| 0, keys and counts equal);
+             2, and B = 6 with each three times) under the batched config
+             and on those stacks cut to 65, 33 (B = 3) and 10 (B = 6)
+             rows a frame (frame boundaries inside a 64-row CTA; frames
+             under 64 rows take the variant that reads the frame tables
+             through the cache), held to its plain version as K5 is, and
+             at B = 1 equal to K4 (rows max |diff| 0, keys and counts
+             equal);
 4. slice     the evaluation entry point ``gaussianimage_tpu_torch.train
              --iterations 0`` on the fitted flower@10k checkpoint
              (768x512): PSNR within 0.01 dB of 41.906, n_dropped == 0, K1
@@ -218,8 +225,8 @@ Phases, one JSON line each (with ``elapsed_s``):
              traced. K1-K3's bounds count the gated pairs and a cull per
              slot and walk (``sum_ops``); the older count, which charges q
              to every pair of the windows, is ``sum_bound_ms_all_pairs``;
-             the fused prep's floor (``prep_floor``): K4, K6b, K6a, K7
-             (B = 2) and K10 at each sh_degree 0-4 traced beside zero_() of
+             the fused prep's floor (``prep_floor``): K5, K4, K6b, K6a,
+             K7 (B = 2) and K10 at each sh_degree 0-4 traced beside zero_() of
              each of their three outputs and of one buffer of those bytes.
 
 Then the raw ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
@@ -257,14 +264,15 @@ CODEC_ANCHORS = {
 }
 SERVE_N = 10000
 PREP_TOL = 1e-6    # feature rows, K4 / K5 against their plain versions
-# row counts of K4's and K10's extra cases: a partial last CTA of 64 rows
-# and a partial last warp
+# row counts of the fused fronts' extra cases: a partial last CTA of 64
+# rows and a partial last warp
 EDGE_ROWS = (1, 31, 33, 63, 65, 1000)
 # the scan decode of stacked frames at a row count that is not a multiple
 # of 4: frame 1's [N, 1], [N, 2] and [N, 3] code arrays start 4, 8 and 12
 # bytes past a 16-byte boundary
 SCAN_N = 9999
 RS_EDGE_SEED = 7   # K6a / K6b's adversarial rows
+K5_EDGE_SEED = 5   # K5's adversarial rows
 RS_CODE_MAX = 63   # the RS model's 6-bit quantizers' largest code
 IMG_TOL = 2e-5     # fused against generic images, but for MAX_EDGE_PX
 MAX_EDGE_PX = 16   # pixels above 1e-4 where an instance crosses a tile edge
@@ -284,13 +292,13 @@ RS_QAT_ITERS = 2000
 # bbox's four by the tile's exact reciprocal), floors and compares; K4 adds
 # its dequantization and codebook index (~10); and per key slot ~6 integer
 # operations
-# K7 adds the frame's integer division (~20)
+# K7 adds its frame's index and band (~20)
 # K6b and K6a swap the Cholesky covariance (~5) for the RS one: sincosf
 # (~35: one range reduction for both), ~10 multiplies and adds, and in K6b
 # the sigmoid's expf and IEEE division (~20); K6a its angle's
 # dequantization (~3)
-# The staged fronts (K4, K6a, K6b, K10) add a few shared-memory reads a
-# row, not counted
+# The staged rows and tables add a few shared-memory reads a row, not
+# counted
 # K10 (3DGS, sh_degree 3): the quaternion's norm and four divisions (~55),
 # the rotation (~35), three expf (~25), Sigma (~40), the view transform and
 # projection (~45), the Jacobian and J W (~60), cov2d (~50), the conic and
@@ -1026,8 +1034,8 @@ def main() -> None:
         """A fused prep's (feat, keys [M, N+1], stats [2, N+1]) against its
         plain version's: sorted keys, (trunc, n_total) and feature rows to
         PREP_TOL, the keys in their slot-major layout and the per-row
-        counts equal (torch.equal); with ``bits`` (K4, K6a, K6b and K10,
-        whose stores are staged) also the rows bit for bit."""
+        counts equal (torch.equal); with ``bits`` (every front: K4-K7
+        and K10) also the rows bit for bit."""
         (feat_k, keys_k, stats_k), (feat_p, keys_p, stats_p) = out, ref
         err = float((feat_k - feat_p).abs().max())
         keys_equal = bool(torch.equal(torch.sort(keys_k.flatten()).values,
@@ -1059,7 +1067,7 @@ def main() -> None:
                serve_cfg.tile_px, m_s, q_s)
     out5 = prep.raw_prep(*k5_args)
     torch.cuda.synchronize()
-    k5 = prep_check("K5", out5, prep.raw_prep_plain(*k5_args))
+    k5 = prep_check("K5", out5, prep.raw_prep_plain(*k5_args), bits=True)
     # K5's stream against the generic binning of the same parameters
     gids5, starts5, _ = rs.stream_from_keys(out5[1].reshape(-1), SERVE_N,
                                             Hf, Wf, serve_cfg, I_s)
@@ -1068,6 +1076,40 @@ def main() -> None:
         "instances": int(sp_gen.starts[sp_gen.T]),
         "instances_differ": int((gids5 != sp_gen.gids).sum()),
         "starts_equal": bool(torch.equal(starts5, sp_gen.starts))}
+    # K5 on its first n rows: a partial last CTA (64 rows) and warp
+    for n in EDGE_ROWS:
+        args = (*(a[:n] for a in k5_args[:3]), *k5_args[3:])
+        out = prep.raw_prep(*args)
+        torch.cuda.synchronize()
+        k5[f"n{n}"] = prep_check(f"K5 (N = {n})", out,
+                                 prep.raw_prep_plain(*args), bits=True)
+    # K5 on seeded adversarial rows of the fit, a kind a row (row % 4;
+    # kind 0 as it is): Cholesky factors at the conic's 1e-6 determinant
+    # floor (L within 1e-4 of zero after the bound), means at the canvas's
+    # edges (tanh saturated: bboxes past the canvas, clipped to it), and
+    # factors of 8-30 px whose bboxes span more tiles than M (truncated)
+    er5 = np.random.default_rng(K5_EDGE_SEED)
+    kind5 = torch.arange(SERVE_N, device=dev) % 4
+    n_k5 = [int((kind5 == k).sum()) for k in range(4)]
+
+    def uniform5(k, lo, hi, cols):
+        return torch.as_tensor(er5.uniform(lo, hi, (n_k5[k], cols)),
+                               device=dev, dtype=torch.float32)
+
+    xyz_e5, chol_e5 = (a.clone() for a in k5_args[:2])
+    chol_e5[kind5 == 1] = (uniform5(1, -1e-4, 1e-4, 3) - torch.as_tensor(
+        CHOLESKY_BOUND, device=dev))
+    xyz_e5[kind5 == 2] = uniform5(2, 3.0, 10.0, 2) * torch.as_tensor(
+        er5.choice([-1.0, 1.0], (n_k5[2], 2)), device=dev,
+        dtype=torch.float32)
+    chol_e5[kind5 == 3] = uniform5(3, 8.0, 30.0, 3)
+    k5_edge = (xyz_e5, chol_e5, *k5_args[2:])
+    out = prep.raw_prep(*k5_edge)
+    torch.cuda.synchronize()
+    k5["adversarial"] = prep_check("K5 (adversarial rows)", out,
+                                   prep.raw_prep_plain(*k5_edge), bits=True)
+    if k5["adversarial"]["trunc"] == 0:
+        fail("K5's adversarial rows truncated no bbox")
     china_s = make_model("GaussianImage_Cholesky", device=dev,
                          num_points=SERVE_N, H=512, W=768, quantize=True,
                          raster=serve_cfg)
@@ -1120,14 +1162,31 @@ def main() -> None:
                            for m, _ in frames]).contiguous(),
                 CHOLESKY_BOUND, B, 512 * B, 768, serve_cfg.tile_px, m7, q_s)
 
+    def k7_cut(args, n):
+        """``args`` (K7's, of B frames of SERVE_N rows) cut to the first n
+        rows of each frame."""
+        B = args[7]
+        return (*(torch.cat([a[f * SERVE_N:f * SERVE_N + n]
+                             for f in range(B)]).contiguous()
+                  for a in args[:3]), *args[3:])
+
     k7 = {}
     k7_main = k7_args([(china_s, enc_c), (flower_q, enc_f)])
-    for B, args in ((2, k7_main),
-                    (6, k7_args([(china_s, enc_c), (flower_q, enc_f)] * 3))):
+    k7_b6 = k7_args([(china_s, enc_c), (flower_q, enc_f)] * 3)
+    # B = 2 at 10,000 rows a frame: frame 1 begins 16 rows into CTA 156;
+    # B = 2 of 65 rows: a boundary inside a CTA, the tables in shared
+    # memory; frames under 64 rows (B = 3 of 33, B = 6 of 10) take the
+    # variant that reads them through the cache
+    for name, args in (
+            ("B2", k7_main), ("B6", k7_b6),
+            ("B2_n65", k7_cut(k7_main, 65)),
+            ("B3_n33", k7_cut(k7_args([(china_s, enc_c), (flower_q, enc_f),
+                                       (china_s, enc_c)]), 33)),
+            ("B6_n10", k7_cut(k7_b6, 10))):
         out7 = prep.batch_decode_prep(*args)
         torch.cuda.synchronize()
-        k7[f"B{B}"] = prep_check(f"K7 at B={B}", out7,
-                                 prep.batch_decode_prep_plain(*args))
+        k7[name] = prep_check(f"K7 ({name})", out7,
+                              prep.batch_decode_prep_plain(*args), bits=True)
     out7 = prep.batch_decode_prep(*k7_args([(china_s, enc_c)]))
     torch.cuda.synchronize()
     k7_vs_k4 = float((out7[0] - out4[0]).abs().max())
@@ -1138,7 +1197,7 @@ def main() -> None:
              f"{torch.equal(out7[2], out4[2])}")
     k7["B1_vs_k4"] = {"max_abs_diff": k7_vs_k4, "keys_equal": True,
                       "counts_equal": True}
-    k7_err = max(k7["B2"]["max_abs_err"], k7["B6"]["max_abs_err"])
+    k7_err = max(v["max_abs_err"] for k, v in k7.items() if k != "B1_vs_k4")
 
     phase("kernel", k5=k5, k4=k4, k7=k7, k1={"tol": K1_TOL, "cases": cases,
                                              "work": work10},
@@ -2795,8 +2854,8 @@ def main() -> None:
     # zero_() of each of its three outputs: PyTorch's fill writing the same
     # bytes, and one zero_() of a float64 buffer of their total size, whose
     # fill kernel has a name of its own); traced again until the profiler
-    # saw every launch. K4 (whose outputs K5 shares), K6b and K6a, K7 at
-    # B = 2, and K10 at each sh_degree on the seeded models' rows.
+    # saw every launch. K5, K4, K6b and K6a, K7 at B = 2, and K10 at each
+    # sh_degree on the seeded models' rows.
     def prep_floor(launch_fn, kernel_key):
         outs = launch_fn()
         nbytes = sum(o.numel() * o.element_size() for o in outs)
@@ -2826,7 +2885,9 @@ def main() -> None:
                 "one_buffer_fill_ms": per["one_buffer"], "bytes": nbytes,
                 "launches_seen": seen}
 
-    floors = {"splat_prep_decode": prep_floor(
+    floors = {"splat_prep_raw": prep_floor(
+                  lambda: prep.raw_prep(*k5_args), "splat_prep_raw_kernel"),
+              "splat_prep_decode": prep_floor(
                   lambda: prep.decode_prep(*k4_args),
                   "splat_prep_decode_kernel("),
               "splat_prep_rs_raw": prep_floor(

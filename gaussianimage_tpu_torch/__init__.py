@@ -14,6 +14,15 @@ from __future__ import annotations
 
 import torch
 
+# torch computes exp, log, sin, cos, tanh and sqrt of float CPU tensors with
+# MKL's vector math, which sets itself up on first use without a lock. When
+# that first use is a call torch splits across threads (above 2048
+# elements), one thread can compute its chunk on a wrong path: cos off by
+# up to 2534 ulps on half of 4096 angles, in a few percent of fresh
+# processes. One call on one element runs on the calling thread alone and
+# sets it up before the port makes any split call on the CPU.
+torch.exp(torch.zeros(1))
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` by default.

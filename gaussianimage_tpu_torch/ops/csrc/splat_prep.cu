@@ -27,36 +27,37 @@
 //   theta = code * scale + beta (the codec quantizes the activated angle,
 //   so no sigmoid), colors from the combined codebook as in K4.
 // All five then run splat_prep_common.cuh's head and tail (project_head,
-// then pack_bin for K5 and K7, pack_bin_staged for K4, K6a and K6b): pixel
-// mapping, conic with the 1e-6 det floor, 3-sigma radius, the exact
-// q <= q_cut axis extents, the [N+1, 16] feature row, M packed keys
-// (tile << id_bits) | row with dead slots at INT32_MAX, and the
-// (trunc, live) counts.
+// then pack_bin_staged): pixel mapping, conic with the 1e-6 det floor,
+// 3-sigma radius, the exact q <= q_cut axis extents, the [N+1, 16] feature
+// row, M packed keys (tile << id_bits) | row with dead slots at INT32_MAX,
+// and the (trunc, live) counts.
 //
 // Bound on the H100: bytes. At N = 10,000 and M = 9 a launch reads 28-32 B
 // and writes 64 + 4M + 8 B per row, about 1.4 MB (0.4 us at 3.35 TB/s),
 // against about 2M FP32 slots (0.06 us); K7 at B frames moves B times that.
 // K6a/K6b add sincosf (and K6b expf) to a row: about 2.4M slots, still
-// under the byte time. Launch latency and one round of loads dominate.
-// K7's per-frame tables (2 * 3 B + 64 * 3 B floats) are read through the
-// cache.
+// under the byte time. The time is latency: 10,001 rows are fewer than a
+// warp for each of the card's schedulers, so a launch takes about a load's
+// round trip plus one row's instruction stream.
 //
-// Design. K5 and K7: the simple one, one thread per row r in [0, N] in
-// CTAs of 256: coalesced row reads, float4 stores of the feature row
-// (splat_prep_common.cuh's pack_bin), and slot-major keys [M, N+1] so that
-// neighbouring threads write neighbouring keys. K4, K6a and K6b as K10
-// (splat_prep3d.cu): CTAs of kStagedRows = 64 rows, so that 10,001 rows
-// cover every SM; their row inputs staged in shared memory with 16-byte
-// loads over each array's span (RowStage; the one- and three-float widths
-// of K6b's rotation and colors, K6a's rotation codes, read back a value at
-// a time), every load issued before any store; K4's and K6a's quantizer
-// tables and combined codebook there too, so that the color is a
-// shared-memory read; and the rows out through pack_bin_staged. The
-// staged fronts take row inputs that start on 16 bytes (the wrappers
-// check). rs_cov reduces the angle once for its cosine and sine
-// (sincosf), and every front bins with the exact reciprocal of its
-// power-of-two tile side. No atomics; the counts go out per row and the
-// caller sums them, so a run is deterministic.
+// Design, one for all five fronts, as K10's (splat_prep3d.cu): CTAs of
+// kStagedRows = 64 rows, so that 10,001 rows cover every SM (157 CTAs;
+// CTAs of 256 rows would leave 92 of the 132 idle). Each CTA brings its
+// rows' inputs to shared memory with 16-byte loads over each array's span
+// (RowStage; the one- and three-float widths, K5's Cholesky factors and
+// colors, K6b's rotation and colors, K6a's rotation codes, read back a
+// value at a time, conflict-free at strides 1 and 3), every load issued
+// before any store; the quantizer tables and combined codebooks of K4, K6a
+// and K7 go to shared memory beside them, so that a row's color is a
+// shared-memory read. K7's 64 rows span at most two frames where a frame
+// holds 64 rows or more, and it stages both frames' tables; its small-frame
+// variant (test scenes) reads them through the cache. The rows leave
+// through pack_bin_staged: a warp's 32 feature rows as 2 KB of consecutive
+// float4s, so that each warp store is contiguous. The fronts take row inputs that start on 16 bytes (the wrappers check).
+// rs_cov reduces the angle once for its cosine and sine (sincosf), and every
+// front bins with the exact reciprocal of its power-of-two tile side. No
+// atomics; the counts go out per row and the caller sums them, so a run is
+// deterministic.
 
 #include <cuda_runtime.h>
 
@@ -66,25 +67,52 @@ namespace {
 
 using namespace sprep;
 
-__global__ void __launch_bounds__(kThreads)
+// K5: rows staged as K4's are (RowStage), then the staged tail. chol
+// [N, 3] before the bound.
+__global__ void __launch_bounds__(kStagedRows)
 splat_prep_raw_kernel(const float* __restrict__ xyz,
                       const float* __restrict__ chol,
                       const float* __restrict__ colors, float b0, float b1,
                       float b2, Geom g, float* __restrict__ feat,
                       int* __restrict__ keys, int* __restrict__ stats) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= g.n_rows) return;
+  using Mean = RowStage<float, 2>;
+  using Tri = RowStage<float, 3>;
+  __shared__ __align__(16) float s_xyz[Mean::kSize];
+  __shared__ __align__(16) float s_chol[Tri::kSize];
+  __shared__ __align__(16) float s_col[Tri::kSize];
+  __shared__ float4 s_feat[kStagedRows / 32][128];
+  const int t = threadIdx.x;
+  const int r0 = blockIdx.x * kStagedRows;
+  const int rows = min(kStagedRows, g.N - r0);
+  {
+    Mean m;
+    Tri l, c;
+    m.load(xyz, r0, rows, t);
+    l.load(chol, r0, rows, t);
+    c.load(colors, r0, rows, t);
+    m.store(s_xyz, t);
+    l.store(s_chol, t);
+    c.store(s_col, t);
+  }
+  __syncthreads();
+  // every thread runs to the end (pack_bin_staged is warp-collective);
+  // rows past N read zeros and store nothing but the sentinel's zeros
+  const int r = r0 + t;
   const bool valid = r < g.N;
-  const int i = valid ? r : 0;  // the sentinel row reads row 0, unused
-  const float mx = tanhf(xyz[2 * i]);
-  const float my = tanhf(xyz[2 * i + 1]);
-  const float l11 = __fadd_rn(chol[3 * i], b0);
-  const float l21 = __fadd_rn(chol[3 * i + 1], b1);
-  const float l22 = __fadd_rn(chol[3 * i + 2], b2);
-  project_pack_bin<false>(
-      r, valid, mx, my, __fmul_rn(l11, l11), __fmul_rn(l11, l21),
-      __fadd_rn(__fmul_rn(l21, l21), __fmul_rn(l22, l22)), colors[3 * i],
-      colors[3 * i + 1], colors[3 * i + 2], g, Band{}, feat, keys, stats);
+  float mean[2], ch[3], col[3];
+  Mean::read(s_xyz, t, mean);
+  Tri::read(s_chol, t, ch);
+  Tri::read(s_col, t, col);
+  const float mx = tanhf(mean[0]);
+  const float my = tanhf(mean[1]);
+  const float l11 = __fadd_rn(ch[0], b0);
+  const float l21 = __fadd_rn(ch[1], b1);
+  const float l22 = __fadd_rn(ch[2], b2);
+  const Splat sp = project_head<false>(
+      mx, my, __fmul_rn(l11, l11), __fmul_rn(l11, l21),
+      __fadd_rn(__fmul_rn(l21, l21), __fmul_rn(l22, l22)), g, Band{});
+  pack_bin_staged<false>(r, valid, sp, col[0], col[1], col[2], 1.0f, g,
+                         Band{}, s_feat[t / 32], feat, keys, stats);
 }
 
 // K4: rows staged as K10's are (RowStage), with the combined codebook,
@@ -161,13 +189,21 @@ splat_prep_decode_kernel(const float* __restrict__ xyz,
   const Splat sp = project_head<false>(
       mx, my, __fmul_rn(l11, l11), __fmul_rn(l11, l21),
       __fadd_rn(__fmul_rn(l21, l21), __fmul_rn(l22, l22)), g, Band{});
-  pack_bin_staged(r, valid, sp, col[0], col[1], col[2], 1.0f, g,
-                  s_feat[t / 32], feat, keys, stats);
+  pack_bin_staged<false>(r, valid, sp, col[0], col[1], col[2], 1.0f, g,
+                         Band{}, s_feat[t / 32], feat, keys, stats);
 }
 
-// K7: g.N = B * n_per rows, g.H the frame's height, g.tiles_y the canvas's
-// tile rows (B * rows_pf). scale and beta are [B, 3], embed [B * 64, 3].
-__global__ void __launch_bounds__(kThreads)
+// K7: K4 over frames. g.N = B * n_per rows, g.H the frame's height,
+// g.tiles_y the canvas's tile rows (B * rows_pf). scale and beta are
+// [B, 3], embed [B * 64, 3]. Rows staged as K4's; row r is of frame
+// r / n_per, the sentinel and rows past N of the last frame (their outputs
+// do not read it). kTables (n_per >= kStagedRows): the CTA's rows span the
+// frames f_lo and f_hi <= f_lo + 1, whose scale and beta and combined
+// codebooks it stages in shared memory (slot f - f_lo); else each row
+// reads its frame's through the cache. Each row then bins under its
+// frame's band.
+template <bool kTables>
+__global__ void __launch_bounds__(kStagedRows)
 splat_prep_decode_batch_kernel(const float* __restrict__ xyz,
                                const int* __restrict__ codes,
                                const int* __restrict__ idx,
@@ -178,34 +214,110 @@ splat_prep_decode_batch_kernel(const float* __restrict__ xyz,
                                Geom g, float* __restrict__ feat,
                                int* __restrict__ keys,
                                int* __restrict__ stats) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= g.n_rows) return;
+  using Mean = RowStage<float, 2>;
+  using Code = RowStage<int, 3>;
+  using Idx = RowStage<int, 2>;
+  constexpr int kTable = 64 * 3;  // a combined codebook's floats
+  constexpr int kPer = kTable / kStagedRows;  // 3 a frame
+  constexpr int kSlots = kTables ? 2 : 1;
+  static_assert(kTable % kStagedRows == 0, "a codebook in whole rounds");
+  __shared__ __align__(16) float s_xyz[Mean::kSize];
+  __shared__ __align__(16) int s_codes[Code::kSize];
+  __shared__ __align__(16) int s_idx[Idx::kSize];
+  __shared__ float s_embed[kSlots][kTable];
+  __shared__ float s_sb[kSlots][6];  // scale, then beta
+  __shared__ float4 s_feat[kStagedRows / 32][128];
+  const int t = threadIdx.x;
+  const int r0 = blockIdx.x * kStagedRows;
+  const int rows = min(kStagedRows, g.N - r0);
+  const int f_lo = min(r0, g.N - 1) / n_per;
+  const bool two = min(r0 + kStagedRows - 1, g.N - 1) >= (f_lo + 1) * n_per;
+  {
+    Mean m;
+    Code c;
+    Idx x;
+    [[maybe_unused]] float e[kSlots][kPer], sb = 0.0f;
+    m.load(xyz, r0, rows, t);
+    c.load(codes, r0, rows, t);
+    x.load(idx, r0, rows, t);
+    if constexpr (kTables) {
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s)
+#pragma unroll
+        for (int k = 0; k < kPer; ++k)
+          e[s][k] = s == 0 || two
+                        ? __ldg(embed + kTable * (f_lo + s) + t +
+                                k * kStagedRows)
+                        : 0.0f;
+      // thread t < 12: value t % 6 of slot t / 6
+      const int f = f_lo + (t >= 6);
+      const int j = t % 6;
+      if (t < 6 || (t < 12 && two))
+        sb = __ldg(j < 3 ? scale + 3 * f + j : beta + 3 * f + (j - 3));
+    }
+    m.store(s_xyz, t);
+    c.store(s_codes, t);
+    x.store(s_idx, t);
+    if constexpr (kTables) {
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s)
+#pragma unroll
+        for (int k = 0; k < kPer; ++k)
+          s_embed[s][t + k * kStagedRows] = e[s][k];
+      if (t < 12) s_sb[t / 6][t % 6] = sb;
+    }
+  }
+  __syncthreads();
+  // every thread runs to the end (pack_bin_staged is warp-collective);
+  // rows past N read zeros and store nothing but the sentinel's zeros
+  const int r = r0 + t;
   const bool valid = r < g.N;
-  const int i = valid ? r : 0;  // the sentinel row reads row 0 of frame 0
-  const int f = i / n_per;
-  const float mx = tanhf(xyz[2 * i]);
-  const float my = tanhf(xyz[2 * i + 1]);
-  const float* sc = scale + 3 * f;
-  const float* be = beta + 3 * f;
-  const float l11 = __fadd_rn(
-      __fadd_rn(__fmul_rn((float)codes[3 * i], sc[0]), be[0]), b0);
-  const float l21 = __fadd_rn(
-      __fadd_rn(__fmul_rn((float)codes[3 * i + 1], sc[1]), be[1]), b1);
-  const float l22 = __fadd_rn(
-      __fadd_rn(__fmul_rn((float)codes[3 * i + 2], sc[2]), be[2]), b2);
-  int comb = idx[2 * i] * 8 + idx[2 * i + 1];
+  const int rr = min(r, g.N - 1);
+  const int f = kTables ? f_lo + (rr >= (f_lo + 1) * n_per) : rr / n_per;
+  float mean[2];
+  int code[3], ix[2];
+  Mean::read(s_xyz, t, mean);
+  Code::read(s_codes, t, code);
+  Idx::read(s_idx, t, ix);
+  // indices outside the combined codebook read entry 0, as in K4
+  int comb = ix[0] * 8 + ix[1];
   if (comb < 0 || comb >= 64) comb = 0;
-  const float* col = embed + 3 * (f * 64 + comb);
+  float sc[3], be[3], col[3];
+  if constexpr (kTables) {
+    const int slot = f - f_lo;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      sc[i] = s_sb[slot][i];
+      be[i] = s_sb[slot][3 + i];
+      col[i] = s_embed[slot][3 * comb + i];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      sc[i] = __ldg(scale + 3 * f + i);
+      be[i] = __ldg(beta + 3 * f + i);
+      col[i] = __ldg(embed + kTable * f + 3 * comb + i);
+    }
+  }
+  const float mx = tanhf(mean[0]);
+  const float my = tanhf(mean[1]);
+  const float l11 = __fadd_rn(
+      __fadd_rn(__fmul_rn((float)code[0], sc[0]), be[0]), b0);
+  const float l21 = __fadd_rn(
+      __fadd_rn(__fmul_rn((float)code[1], sc[1]), be[1]), b1);
+  const float l22 = __fadd_rn(
+      __fadd_rn(__fmul_rn((float)code[2], sc[2]), be[2]), b2);
   // the frame's offset and band, as the JAX kernel forms them in f32 (exact
   // for these small whole numbers)
   const float ff = (float)f;
   const float lo = __fmul_rn(ff, (float)rows_pf);
   const Band band{__fmul_rn(ff, (float)g.H), lo,
                   __fadd_rn(lo, (float)(rows_pf - 1))};
-  project_pack_bin<true>(
-      r, valid, mx, my, __fmul_rn(l11, l11), __fmul_rn(l11, l21),
-      __fadd_rn(__fmul_rn(l21, l21), __fmul_rn(l22, l22)), col[0], col[1],
-      col[2], g, band, feat, keys, stats);
+  const Splat sp = project_head<true>(
+      mx, my, __fmul_rn(l11, l11), __fmul_rn(l11, l21),
+      __fadd_rn(__fmul_rn(l21, l21), __fmul_rn(l22, l22)), g, band);
+  pack_bin_staged<true>(r, valid, sp, col[0], col[1], col[2], 1.0f, g, band,
+                        s_feat[t / 32], feat, keys, stats);
 }
 
 // K6b: rows staged as K4's are (RowStage), then the staged tail.
@@ -259,8 +371,8 @@ splat_prep_rs_raw_kernel(const float* __restrict__ xyz,
   float s11, s12, s22;
   rs_cov(sx, sy, theta, s11, s12, s22);
   const Splat sp = project_head<false>(mx, my, s11, s12, s22, g, Band{});
-  pack_bin_staged(r, valid, sp, col[0], col[1], col[2], 1.0f, g,
-                  s_feat[t / 32], feat, keys, stats);
+  pack_bin_staged<false>(r, valid, sp, col[0], col[1], col[2], 1.0f, g,
+                         Band{}, s_feat[t / 32], feat, keys, stats);
 }
 
 // K6a: rows staged as K4's, the quantizer tables and the combined codebook
@@ -346,8 +458,8 @@ splat_prep_rs_decode_kernel(const float* __restrict__ xyz,
   if (comb < 0 || comb >= 64) comb = 0;
   const float* col = s_embed + 3 * comb;
   const Splat sp = project_head<false>(mx, my, s11, s12, s22, g, Band{});
-  pack_bin_staged(r, valid, sp, col[0], col[1], col[2], 1.0f, g,
-                  s_feat[t / 32], feat, keys, stats);
+  pack_bin_staged<false>(r, valid, sp, col[0], col[1], col[2], 1.0f, g,
+                         Band{}, s_feat[t / 32], feat, keys, stats);
 }
 
 Geom make_geom(int N, int H, int W, int tile_px, int tiles_x, int tiles_y,
@@ -367,15 +479,14 @@ Geom make_geom(int N, int H, int W, int tile_px, int tiles_x, int tiles_y,
   return g;
 }
 
-int blocks_for(int n_rows) { return (n_rows + kThreads - 1) / kThreads; }
-
 int staged_blocks_for(int n_rows) {
   return (n_rows + kStagedRows - 1) / kStagedRows;
 }
 
 }  // namespace
 
-// K5. xyz [N, 2], chol [N, 3], colors [N, 3] f32; feat [N+1, 16] f32,
+// K5. xyz [N, 2], chol [N, 3], colors [N, 3] f32 (these three and feat
+// 16-byte aligned); feat [N+1, 16] f32,
 // keys [M, N+1] i32, stats [2, N+1] i32; all device pointers. Launches on
 // `stream` and returns the launch's cudaError_t (0 = success;
 // cudaErrorInvalidValue for N < 1, M < 1 or a tile_px that is not a power
@@ -388,8 +499,9 @@ extern "C" int splat_prep_raw(const float* xyz, const float* chol,
                               cudaStream_t stream) {
   if (!geom_ok(N, M, tile_px)) return static_cast<int>(cudaErrorInvalidValue);
   const Geom g = make_geom(N, H, W, tile_px, tiles_x, tiles_y, M, id_bits, q_cut);
-  splat_prep_raw_kernel<<<blocks_for(g.n_rows), kThreads, 0, stream>>>(
-      xyz, chol, colors, b0, b1, b2, g, feat, keys, stats);
+  splat_prep_raw_kernel<<<staged_blocks_for(g.n_rows), kStagedRows, 0,
+                          stream>>>(xyz, chol, colors, b0, b1, b2, g, feat,
+                                    keys, stats);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -411,8 +523,9 @@ extern "C" int splat_prep_decode(const float* xyz, const int* codes,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K7. N = B * n_per rows: xyz [N, 2] f32, codes [N, 3] i32, idx [N, 2] i32,
-// scale [B, 3], beta [B, 3], embed [B * 64, 3] f32; H the frame's height,
+// K7. N = B * n_per rows: xyz [N, 2] f32, codes [N, 3] i32, idx [N, 2] i32
+// (these three and feat 16-byte aligned), scale [B, 3], beta [B, 3],
+// embed [B * 64, 3] f32; H the frame's height,
 // tiles_y the canvas's tile rows (a multiple of B); outputs as K5's.
 extern "C" int splat_prep_decode_batch(
     const float* xyz, const int* codes, const int* idx, const float* scale,
@@ -425,10 +538,12 @@ extern "C" int splat_prep_decode_batch(
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows_pf = tiles_y / (N / n_per);
   const Geom g = make_geom(N, H, W, tile_px, tiles_x, tiles_y, M, id_bits, q_cut);
-  splat_prep_decode_batch_kernel<<<blocks_for(g.n_rows), kThreads, 0,
-                                   stream>>>(xyz, codes, idx, scale, beta,
-                                             embed, b0, b1, b2, n_per,
-                                             rows_pf, g, feat, keys, stats);
+  // frames of 64 rows or more: a CTA's rows span at most two
+  auto kernel = n_per >= kStagedRows ? splat_prep_decode_batch_kernel<true>
+                                     : splat_prep_decode_batch_kernel<false>;
+  kernel<<<staged_blocks_for(g.n_rows), kStagedRows, 0, stream>>>(
+      xyz, codes, idx, scale, beta, embed, b0, b1, b2, n_per, rows_pf, g,
+      feat, keys, stats);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,7 +13,7 @@
 //   conic_radius;
 //   rgb = max(SH(degree, normalised x - origin) + 0.5, 0), or sigmoid of the
 //   DC row at degree 0; opacity = sigmoid(logit) (torch_sigmoid);
-// then splat_prep_common.cuh's pack_bin with the isotropic bbox rx = ry =
+// then splat_prep_common.cuh's tail with the isotropic bbox rx = ry =
 // radius (the blend kernel has no q_cut gate): the feature row (x, y, conic,
 // rgb, opacity), M packed keys (tile << id_bits) | row with dead slots at
 // INT32_MAX, and the (trunc, live) counts. The row index is the rank in
@@ -342,8 +342,8 @@ splat_prep_blend3d_kernel(const float* __restrict__ xyz,
   __syncthreads();
   if (colors) return;
   const float4 col = s_col[t];
-  pack_bin_staged(r, valid, s, col.x, col.y, col.z, col.w, g,
-                  s_feat[t / 32], feat, keys, stats);
+  pack_bin_staged<false>(r, valid, s, col.x, col.y, col.z, col.w, g,
+                         Band{}, s_feat[t / 32], feat, keys, stats);
 }
 
 }  // namespace

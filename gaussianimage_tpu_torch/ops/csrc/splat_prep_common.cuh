@@ -4,9 +4,10 @@
 // to the pixel center, conic and binning extents (project_head); and the
 // tail every front ends with, the packed feature row with its colors and
 // opacity, the binning keys and the counts of one Gaussian: its arithmetic
-// (feat_row, bin_row, write_bins) under two stores, pack_bin (one thread a
-// row, K5 and K7) and pack_bin_staged (a warp's rows through shared memory,
-// K4, K6a, K6b and K10, which stage their input rows with RowStage).
+// (feat_row, bin_row, write_bins) and its store, pack_bin_staged (a warp's
+// rows through shared memory); and RowStage, which brings a CTA's input
+// rows to shared memory. Every front, K4-K7 and K10, stages its rows and
+// ends with that tail.
 // Counterpart of gaussianimage_tpu/ops/splat_prep.py _project_pack_bin
 // (:61) and _pack_bin (:110), which replicate core/covariance.py,
 // rasterize_sum._axis_radii and tiles._expand_instances; and the RS model's
@@ -27,7 +28,6 @@ namespace sprep {
 
 constexpr int kFW = 16;                // floats per packed feature row
 constexpr int kIntMax = 0x7fffffff;    // dead key slot
-constexpr int kThreads = 256;
 constexpr float kTwoPi = 6.28318530717958647692f;  // float(2 pi), as torch
                                                     // and JAX round it
 
@@ -207,22 +207,7 @@ __device__ __forceinline__ void write_bins(int r, const Bins& b, const Geom& g,
   stats[g.n_rows + r] = b.n_live;
 }
 
-// The tail, one thread a row: four 16-byte stores of its row at a 64-byte
-// stride between lanes, then its keys and counts.
-template <bool kBand>
-__device__ __forceinline__ void pack_bin(
-    int r, bool valid, const Splat& s, float c0, float c1, float c2,
-    float opac, const Geom& g, Band band, float* __restrict__ feat,
-    int* __restrict__ keys, int* __restrict__ stats) {
-  float4 v[4];
-  feat_row(valid, s, c0, c1, c2, opac, v);
-  float4* row = reinterpret_cast<float4*>(feat + static_cast<size_t>(r) * kFW);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) row[k] = v[k];
-  write_bins(r, bin_row<kBand>(valid, s, g, band), g, keys, stats);
-}
-
-// Rows (and threads) of a CTA of the staged fronts K4, K6a, K6b and K10:
+// Rows (and threads) of a CTA of every front (K10: rows, two threads a row):
 // 10,001 rows make 157 CTAs, more than the card's 132 SMs.
 constexpr int kStagedRows = 64;
 
@@ -233,10 +218,12 @@ constexpr int kStagedRows = 64;
 // ((l >> 1) & 3)), then out as 2 KB of consecutive float4s, lane l storing
 // float4s l, l + 32, l + 64 and l + 96 of the span: 512 contiguous bytes a
 // warp store. The swizzle keeps both sides free of bank conflicts (each
-// quarter-warp meets 8 distinct 16-byte bank groups).
+// quarter-warp meets 8 distinct 16-byte bank groups). Each row bins under
+// its own `band` (kBand, K7: its frame's); the others pass Band{}.
+template <bool kBand>
 __device__ __forceinline__ void pack_bin_staged(
     int r, bool valid, const Splat& s, float c0, float c1, float c2,
-    float opac, const Geom& g, float4* __restrict__ stage,
+    float opac, const Geom& g, Band band, float4* __restrict__ stage,
     float* __restrict__ feat, int* __restrict__ keys,
     int* __restrict__ stats) {
   const int lane = threadIdx.x & 31;
@@ -255,7 +242,7 @@ __device__ __forceinline__ void pack_bin_staged(
       out[q] = stage[4 * row + ((q & 3) ^ ((row >> 1) & 3))];
   }
   if (r < g.n_rows)
-    write_bins(r, bin_row<false>(valid, s, g, Band{}), g, keys, stats);
+    write_bins(r, bin_row<kBand>(valid, s, g, band), g, keys, stats);
 }
 
 // 8- and 16-byte vectors of a 4-byte type
@@ -366,17 +353,5 @@ struct RowStage {
     }
   }
 };
-
-// K5 and K7: the head, then the tail with opacity 1 (the Cholesky model's
-// fixed opacity).
-template <bool kBand>
-__device__ __forceinline__ void project_pack_bin(
-    int r, bool valid, float mx, float my, float s11, float s12, float s22,
-    float c0, float c1, float c2, const Geom& g, Band band,
-    float* __restrict__ feat, int* __restrict__ keys,
-    int* __restrict__ stats) {
-  pack_bin<kBand>(r, valid, project_head<kBand>(mx, my, s11, s12, s22, g, band),
-                  c0, c1, c2, 1.0f, g, band, feat, keys, stats);
-}
 
 }  // namespace sprep

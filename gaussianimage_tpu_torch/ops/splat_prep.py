@@ -14,10 +14,13 @@ Per Gaussian it emits:
 - ``stats`` [2, N+1] int32: its (trunc, live) counts, summed for n_dropped.
 
 Five CUDA kernels in ``csrc/splat_prep.cu`` share one front
-(``csrc/splat_prep_common.cuh``: the head ``project_head``, then the tail
-with opacity 1, ``pack_bin`` or, for K4, the staged ``pack_bin_staged``;
-the 3DGS prep K10, ops/splat_prep3d.py, ends with the staged tail and a
-real opacity):
+(``csrc/splat_prep_common.cuh``: rows staged in shared memory, the head
+``project_head``, then the staged tail ``pack_bin_staged`` with opacity 1;
+the 3DGS prep K10, ops/splat_prep3d.py, ends with the same tail and a real
+opacity). Every kernel loads its row inputs as 16-byte vectors, so the
+wrappers refuse rows whose data does not start on 16 bytes
+(``_check_aligned``) and the entry points hand them over through
+``_aligned``:
 
 - K5 ``raw_prep``: from raw parameters (tanh means, the Cholesky bound),
   the serving render's front (``fused_render_cholesky``, ``render_fast``);
@@ -305,8 +308,8 @@ def _check_inputs(kernel: str, named):
 
 def _check_aligned(kernel: str, named):
     """named: (name, tensor); raises unless each tensor's data starts on a
-    16-byte boundary. The staged fronts (K4, K6a, K6b and K10) load their
-    rows as 16-byte vectors; a view that starts a row into its storage
+    16-byte boundary. The fronts (K4-K7 and K10) load their rows as
+    16-byte vectors; a view that starts a row into its storage
     (``x[1:]``) is contiguous but need not be aligned."""
     for name, x in named:
         if x.data_ptr() % 16:
@@ -365,7 +368,8 @@ def raw_prep(xyz, chol, colors, bound, H: int, W: int, tile_px: int, M: int,
     ``colors`` [N, 3]; ``bound`` three floats.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    version. ``raw_prep.launches`` counts the kernel's launches."""
+    version. ``raw_prep.launches`` counts the kernel's launches. The row
+    inputs must start on a 16-byte boundary (``_check_aligned``)."""
     if xyz.device.type == "cpu":
         return raw_prep_plain(xyz, chol, colors, bound, H, W, tile_px, M,
                               q_cut)
@@ -373,6 +377,7 @@ def raw_prep(xyz, chol, colors, bound, H: int, W: int, tile_px: int, M: int,
     _check_inputs("K5", [("xyz", xyz, torch.float32, (N, 2)),
                          ("chol", chol, torch.float32, (N, 3)),
                          ("colors", colors, torch.float32, (N, 3))])
+    _check_aligned("K5", [("xyz", xyz), ("chol", chol), ("colors", colors)])
     out = _launch("splat_prep_raw", "K5 splat_prep_raw", (xyz, chol, colors),
                   bound, H, W, tile_px, M, q_cut)
     raw_prep.launches += 1
@@ -417,8 +422,8 @@ def batch_decode_prep(xyz, codes, idx, scale, beta, embed, bound, B: int,
     of B * tile_px).
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    version. ``batch_decode_prep.launches`` counts the kernel's
-    launches."""
+    version. ``batch_decode_prep.launches`` counts the kernel's launches.
+    The row inputs must start on a 16-byte boundary (``_check_aligned``)."""
     N = xyz.shape[0]
     if B < 1 or N % B or H % (B * tile_px):
         raise ValueError(f"K7 stacks B frames of equal size: B={B}, N={N} "
@@ -433,6 +438,7 @@ def batch_decode_prep(xyz, codes, idx, scale, beta, embed, bound, B: int,
                          ("beta", beta, torch.float32, (B, 3)),
                          ("embed", embed, torch.float32,
                           (B * CODEBOOK * CODEBOOK, 3))])
+    _check_aligned("K7", [("xyz", xyz), ("codes", codes), ("idx", idx)])
     out = _launch("splat_prep_decode_batch", "K7 splat_prep_decode_batch",
                   (xyz, codes, idx, scale, beta, embed), bound, H, W,
                   tile_px, M, q_cut, frames=B)
@@ -527,9 +533,11 @@ def fused_raw_prep_cholesky(xyz, chol_raw, colors, bound, H: int, W: int,
                             cfg, m_span: int):
     """Raw-parameter Cholesky front (K5) -> (feat, keys, trunc, n_total)."""
     return _finish(raw_prep(
-        xyz.float().contiguous(), chol_raw.float().contiguous(),
-        colors.float().contiguous(), tuple(float(b) for b in bound), H, W,
-        cfg.tile_px, m_span, float(cfg.q_cut)))
+        _aligned(xyz.float().contiguous()),
+        _aligned(chol_raw.float().contiguous()),
+        _aligned(colors.float().contiguous()),
+        tuple(float(b) for b in bound), H, W, cfg.tile_px, m_span,
+        float(cfg.q_cut)))
 
 
 def fused_prep_cholesky(enc_xyz, chol_codes, quant_scale, quant_beta, bound,
@@ -554,8 +562,9 @@ def fused_prep_cholesky_batch(enc_xyz, chol_codes, quant_scale, quant_beta,
     codes), scale and beta [B, 3], combined codebooks [B * 64, 3] ->
     (feat, keys, trunc, n_total)."""
     return _finish(batch_decode_prep(
-        enc_xyz.float().contiguous(), chol_codes.int().contiguous(),
-        vq_idx.int().contiguous(),
+        _aligned(enc_xyz.float().contiguous()),
+        _aligned(chol_codes.int().contiguous()),
+        _aligned(vq_idx.int().contiguous()),
         quant_scale.reshape(B, 3).float().contiguous(),
         quant_beta.reshape(B, 3).float().contiguous(),
         embed_combined.float().contiguous(), tuple(float(b) for b in bound),

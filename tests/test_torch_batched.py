@@ -120,6 +120,52 @@ def test_batch_decode_prep_plain_matches_jax():
     np.testing.assert_allclose(rows.numpy(), jfeat[:B * N + 1], **TOL)
 
 
+
+@pytest.mark.parametrize("nb,n", [(3, 33), (2, 65)])
+def test_batch_decode_prep_plain_rows_match_jax(nb, n):
+    """Frames whose boundaries fall inside the card's 64-row blocks (K7
+    stages 64 rows a block: nb frames of n = 33 or 65 rows) through the
+    plain K7 against JAX's fused_prep_cholesky_batch under a 3-tile span:
+    the keys equal slot by slot in their [M, N+1] layout; each row's
+    counts (trunc, live) the excess and min of its area over M, the area
+    read off JAX's keys under a span of every tile of the canvas; the
+    feature rows to TOL (x, y to rtol 3e-6: XLA's CPU tanh)."""
+    m_span = 3
+    xyz16, codes, idx, scale, beta, comb = _code_scene(nb, seed=5)
+    rows = (xyz16[:nb * n].astype(np.float32), codes[:nb * n],
+            idx[:nb * n])
+    tables = (scale, beta, comb)
+    cfg = JCfg(fused_prep=True)
+    tp = cfg.tile_px
+    all_tiles = nb * -(-H // tp) * -(-W // tp)
+
+    def jax_prep(m):
+        jfeat, jkeys, jtrunc, jn_total = jax.jit(
+            lambda x, c, i: jsp.fused_prep_cholesky_batch(
+                x, c, jnp.asarray(scale), jnp.asarray(beta), BOUND, i,
+                jnp.asarray(comb), nb, H * nb, W, cfg, m))(
+            *(jnp.asarray(r) for r in rows))
+        jkeys = np.asarray(jkeys).reshape(m, -1)[:, :nb * n + 1]
+        return np.asarray(jfeat), jkeys, int(jtrunc), int(jn_total)
+
+    jfeat, jkeys, jtrunc, jn_total = jax_prep(m_span)
+    area = (jax_prep(all_tiles)[1] != INT_MAX).sum(axis=0)
+    feat, keys, stats = sp.batch_decode_prep(
+        *_t(*rows), *_t(*tables), tuple(BOUND), nb, H * nb, W, tp, m_span,
+        float(cfg.q_cut))
+    np.testing.assert_array_equal(keys.numpy(), jkeys)
+    np.testing.assert_array_equal(stats[0].numpy(),
+                                  np.maximum(area - m_span, 0))
+    np.testing.assert_array_equal(stats[1].numpy(),
+                                  np.minimum(area, m_span))
+    assert (int(stats[0].sum()), int(stats[1].sum())) == (jtrunc, jn_total)
+    assert jtrunc > 0
+    np.testing.assert_array_equal(feat[nb * n].numpy(), 0.0)
+    np.testing.assert_allclose(feat[:, 2:].numpy(),
+                               jfeat[:nb * n + 1, 2:], **TOL)
+    np.testing.assert_allclose(feat[:, :2].numpy(), jfeat[:nb * n + 1, :2],
+                               rtol=3e-6, atol=1e-6)
+
 def test_batch_decode_prep_plain_at_one_frame_is_k4_plain():
     """B = 1: bit for bit the single-frame prep's plain version."""
     xyz16, codes, idx, scale, beta, comb = _code_scene(1, seed=2)

@@ -1,8 +1,9 @@
 """The port stands alone and runs on CUDA unless told otherwise:
 gaussianimage_tpu_torch imports neither JAX nor the JAX package; its entry
-points raise without a GPU when the CPU was not asked for; chip_smoke.py
-exits non-zero, with no result line, where there is no card or no
-repository around it; checkpoints round-trip with the JAX package."""
+points raise without a GPU when the CPU was not asked for; its import sets
+up torch's CPU vector math on one thread; chip_smoke.py exits non-zero,
+with no result line, where there is no card or no repository around it;
+checkpoints round-trip with the JAX package."""
 
 import json
 import shutil
@@ -49,6 +50,39 @@ def test_port_imports_no_jax():
     assert p.returncode == 0, p.stderr
     assert p.stdout.strip() == "clean"
 
+
+
+def test_cpu_vector_math_is_set_up_on_import():
+    """torch's CPU exp, log, sin, cos, tanh and sqrt of float tensors go
+    through MKL's vector math, whose first use sets it up without a lock: a
+    first call that torch splits across threads can compute one thread's
+    chunk on a wrong path (cos off by up to 2534 ulps on half of 4096
+    angles, in up to 5% of fresh processes started eight at a time).
+    Importing the port makes that first use on one thread. In 16 fresh
+    processes that import it, started eight at a time, the first split call
+    of cos (4096 angles on two threads) is within one ulp of the float64
+    cosine on every element."""
+    code = (
+        "import numpy as np, torch\n"
+        "import gaussianimage_tpu_torch\n"
+        "torch.set_num_threads(2)\n"
+        "x = np.random.default_rng(0).uniform(0.0, 6.28, 4096)"
+        ".astype(np.float32)\n"
+        "c = torch.cos(torch.from_numpy(x)).numpy()\n"
+        "r = np.cos(x.astype(np.float64)).astype(np.float32)\n"
+        "print(int(np.abs(c.view(np.int32).astype(np.int64)"
+        " - r.view(np.int32).astype(np.int64)).max()))\n")
+    ulps = []
+    for _ in range(2):
+        procs = [subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for _ in range(8)]
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err
+            ulps.append(int(out.strip()))
+    assert max(ulps) <= 1, ulps
 
 def test_port_sources_do_not_name_jax():
     for path in [*(ROOT / "gaussianimage_tpu_torch").rglob("*.py"),

@@ -102,12 +102,28 @@ def _theta_port(raw):
 
 def _agree(theta_j, theta_t):
     """[n] mask of the rows whose angle, cos and sin are bit-equal between
-    the packages (theta_j computed by JAX, theta_t by the port)."""
-    tj, tt = jnp.asarray(theta_j), _t(theta_t)
-    ok = ((theta_j == theta_t)
-          & (np.asarray(jnp.cos(tj)) == torch.cos(tt).numpy())
-          & (np.asarray(jnp.sin(tj)) == torch.sin(tt).numpy()))
-    return ok.reshape(ok.shape[0], -1).all(axis=1)
+    the packages (theta_j computed by JAX, theta_t by the port; [n] or
+    [n, 1]). Each package's cos and sin are taken as its functions take
+    them, of the [n] vector of angles: cov2d_from_scale_rot takes
+    theta[..., 0] of an [n, 1] angle, and the fused fronts compute the
+    angle of each row as a vector; an op on an [n, 1] array is another
+    compiled op than the one the functions run."""
+    tj = np.ascontiguousarray(np.reshape(theta_j, -1))
+    tt = np.ascontiguousarray(np.reshape(theta_t, -1))
+    jt, pt = jnp.asarray(tj), _t(tt)
+    return ((tj == tt)
+            & (np.asarray(jnp.cos(jt)) == torch.cos(pt).numpy())
+            & (np.asarray(jnp.sin(jt)) == torch.sin(pt).numpy()))
+
+
+def _equal_on(name, got, want, mask):
+    """``got`` and ``want`` ([n, ...]) bit-equal on the rows of ``mask``;
+    a failure names the output and counts the masked rows that differ."""
+    differ = (got != want).reshape(len(mask), -1).any(axis=1) & mask
+    np.testing.assert_array_equal(
+        got[mask], want[mask],
+        err_msg=f"{name}: {int(differ.sum())} of {int(mask.sum())} masked "
+                f"rows differ (rows {np.flatnonzero(differ)[:8].tolist()})")
 
 
 def _raw_scene(seed=0):
@@ -147,9 +163,10 @@ def _code_scene(seed=1):
 def test_scale_rot_covariance_and_projection_match_jax(seed):
     """cov2d_from_scale_rot and project_gaussians_2d_scale_rot on the same
     angles ([N, 1] and [N]): every output to TOL on all rows, bit-equal on
-    the rows where cos and sin agree. The activation sigmoid(r) * 2 pi
-    differs from XLA's on under 1% of inputs (0.3% measured), by at most
-    two ulps."""
+    the rows where cos and sin agree, as both functions take them (of the
+    [N] vector: _agree). The activation sigmoid(r) * 2 pi differs from
+    XLA's on under 1% of inputs (0.3% measured), by at most two ulps. Each
+    assertion's message carries its numbers."""
     rng = np.random.default_rng(seed)
     n = 4096
     means = rng.uniform(-0.95, 0.95, (n, 2)).astype(np.float32)
@@ -158,17 +175,24 @@ def test_scale_rot_covariance_and_projection_match_jax(seed):
     tj, tt = _theta_jax(raw), _theta_port(raw)
     ulps = np.abs(tj.view(np.int32).astype(np.int64)
                   - tt.view(np.int32).astype(np.int64))
-    assert (ulps > 0).mean() < 0.01 and ulps.max() <= 2, (
-        (ulps > 0).sum(), ulps.max())
+    share, worst = float((ulps > 0).mean()), int(ulps.max())
+    assert share < 0.01 and worst <= 2, (
+        f"sigmoid(r) * 2 pi: {int((ulps > 0).sum())} of {n} angles "
+        f"({share:.4f}, bound 0.01) differ from XLA's, by up to {worst} "
+        f"ulps (bound 2)")
     mask = _agree(tj, tj)
-    assert (~mask).mean() < MAX_OFF_MASK, (~mask).sum()
+    off = float((~mask).mean())
+    assert off < MAX_OFF_MASK, (
+        f"{int((~mask).sum())} of {n} rows ({off:.4f}) off the cos / sin "
+        f"mask (bound {MAX_OFF_MASK})")
     tb = (-(-W // 16), -(-H // 16), 1)
     for theta in (tj, tj[:, 0]):
+        shape = f"theta {list(theta.shape)}"
         cj = np.asarray(jcore.cov2d_from_scale_rot(jnp.asarray(scales),
                                                    jnp.asarray(theta)))
         ct = tcore.cov2d_from_scale_rot(_t(scales), _t(theta)).numpy()
-        np.testing.assert_allclose(ct, cj, **TOL)
-        np.testing.assert_array_equal(ct[mask], cj[mask])
+        np.testing.assert_allclose(ct, cj, err_msg=f"cov, {shape}", **TOL)
+        _equal_on(f"cov, {shape}", ct, cj, mask)
         pj = jcore.project_gaussians_2d_scale_rot(
             jnp.asarray(means), jnp.asarray(scales), jnp.asarray(theta), H,
             W, tb)
@@ -177,8 +201,9 @@ def test_scale_rot_covariance_and_projection_match_jax(seed):
         for name, a, b in zip(("xys", "depths", "radii", "conics",
                                "num_tiles_hit"), pt, pj):
             a, b = a.numpy(), np.asarray(b)
-            np.testing.assert_allclose(a, b, err_msg=name, **TOL)
-            np.testing.assert_array_equal(a[mask], b[mask], err_msg=name)
+            np.testing.assert_allclose(a, b, err_msg=f"{name}, {shape}",
+                                       **TOL)
+            _equal_on(f"{name}, {shape}", a, b, mask)
 
 
 # ------------------------------------------------ the fused fronts

@@ -193,6 +193,42 @@ def test_decode_prep_plain_rows_match_jax(n):
         assert jtrunc > 0
 
 
+
+@pytest.mark.parametrize("n", [1, 33, 65])
+def test_raw_prep_plain_rows_match_jax(n):
+    """The plain K5 on the first n raw rows (the card's K5 stages 64-row
+    blocks, as K4 does: n = 1, 33, 65 leave a partial block and warp)
+    against JAX's fused_raw_prep_cholesky under a 3-tile span: the keys
+    equal in their slot-major [M, N+1] layout, and each row's counts
+    (trunc, live) equal min / excess of its area over M, the area read off
+    JAX's keys under a span of every tile."""
+    jcfg, cfg = JCfg(fused_prep=True), RasterizeConfig(fused_prep=True)
+    m_span = 3
+    all_tiles = -(-H // cfg.tile_px) * -(-W // cfg.tile_px)
+    rows = tuple(np.ascontiguousarray(a[:n]) for a in _raw_scene())
+
+    def jax_keys(m):
+        _, jkeys, jtrunc, jn_total = jax.jit(
+            lambda x, c, col: jsp.fused_raw_prep_cholesky(
+                x, c, col, BOUND, H, W, jcfg, m))(
+            *(jnp.asarray(r) for r in rows))
+        jkeys = np.asarray(jkeys).reshape(m, -1)[:, :n + 1]
+        return jkeys, int(jtrunc), int(jn_total)
+
+    jkeys, jtrunc, jn_total = jax_keys(m_span)
+    area = (jax_keys(all_tiles)[0] != INT_MAX).sum(axis=0)
+    _, keys, stats = sp.raw_prep(
+        *(torch.from_numpy(r) for r in rows), BOUND, H, W, cfg.tile_px,
+        m_span, float(cfg.q_cut))
+    np.testing.assert_array_equal(keys.numpy(), jkeys)
+    np.testing.assert_array_equal(stats[0].numpy(),
+                                  np.maximum(area - m_span, 0))
+    np.testing.assert_array_equal(stats[1].numpy(),
+                                  np.minimum(area, m_span))
+    assert (int(stats[0].sum()), int(stats[1].sum())) == (jtrunc, jn_total)
+    if n == 65:
+        assert jtrunc > 0
+
 def test_decode_prep_refuses_unaligned_rows():
     """K4 loads its row inputs as 16-byte vectors: the wrapper's alignment
     check passes fresh tensors and refuses a view one [N, 2] row (8 bytes)
@@ -206,6 +242,40 @@ def test_decode_prep_refuses_unaligned_rows():
     with pytest.raises(ValueError, match="16-byte"):
         sp._check_aligned("K4", [("codes", codes[1:])])
 
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K7"])
+def test_raw_and_batch_prep_refuse_unaligned_rows(kernel, monkeypatch):
+    """K5 and K7 stage their rows as K4 does: their wrappers refuse a row
+    input whose data starts off 16 bytes (a view one [N, 2] row, 8 bytes,
+    into its storage) and pass fresh tensors on to the launch. Meta tensors
+    stand in for CUDA ones (their data_ptr() carries a view's offset), with
+    the device check and the launch replaced by stubs."""
+    monkeypatch.setattr(sp, "_check_inputs", lambda kernel, named: None)
+    monkeypatch.setattr(sp, "_launch", lambda *args, **kw: "launched")
+    meta = dict(device="meta")
+    i32 = dict(dtype=torch.int32, **meta)
+    if kernel == "K5":
+        wrapper = sp.raw_prep
+        rows = [torch.zeros(9, 2, **meta), torch.zeros(9, 3, **meta),
+                torch.zeros(9, 3, **meta)]
+        rest = (BOUND, 32, 32, 32, 9, 9.0)
+    else:
+        wrapper = sp.batch_decode_prep
+        rows = [torch.zeros(9, 2, **meta), torch.zeros(9, 3, **i32),
+                torch.zeros(9, 2, **i32)]
+        rest = (torch.zeros(1, 3, **meta), torch.zeros(1, 3, **meta),
+                torch.zeros(64, 3, **meta), BOUND, 1, 32, 32, 32, 9, 9.0)
+    monkeypatch.setattr(wrapper, "launches", 0)
+    assert wrapper(*rows, *rest) == "launched"
+    for i in range(len(rows)):
+        views = list(rows)
+        views[i] = torch.zeros(10, rows[i].shape[1], dtype=rows[i].dtype,
+                               **meta)[1:]
+        assert views[i].data_ptr() % 16
+        with pytest.raises(ValueError, match=f"{kernel} loads .* 16-byte"):
+            wrapper(*views, *rest)
+    assert wrapper.launches == 1
 
 def test_prep_kernels_take_power_of_two_tiles():
     """The fused prep kernels bin with the reciprocal of tile_px, exact
@@ -221,16 +291,18 @@ def test_prep_kernels_take_power_of_two_tiles():
 STACK_N = 9999  # not a multiple of 4: frame 1 of a stack is off 16 bytes
 
 
-@pytest.mark.parametrize("front", ["cholesky", "rs_decode", "rs_raw"])
+@pytest.mark.parametrize("front", ["cholesky", "rs_decode", "rs_raw",
+                                   "cholesky_raw", "cholesky_batch"])
 def test_fused_fronts_hand_aligned_rows_of_a_stacked_frame(front,
                                                            monkeypatch):
     """The scan decode (batched.decode_many) hands each frame of a stacked
     encoding over as a view ``enc_b[b]``, which starts b x STACK_N rows
     into its storage. Frame 1 of a [2, STACK_N, ...] stack goes through
-    fused_prep_cholesky (K4), fused_prep_rs (K6a) and fused_raw_prep_rs
-    (K6b) with the kernel's wrapper replaced by a recorder: every row
-    input reaches it on a 16-byte boundary and equal to the frame's
-    rows."""
+    fused_prep_cholesky (K4), fused_prep_rs (K6a), fused_raw_prep_rs
+    (K6b), fused_raw_prep_cholesky (K5) and, as three stacked frames of
+    STACK_N / 3 rows, fused_prep_cholesky_batch (K7) with the kernel's
+    wrapper replaced by a recorder: every row input reaches it on a
+    16-byte boundary and equal to the frame's rows."""
     rng = np.random.default_rng(3)
     cfg = RasterizeConfig(fused_prep=True)
 
@@ -259,12 +331,23 @@ def test_fused_fronts_hand_aligned_rows_of_a_stacked_frame(front,
         call = lambda: sp.fused_prep_rs(  # noqa: E731
             *rows[:3], f32(2), f32(2), f32(1), f32(1), (0.5, 0.5), rows[3],
             comb, H, W, cfg, 3)
-    else:
+    elif front == "rs_raw":
         wrapper = "rs_raw_prep"
         rows = (stack(2, "f32"), stack(2, "f32"), stack(1, "f32"),
                 stack(3, "f32"))
         call = lambda: sp.fused_raw_prep_rs(  # noqa: E731
             *rows, (0.5, 0.5), H, W, cfg, 3)
+    elif front == "cholesky_raw":
+        wrapper = "raw_prep"
+        rows = (stack(2, "f32"), stack(3, "f32"), stack(3, "f32"))
+        call = lambda: sp.fused_raw_prep_cholesky(  # noqa: E731
+            *rows, BOUND, H, W, cfg, 3)
+    else:
+        wrapper = "batch_decode_prep"
+        rows = (stack(2, "f16"), stack(3, "i32"), stack(2, "i32"))
+        call = lambda: sp.fused_prep_cholesky_batch(  # noqa: E731
+            rows[0], rows[1], f32(3, 3), f32(3, 3), BOUND, rows[2],
+            comb.repeat(3, 1), 3, 3 * H, W, cfg, 3)
     assert any(r.data_ptr() % 16 for r in rows)
     seen = []
     real = getattr(sp, wrapper)
