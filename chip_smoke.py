@@ -30,7 +30,11 @@ Phases, one JSON line each (with ``elapsed_s``):
              where theirs are), K3 against K1 -> L2 -> K2, no gated pair
              culled; case k3_cull_edge: K1-K3 the same way on the cull's
              adversarial scene (``blend_cull_scene``, its NaN opacities
-             set to 0.5; K3 under no clamp), flat and aligned; the fused
+             set to 0.5; K3 under no clamp), flat and aligned; case
+             masked: the flower@10k stream at seeded wMask opacities (30%
+             exactly 0, the rest a sigmoid of seeded logits, 8 below
+             1e-20) the same way, flat, with K1's and K2's device times
+             beside the opacity-1 rows; the fused
              splat prep, K5 on the flower@10k fit and K4 on the china@10k
              QAT codes under ``RasterizeConfig.serving(10000)``: sorted
              keys, trunc and n_total integer-exact, feature rows to 1e-6,
@@ -93,6 +97,33 @@ Phases, one JSON line each (with ``elapsed_s``):
 8. generic   50 steps of the model's train_step under a non-L2 loss
              (Fusion2 = 0.7 L1 + 0.3 (1 - SSIM)), which renders through
              the differentiable rasterizer: K1 forward, K2 backward;
+8a. wmask_fit ``SimpleTrainer2d`` with ``GaussianImage_Cholesky_wMask``
+             fits the flower photo at N = 16,000 for 3000 iterations with
+             the repo's sweep flags (ada_kl, target 0.7, lambda 0.005,
+             initial logit 2.0) and its mask window 10k-40k of 50k scaled
+             to 600-2400: no NaN loss, >= 3000 K2 launches and no K3,
+             n_dropped 0 in every chunk, 0 < Final_points < 16,000 after
+             the prune, the pruned model's evaluation render (at 1 << 30)
+             within 1e-5 of the unpruned one's taken before the prune
+             (bit-equality reported), test PSNR >= 30 dB (a sanity
+             floor), scalars.jsonl with the sparsity keys, two ada_kl
+             evaluations bit-identical; wall ms per step in each mask
+             phase (a burst of steps of a copy of the fitted model) and a
+             profiled burst of each;
+8a'. wmask_ema 300 iterations with kl, the EMA, the score and the
+             temperature 1.0 -> 0.1 over a 50-250 mask window in chunks of
+             50: at the chunk boundary after 250 every logit is exactly
+             +-10, its sign by mask_ema > 0.5;
+8a''. wmask_qat ``QuantizeTrainer2d`` with the wMask model, 500 iterations
+             on the pruned fit (``--num_points`` its kept count): >= 500 K1
+             and K2 launches, no K3, K4 or K7, no NaN loss; the best state's
+             codec decode within 1e-6 of its evaluation render through K1;
+             a stacked decode of it and a copy with a tenth of its masks
+             off: frame 0 bit for bit to its single-frame decode, frame 1's
+             PSNR within FRAME_PSNR_TOL of its own (as in phase batched);
+             the codec CLI on the state as a
+             two-image dataset (generic decode: K1, no K4 or K7), its PSNR
+             the QAT's best test PSNR within 1e-3 dB;
 8b. rs_fit   ``SimpleTrainer2d`` with ``GaussianImage_RS`` fits the flower
              photo at N = 10,000 for 5000 iterations with the CLI defaults
              (the RS projection, then K3), its checkpoint in a temp dir:
@@ -247,6 +278,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from copy import deepcopy
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -354,6 +386,31 @@ GS_ALIGNED_N = 30000     # the 3DGS sweep's smallest aligned point count
 GS_ALIGNED_STEPS = 200
 # the cull's adversarial scene (blend_cull_scene.cull_edge_scene): points,
 # (H, W) and seed
+# the masked case: flower@10k at seeded wMask opacities
+MASK_SEED = 8
+MASK_ZERO_SHARE = 0.3   # opacities exactly 0 (a deterministic mask's off)
+MASK_TINY = 8           # opacities below 1e-20 (sigmoid of logits -50..-47)
+# the wMask phases: the repo's sweep (scripts/gaussianimage_cholesky/
+# kodak_wMask.sh, kodak at 16,000 points, mask 10k-40k of 50k) on flower,
+# its schedule scaled to WMASK_ITERS
+WMASK = "GaussianImage_Cholesky_wMask"
+WMASK_N = 16000
+WMASK_ITERS = 3000
+WMASK_FLAGS = ["--lr", "1e-3", "--reg_type", "ada_kl", "--target_sparsity",
+               "0.7", "--lambda_reg", "0.005", "--init_mask_logit", "2.0",
+               "--start_mask_training", "600", "--stop_mask_training", "2400",
+               "--viz_every", "0"]
+WMASK_PSNR = 30.0       # a sanity floor of the fit's test PSNR, no claim
+WMASK_PRUNE_TOL = 1e-5  # the pruned render against the unpruned one
+WMASK_PHASE_ITERS = {"none": 300, "soft": 1500, "deterministic": 2700}
+WMASK_EMA_ITERS = 300
+WMASK_EMA_FLAGS = ["--reg_type", "kl", "--use_ema", "--use_score",
+                   "--temp_init", "1.0", "--temp_final", "0.1",
+                   "--start_mask_training", "50", "--stop_mask_training",
+                   "250", "--chunk_size", "50", "--viz_every", "0"]
+WMASK_EMA_STOP = 250
+WMASK_QAT_ITERS = 500
+WMASK_DECODE_TOL = 1e-6  # the QAT state's decode against its eval render
 CULL_N = 2000
 CULL_HW = (192, 256)
 CULL_SEED = 5
@@ -1025,6 +1082,44 @@ def main() -> None:
         k3_edge[name] = sum_case(f"k3_cull_edge {name}", feat_ce, sp_ce,
                                  *CULL_HW, g_ce3, gt_ce, clamp=False)
         k3_edge[name]["n_dropped"] = int(sp_ce.n_dropped)
+    # masked: the flower@10k stream at the wMask model's opacities (the
+    # mask premultiplies the color rows): a share exactly 0, the rest a
+    # sigmoid of seeded logits, a few below 1e-20; K1 bit for bit to the
+    # in-order plain version, K2 / K3 as on the opacity-1 rows; then K1's
+    # and K2's device times on both sets of rows
+    rng_m = np.random.default_rng(MASK_SEED)
+    n10 = feat.shape[0] - 1
+    logit_m = rng_m.normal(0.0, 3.0, n10).astype(np.float32)
+    logit_m[:MASK_TINY] = np.linspace(-50.0, -47.0, MASK_TINY)
+    off_m = rng_m.random(n10) < MASK_ZERO_SHARE
+    off_m[:MASK_TINY] = False
+    opac_m = torch.sigmoid(torch.as_tensor(logit_m, device=dev))
+    opac_m[torch.as_tensor(off_m, device=dev)] = 0.0
+    with torch.no_grad():
+        xys_f, _, conics_f, colors_f, _ = flower.splat()
+        feat_m = sc.pack_feat(xys_f, conics_f, colors_f, opac_m[:, None],
+                              premultiply=True)
+    masked = sum_case("masked", feat_m, sp, Hf, Wf, g, gt_f)
+
+    def k12_device_us(feat_):
+        tr = traced_us(torch, lambda: [
+            (rs.sum_fwd(feat_, sp.gids, sp.starts, Hf, Wf),
+             rs.sum_bwd(feat_, sp.gids, sp.starts, g, Hf, Wf))
+            for _ in range(20)])
+        out = {}
+        for k in ("rasterize_sum_fwd", "rasterize_sum_bwd"):
+            hits = [v for key, v in tr.items() if f"{k}_kernel" in key]
+            out[k] = (sum(us for us, _ in hits)
+                      / max(sum(n for _, n in hits), 1))
+        return out
+
+    masked.update(
+        opacity={"zero": int((opac_m == 0).sum()),
+                 "below_1e-20": int(((opac_m > 0) & (opac_m < 1e-20)).sum()),
+                 "in_0_1": int(((opac_m > 0) & (opac_m < 1)).sum()),
+                 "rows": n10},
+        device_us={"masked": k12_device_us(feat_m),
+                   "opacity_1": k12_device_us(feat)})
     # K5 and K4, the fused splat prep, under serving(10000)
     serve_cfg = RasterizeConfig.serving(SERVE_N)
     I_s, m_s, _ = sc.stream_caps(SERVE_N, serve_cfg)
@@ -1207,7 +1302,7 @@ def main() -> None:
           k3={"row_tol": ROW_TOL, **k3_case, "flip_row_tol": FLIP_ROW_TOL,
               "vs_k1_l2_k2_worst_row": e_chain, "chain_tol": CHAIN_TOL,
               "bit_identical_twice": deterministic, "work": work10},
-          nan_form=nan_form, k3_cull_edge=k3_edge)
+          nan_form=nan_form, k3_cull_edge=k3_edge, masked=masked)
 
     # -- slice: the evaluation entry point, counts read around it ------------
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1565,6 +1660,240 @@ def main() -> None:
     phase("generic", loss_type="Fusion2", steps=GENERIC_STEPS,
           launches=generic_counts, loss_first=float(gen_losses[0]),
           loss_last=float(gen_losses[-1]))
+
+    # -- the wMask phases: fit + prune, the EMA's finalization, QAT, codec --
+    wm_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_wmask_"))
+    try:
+        gt_flower = image_path_to_array(FLOWER_PHOTO)
+        gt_fl = torch.as_tensor(gt_flower, device=dev)
+        # wmask_fit: SimpleTrainer2d, the sweep's flags scaled to 3000
+        # iterations; fit(), the evaluation render, then the rest of train()
+        reset_counts()
+        wm = train.SimpleTrainer2d(
+            gt_flower, "flower", num_points=WMASK_N, model_name=WMASK,
+            iterations=WMASK_ITERS, args=train.parse_args(WMASK_FLAGS),
+            log_dir=wm_dir / "fit" / "flower", device=dev)
+        t_fit = time.time()
+        wm.fit()
+        torch.cuda.synchronize()
+        t_fit = time.time() - t_fit
+        with torch.no_grad():
+            pre_prune = wm.model.render(iteration=train.EVAL_ITERATION)[
+                "render"].clone()
+        probe = deepcopy(wm.model)
+        wm_fit = wm.finish(t_fit)
+        wmask_counts = read_counts()
+        with torch.no_grad():
+            post_prune = wm.model.render(iteration=train.EVAL_ITERATION)[
+                "render"]
+        kept = int(wm.model._xyz.shape[0])
+        wm_losses = np.asarray(wm._hist["loss"])
+        scalars = [json.loads(ln) for ln in (wm_dir / "fit" / "flower" /
+                                             "scalars.jsonl").read_text()
+                   .splitlines()]
+        prune_diff = float((post_prune - pre_prune).abs().max())
+        if not np.isfinite(wm_losses).all() or len(wm_losses) != WMASK_ITERS:
+            fail(f"wMask fit: {len(wm_losses)} losses, "
+                 f"{int((~np.isfinite(wm_losses)).sum())} not finite")
+        if (wmask_counts["rasterize_sum_bwd"] < WMASK_ITERS
+                or wmask_counts["rasterize_sum_l2"] != 0):
+            fail(f"the wMask fit launched {wmask_counts}: want >= "
+                 f"{WMASK_ITERS} K2, no K3")
+        if any(wm.chunk_dropped) or wm_fit["n_dropped"] != 0:
+            fail(f"instances dropped during the wMask fit: "
+                 f"{wm.chunk_dropped}, test {wm_fit['n_dropped']}")
+        if not 0 < kept < WMASK_N:
+            fail(f"the wMask fit kept {kept} of {WMASK_N} points")
+        if not prune_diff <= WMASK_PRUNE_TOL:
+            fail(f"the pruned render differs from the unpruned one by "
+                 f"{prune_diff} (> {WMASK_PRUNE_TOL})")
+        if not wm_fit["psnr"] >= WMASK_PSNR:
+            fail(f"wMask fit test PSNR {wm_fit['psnr']} < {WMASK_PSNR}")
+        want_keys = {"sparsity_hard", "sparsity_soft", "num_points_active"}
+        if not all(want_keys <= set(r) for r in scalars):
+            fail(f"scalars.jsonl lacks {want_keys}: {scalars[:1]}")
+        # wall ms per step in each mask phase: steps of a copy of the
+        # fitted model, timed in a burst and traced
+        probe_opt = probe.make_optimizer()
+        probe_gen = torch.Generator(device=dev).manual_seed(2)
+        wm_phases = {}
+        for label, it in WMASK_PHASE_ITERS.items():
+            def steps(n, it=it):
+                return [probe.train_step(probe_opt, gt_fl, iteration=it,
+                                         generator=probe_gen)
+                        for _ in range(n)]
+            wm_phases[label] = {
+                "iteration": it,
+                "ms_per_step": burst_ms(torch, lambda: steps(1), reps=50),
+                "step_profile": profile_of(torch, lambda: steps(20), 20,
+                                           ported)}
+        # two evaluations of ada_kl on the same render give the same bits
+        with torch.no_grad():
+            probs = torch.sigmoid(probe._mask_logits)
+            aux_p = {"pkg": {"xys": probe.render(iteration=1)["xys"]}}
+            reg_bits = same_bits(torch, probe.regularizer(probs, gt_fl, aux_p),
+                                 probe.regularizer(probs, gt_fl, aux_p))
+        if not reg_bits:
+            fail("two evaluations of the ada_kl regularizer differ")
+        del probe, probe_opt
+        phase("wmask_fit", model=WMASK, num_points=WMASK_N,
+              iterations=WMASK_ITERS, flags=WMASK_FLAGS,
+              launches=wmask_counts, final_points=kept,
+              test_psnr=wm_fit["psnr"], ms_ssim=wm_fit["ms_ssim"],
+              training_s=wm_fit["training_time"],
+              ms_per_step=1e3 * wm_fit["training_time"] / WMASK_ITERS,
+              fps=wm_fit["fps"], pruned_vs_unpruned_max_abs=prune_diff,
+              pruned_bit_equal=same_bits(torch, post_prune, pre_prune),
+              ada_kl_bit_identical_twice=reg_bits,
+              n_dropped_chunks_max=max(wm.chunk_dropped),
+              scalars_every_500=[r for r in scalars
+                                 if r["iteration"] % 500 == 0],
+              phases=wm_phases)
+
+        # wmask_ema: kl, the EMA and the score, temperature 1.0 -> 0.1, the
+        # mask over 50-250, chunks of 50; at the chunk boundary after 250
+        # every logit is +-10 by the EMA
+        ema_tr = train.SimpleTrainer2d(
+            gt_flower, "flower", num_points=WMASK_N, model_name=WMASK,
+            iterations=WMASK_EMA_ITERS,
+            args=train.parse_args(WMASK_EMA_FLAGS),
+            log_dir=wm_dir / "ema" / "flower", device=dev)
+        ema_tr.iterations = WMASK_EMA_STOP
+        ema_tr.fit()
+        logits = ema_tr.model._mask_logits.detach()
+        ema_on = ema_tr.model.mask_ema > 0.5
+        final_ok = bool(torch.equal(logits, torch.where(ema_on, 10.0,
+                                                        -10.0)))
+        if not final_ok:
+            fail(f"after iteration {WMASK_EMA_STOP} the logits are not +-10 "
+                 f"by the EMA: {torch.unique(logits)[:8].tolist()}")
+        ema_tr.start_iter, ema_tr.iterations = WMASK_EMA_STOP, WMASK_EMA_ITERS
+        ema_tr.fit()
+        ema_res = ema_tr.finish(0.0)
+        phase("wmask_ema", iterations=WMASK_EMA_ITERS, flags=WMASK_EMA_FLAGS,
+              finalized_at=WMASK_EMA_STOP, logits_pm10_by_ema=final_ok,
+              kept_by_ema=int(ema_on.sum()),
+              final_points=int(ema_tr.model._xyz.shape[0]),
+              test_psnr=ema_res["psnr"])
+
+        # wmask_qat: QAT of the pruned fit (--num_points its kept count)
+        reset_counts()
+        wq = train_quantize.QuantizeTrainer2d(
+            gt_flower, "flower", num_points=kept, model_name=WMASK,
+            iterations=WMASK_QAT_ITERS,
+            model_path=wm_dir / "fit" / "flower" / "gaussian_model.npz",
+            args=train_quantize.parse_args(["--lr", "1e-3"]),
+            log_dir=wm_dir / "qat" / "flower", device=dev)
+        wq_res = wq.train()
+        wq_counts = read_counts()
+        wq_losses = np.asarray(wq.losses)
+        if not np.isfinite(wq_losses).all():
+            fail("wMask QAT: a loss is not finite")
+        if (wq_counts["rasterize_sum_fwd"] < WMASK_QAT_ITERS
+                or wq_counts["rasterize_sum_bwd"] < WMASK_QAT_ITERS
+                or any(wq_counts[k] for k in (
+                    "rasterize_sum_l2", "splat_prep_decode",
+                    "splat_prep_decode_batch"))):
+            fail(f"wMask QAT launched {wq_counts}: want >= "
+                 f"{WMASK_QAT_ITERS} K1 and K2, no K3, K4 or K7")
+        if any(wq.chunk_dropped):
+            fail(f"instances dropped during the wMask QAT: "
+                 f"{wq.chunk_dropped}")
+        qm = wq.model  # the best state
+        enc_w = qm.compress_wo_ec()
+        enc_w_dev = {k: torch.as_tensor(v, device=dev)
+                     for k, v in enc_w.items()}
+        reset_counts()
+        with torch.no_grad():
+            dec_w = qm.decompress_wo_ec(enc_w_dev)["render"]
+            eval_w = qm.render_quantize(training=False)["render"]
+        dec_counts = read_counts()
+        dec_err = float((dec_w - eval_w).abs().max())
+        if not dec_err <= WMASK_DECODE_TOL:
+            fail(f"the wMask QAT state's decode differs from its evaluation "
+                 f"render by {dec_err} (> {WMASK_DECODE_TOL})")
+        if dec_counts["splat_prep_decode"] or not dec_counts[
+                "rasterize_sum_fwd"]:
+            fail(f"the wMask decode launched {dec_counts}: want K1, no K4")
+        # two frames whose masks differ: the state, and the state with a
+        # seeded tenth of its masks turned off
+        twin_w = make_model(WMASK, device=dev, num_points=kept,
+                            H=qm.cfg.H, W=qm.cfg.W, quantize=True)
+        twin_w.load_state_dict(qm.state_dict())
+        off = torch.as_tensor(np.random.default_rng(9).random(kept) < 0.1,
+                              device=dev)
+        with torch.no_grad():
+            twin_w._mask_logits[off] = -10.0
+            dec_twin = twin_w.decompress_wo_ec(enc_w_dev)["render"]
+        pair_w = test_quantize.stack_frames([qm, twin_w], [enc_w, enc_w], dev)
+        reset_counts()
+        stacked_w = bt.decompress_wo_ec_batch(qm, *pair_w)
+        stacked_counts = read_counts()
+        if not same_bits(torch, stacked_w["render"][0], dec_w[0]):
+            fail("the stacked wMask decode's frame 0 differs from its "
+                 "single-frame decode")
+        # frame 1's means sit at y + 512 in float32 on the tall canvas (the
+        # batched phase's allowance): its PSNR within FRAME_PSNR_TOL
+        f1 = stacked_w["render"][1]
+        f1_psnr = [10 * math.log10(1.0 / float(torch.mean((x - gt_fl[0])
+                                                          ** 2)))
+                   for x in (f1, dec_twin[0])]
+        frame1 = {"max_abs_diff": float((f1 - dec_twin[0]).abs().max()),
+                  "pixels_above_1e4": int(((f1 - dec_twin[0]).abs()
+                                           > 1e-4).sum()),
+                  "psnr": f1_psnr}
+        if abs(f1_psnr[0] - f1_psnr[1]) > FRAME_PSNR_TOL:
+            fail(f"the stacked wMask decode's frame 1 reads {f1_psnr[0]} dB,"
+                 f" its single-frame decode {f1_psnr[1]} (<= "
+                 f"{FRAME_PSNR_TOL})")
+        if stacked_counts["splat_prep_decode_batch"] or float(
+                (dec_twin - dec_w).abs().max()) == 0.0:
+            fail(f"the stacked decode launched {stacked_counts}, or the "
+                 "two frames' masks gave the same image")
+        # the codec CLI on that state as a two-image dataset (the flower
+        # photo twice): the generic decode (K1), never K4 or K7
+        data_w, q_w = wm_dir / "data", wm_dir / "qat2"
+        data_w.mkdir()
+        for name in ("test01", "test02"):
+            shutil.copy(FLOWER_PHOTO, data_w / f"{name}.png")
+            (q_w / name).mkdir(parents=True)
+            shutil.copy(wm_dir / "qat" / "flower" / "gaussian_model.best.npz",
+                        q_w / name / "gaussian_model.best.npz")
+        reset_counts()
+        wm_codec = test_quantize.main([
+            "--data_name", "test", "--dataset", str(data_w), "--model_name",
+            WMASK, "--model_path", str(q_w), "--num_points", str(kept),
+            "--iterations", str(WMASK_QAT_ITERS), "--checkpoint_root",
+            str(wm_dir / "codec")])
+        wm_codec_counts = read_counts()
+        for r in wm_codec:
+            if (abs(r["psnr"] - wq_res["best_psnr"]) > 1e-3
+                    or not r["ec_roundtrip_err"] < 1e-6):
+                fail(f"wMask codec {r['image']}: psnr {r['psnr']} vs the "
+                     f"QAT's {wq_res['best_psnr']}, round trip "
+                     f"{r['ec_roundtrip_err']}")
+        if (any(wm_codec_counts[k] for k in ("splat_prep_decode",
+                                             "splat_prep_decode_batch"))
+                or not wm_codec_counts["rasterize_sum_fwd"]):
+            fail(f"the wMask codec run launched {wm_codec_counts}: want "
+                 "K1, no K4 or K7")
+        phase("wmask_qat", iterations=WMASK_QAT_ITERS, num_points=kept,
+              launches=wq_counts, best_training_psnr=wq_res[
+                  "best_training_psnr"],
+              test_psnr=wq_res["psnr"], best_test_psnr=wq_res["best_psnr"],
+              best_ms_ssim=wq_res["best_ms_ssim"], bpp=wq_res["best_bpp"],
+              ms_per_step=1e3 * wq_res["training_time"] / WMASK_QAT_ITERS,
+              decode_vs_eval_render=dec_err, decode_launches=dec_counts,
+              stacked={"frame0_bit_equal": True, "frame1": frame1,
+                       "frames_differ": float((dec_twin - dec_w).abs().max()),
+                       "launches": stacked_counts},
+              codec={"launches": wm_codec_counts,
+                     "images": {r["image"]: {m: r[m] for m in (
+                         "psnr", "bpp", "bpp_ec", "rendering_fps",
+                         "probe_model", "serving_n_dropped")}
+                         for r in wm_codec}})
+    finally:
+        shutil.rmtree(wm_dir, ignore_errors=True)
 
     # -- the RS phases: fit, serve, QAT, the RS fronts, the codec CLI -------
     rs_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_rs_"))
@@ -3147,6 +3476,8 @@ def main() -> None:
         "library_device_ms": library_device[k],
         **({"launches_evaluation": eval_counts[k]}
            if k == "rasterize_sum_fwd" else {}),
+        **({"launches_wmask_fit": wmask_counts[k]}
+           if k in ("rasterize_sum_fwd", "rasterize_sum_bwd") else {}),
         **aligned_entry(k),
     } for k in counters]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -116,7 +116,8 @@ def decompress_wo_ec_batch(model, params_b, extra_b, enc_b) -> Dict:
     for b in range(B):
         means, geo, colors = model.dequantize_wo_ec(
             _frame(enc_b, b), _frame(params_b, b), _frame(extra_b["vq"], b))
-        splats.append(model._quantized_splat(means, geo, colors))
+        splats.append(model._quantized_splat(_frame(params_b, b), means, geo,
+                                             colors))
     flat, band = _stack_splats(model, splats)
     img, _, aux = _raster_stacked(model, flat, band)
     return {"render": img, "raster_aux": aux}

@@ -5,12 +5,17 @@ optimizer and the training step.
 A model is an ``nn.Module`` that holds its parameters; the optimizer holds
 its moments. ``train_step`` runs one update and returns its metrics as
 device scalars, so a loop of steps synchronises only where it reads them.
+
+``render``, ``loss`` and ``train_step`` take the step's ``iteration`` and a
+``torch.Generator`` (JAX: ``key``), which only a model whose forward
+depends on them reads (wMask's scheduled, sampled mask); ``None`` stands
+for a generator seeded 0, as JAX's ``key=None`` for ``PRNGKey(0)``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -20,6 +25,25 @@ from gaussianimage_tpu_torch.ops import (RasterizeConfig,
 from gaussianimage_tpu_torch.ops.splat_prep import fused_decode_supported
 from gaussianimage_tpu_torch.opt import Adan, step_lr
 from gaussianimage_tpu_torch.utils.losses import loss_fn
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskConfig:
+    """Learnable-pruning-mask options of the wMask model (a copy of the JAX
+    package's; reference gaussianimage_cholesky_wMask.py:24-58 /
+    train.py:310-326)."""
+    start_mask_training: int = 0
+    stop_mask_training: int = 50000
+    reg_type: str = "kl"  # kl | ada_kl | l1 | l1sq
+    target_sparsity: float = 0.7
+    lambda_reg: float = 0.005
+    init_mask_logit: float = 2.0
+    use_ema: bool = False
+    use_score: bool = False
+    temp_init: float = 0.5
+    temp_final: float = 0.5
+    ema_decay: float = 0.99
+    mask_lr: float = 0.005
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +63,7 @@ class ModelConfig:
     no_clamp: bool = False
     init_mode: str = "uniform"  # "uniform" (reference) | "adaptive"
     sh_degree: int = 3  # 3DGS only
+    mask: Optional[MaskConfig] = None  # wMask only
     raster: RasterizeConfig = RasterizeConfig()
 
     @property
@@ -60,6 +85,9 @@ class GaussianModelBase(nn.Module):
     fused_prep_ok = False
     # the loss the trainer fits this model under
     train_loss = "L2"
+    # parameters given zero gradients where the loss does not reach them,
+    # so that the optimizer steps them as under jax.value_and_grad
+    zero_grad_params: Tuple[str, ...] = ()
 
     def __init__(self, config: ModelConfig):
         super().__init__()
@@ -91,11 +119,13 @@ class GaussianModelBase(nn.Module):
     def forward(self, **kw):
         return self.render(**kw)
 
-    def loss(self, gt_image: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    def loss(self, gt_image: torch.Tensor, *, iteration: int = 0,
+             generator: Optional[torch.Generator] = None
+             ) -> Tuple[torch.Tensor, Dict]:
         """(scalar loss, aux with "mse"), the JAX package's branch: L2 on a
         model whose splat() is its whole forward, and which does not
-        quantize, takes the fused K3 pass; anything else renders and
-        applies ``loss_fn``."""
+        quantize, takes the fused K3 pass; anything else renders (at
+        ``iteration``, with ``generator``) and applies ``loss_fn``."""
         cfg = self.cfg
         if (cfg.loss_type == "L2" and self.fused_l2 and not cfg.quantize
                 and hasattr(self, "splat")):
@@ -104,27 +134,60 @@ class GaussianModelBase(nn.Module):
                 xys, conics, colors, opac, gt_image[0], cfg.H, cfg.W,
                 radii=radii, config=cfg.raster, clamp=not cfg.no_clamp)
             return mse, {"mse": mse, "pkg": {"raster_aux": raux}}
-        pkg = self.render()
+        pkg = self.render(iteration=iteration, generator=generator)
         img = pkg["render"]
         loss = loss_fn(img, gt_image, cfg.loss_type, cfg.lambda_value)
         mse = torch.mean((img.float() - gt_image.float()) ** 2)
         return loss, {"mse": mse, "render": img, "pkg": pkg}
 
-    def update_extra(self, aux: Dict) -> None:
-        """After the optimizer step: install the carried state the step's
-        forward computed (the VQ codebooks under QAT). Default: none."""
+    def update_extra(self, aux: Dict, iteration: int = 0) -> None:
+        """After the optimizer step, on the updated parameters: install the
+        carried state the step's forward computed (the VQ codebooks under
+        QAT, wMask's EMA). Default: none."""
+
+    def post_update(self, iteration: int) -> None:
+        """After ``update_extra``: rewrite parameters in place (wMask's
+        logit finalization at its stop iteration). Default: none."""
+
+    def step_metrics(self) -> Dict[str, torch.Tensor]:
+        """Per-step scalars beside loss and PSNR, on the parameters after
+        the step (wMask's sparsity). Default: none."""
+        return {}
 
     # -- optimizer -----------------------------------------------------------
     def lr_schedule(self):
         return step_lr(self.cfg.lr, self.cfg.lr_step_size, self.cfg.lr_gamma)
 
+    def lr_groups(self) -> Dict[str, float]:
+        """Parameters trained at their own learning rate, by name (JAX:
+        ``_lr_groups``), each on StepLR from that rate with the model's step
+        size and gamma. Default: none."""
+        return {}
+
+    def _param_groups(self):
+        """[(parameters, schedule)]: every parameter not in ``lr_groups``
+        on the model's schedule, then one group per named parameter."""
+        cfg = self.cfg
+        own = self.lr_groups()
+        named = dict(self.named_parameters())
+        groups = [([p for k, p in named.items() if k not in own],
+                   self.lr_schedule())]
+        for name, lr in own.items():
+            groups.append(([named[name]],
+                           step_lr(lr, cfg.lr_step_size, cfg.lr_gamma)))
+        return groups
+
     def make_optimizer(self) -> torch.optim.Optimizer:
-        """Adan on the StepLR schedule, or Adam, whose learning rate
-        ``train_step`` sets from the schedule before each update."""
+        """Adan, each group on its schedule, or Adam, whose groups'
+        learning rates ``train_step`` sets from their schedules
+        (``lr_fns``) before each update."""
+        groups = self._param_groups()
         if self.cfg.opt_type == "adan":
-            return Adan(self.parameters(), lr=self.lr_schedule())
+            return Adan([{"params": ps, "lr": fn} for ps, fn in groups])
         if self.cfg.opt_type == "adam":
-            opt = torch.optim.Adam(self.parameters(), lr=self.cfg.lr)
+            opt = torch.optim.Adam([{"params": ps, "lr": fn(0)}
+                                    for ps, fn in groups])
+            opt.lr_fns = [fn for _, fn in groups]
             for group in opt.param_groups:
                 group["count"] = 0
             return opt
@@ -139,24 +202,34 @@ class GaussianModelBase(nn.Module):
 
     # -- training ------------------------------------------------------------
     def train_step(self, optimizer: torch.optim.Optimizer,
-                   gt_image: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """One update, then ``update_extra`` (the JAX package's order,
-        models/base.py:199 there). Returns device scalars: loss, psnr (of
-        the step's mse) and n_dropped (the instance-stream overflow)."""
+                   gt_image: torch.Tensor, *, iteration: int = 0,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """One update at ``iteration``, then ``update_extra``,
+        ``post_update`` and ``step_metrics`` on the updated parameters (the
+        JAX package's order, models/base.py:185-207 there). Returns device
+        scalars: loss, psnr (of the step's mse), n_dropped (the
+        instance-stream overflow) and the step metrics."""
         optimizer.zero_grad(set_to_none=True)
-        loss, aux = self.loss(gt_image)
+        loss, aux = self.loss(gt_image, iteration=iteration,
+                              generator=generator)
         loss.backward()
+        for name in self.zero_grad_params:
+            p = getattr(self, name)
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if not isinstance(optimizer, Adan):  # Adam: schedule at the count
-            sched = self.lr_schedule()
-            for group in optimizer.param_groups:
-                group["lr"] = sched(group["count"])
+            for group, fn in zip(optimizer.param_groups, optimizer.lr_fns):
+                group["lr"] = fn(group["count"])
                 group["count"] += 1
         optimizer.step()
-        self.update_extra(aux)
+        self.update_extra(aux, iteration)
+        self.post_update(iteration)
         mse = aux["mse"].detach()
         psnr = 10.0 * torch.log10(1.0 / torch.clamp(mse, min=1e-12))
         raux = aux.get("pkg", {}).get("raster_aux")
         n_dropped = (raux["n_dropped"] if raux is not None
                      else torch.zeros((), dtype=torch.int32,
                                       device=mse.device))
-        return {"loss": loss.detach(), "psnr": psnr, "n_dropped": n_dropped}
+        return {"loss": loss.detach(), "psnr": psnr, "n_dropped": n_dropped,
+                **self.step_metrics()}

@@ -122,9 +122,11 @@ class GaussianImageCholesky(QuantizeMixin, GaussianModelBase):
     def _uq_raw_values(self):
         return {"cholesky": self._cholesky}
 
-    def _quantized_splat(self, means, geo, colors):
+    def _quantized_splat(self, params, means, geo, colors):
         """Dequantized values -> the splat tuple (xys, radii, conics,
-        colors, opacities): the generic decode's projection half."""
+        colors, opacities): the generic decode's projection half. ``params``
+        (a frame's parameters, or None) is read by a model whose opacity is
+        a parameter (wMask's mask)."""
         cfg = self.cfg
         xys, _, radii, conics, _ = project_gaussians_2d(
             means, geo["cholesky"] + self.cholesky_bound, cfg.H, cfg.W,

@@ -65,7 +65,8 @@ class _VQBuffers(nn.Module):
 class QuantizeMixin:
     """Requires: ``self.cfg``, ``self._xyz``, ``get_features()`` and the
     hooks ``_uq_channels()``, ``_uq_raw_values()`` and
-    ``_quantized_splat(means, geo, colors)``."""
+    ``_quantized_splat(params, means, geo, colors)``, where ``params`` is
+    a frame's parameters by name, or None for the model's own."""
 
     @property
     def features_vq(self) -> ResidualVQ:
@@ -146,12 +147,13 @@ class QuantizeMixin:
             self.vq_state(), self.get_features(), training=training)
         return means, geo, colors, vq_loss, vq_state
 
-    def _rasterize_quantized(self, means, geo, colors):
-        """The QAT forward's and the generic decode's render: the generic
+    def _rasterize_quantized(self, params, means, geo, colors):
+        """The QAT forward's and the generic decode's render of the model's
+        own parameters (``params`` None) or a frame's: the generic
         differentiable rasterizer (K1 forward, K2 backward)."""
         cfg = self.cfg
         xys, radii, conics, colors, opac = self._quantized_splat(
-            means, geo, colors)
+            params, means, geo, colors)
         return rasterize_gaussians_sum(xys, conics, colors, opac, cfg.H,
                                        cfg.W, radii=radii, config=cfg.raster)
 
@@ -162,7 +164,7 @@ class QuantizeMixin:
         Gaussian). ``training=False`` is the evaluation render."""
         means, geo, colors, vq_loss, vq_state = self.quantized_splat_inputs(
             training=training)
-        img, alpha, aux = self._rasterize_quantized(means, geo, colors)
+        img, alpha, aux = self._rasterize_quantized(None, means, geo, colors)
         # jnp.clip: the gradient splits at a tie with a bound
         img = torch.minimum(torch.maximum(img, img.new_zeros(())),
                             img.new_ones(()))
@@ -172,12 +174,13 @@ class QuantizeMixin:
                 "vq_state": vq_state, "raster_aux": aux,
                 "unit_bit": [16 * N * 2, 0, 0, 0]}
 
-    def loss(self, gt_image):
+    def loss(self, gt_image, *, iteration=0, generator=None):
         """The plain model's loss without ``quantize``; with it the QAT
         loss (train_iter_quantize, gaussianimage_cholesky.py:141-152): the
         quantized render's loss plus the VQ's commitment loss."""
         if not self.cfg.quantize:
-            return super().loss(gt_image)
+            return super().loss(gt_image, iteration=iteration,
+                                generator=generator)
         pkg = self.render_quantize(training=True)
         img = pkg["render"]
         loss = loss_fn(img, gt_image, self.cfg.loss_type,
@@ -186,7 +189,7 @@ class QuantizeMixin:
         return loss, {"mse": mse, "render": img, "pkg": pkg}
 
     @torch.no_grad()
-    def update_extra(self, aux: Dict) -> None:
+    def update_extra(self, aux: Dict, iteration: int = 0) -> None:
         """After the optimizer step: install the VQ state the step's
         forward computed from the parameters before the update."""
         if self.cfg.quantize and "vq_state" in aux.get("pkg", {}):
@@ -230,7 +233,7 @@ class QuantizeMixin:
         """The generic decode: dequantize, project, rasterize, clamp.
         Returns {"render": [1, 3, H, W], "raster_aux": ...}."""
         means, geo, colors = self.dequantize_wo_ec(enc, params, vq)
-        img, _, aux = self._rasterize_quantized(means, geo, colors)
+        img, _, aux = self._rasterize_quantized(params, means, geo, colors)
         img = torch.clamp(img, 0.0, 1.0)
         return {"render": img.permute(2, 0, 1)[None], "raster_aux": aux}
 

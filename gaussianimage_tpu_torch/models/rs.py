@@ -109,7 +109,7 @@ class GaussianImageRS(QuantizeMixin, GaussianModelBase):
     def _uq_raw_values(self):
         return {"scaling": self._scaling, "rotation": self.get_rotation()}
 
-    def _quantized_splat(self, means, geo, colors):
+    def _quantized_splat(self, params, means, geo, colors):
         """Dequantized values -> the splat tuple (xys, radii, conics,
         colors, opacities): scales |scaling + bound|, the rotation in
         radians as it stands."""

@@ -13,8 +13,13 @@ Update rule, step t >= 1 (g_0 := g_1, so diff_1 = 0):
 
 (``no_prox`` decays first instead: p (1 - lr wd) - ...). The learning rate
 is a number or a schedule of the update count, read at the count before
-this update. An optional global gradient-norm clip scales every gradient
-by min(max_grad_norm / (|g| + eps), 1).
+this update; each parameter group may carry its own (JAX:
+``optax.multi_transform``, one optimizer and one count per label). An
+optional gradient-norm clip scales every gradient of a group by
+min(max_grad_norm / (|g| + eps), 1), |g| the norm of that group's
+gradients, as each label's optimizer clips its own under
+``multi_transform``. A parameter whose gradient is a tensor of zeros
+steps (its moments decay); one whose gradient is None does not.
 
 Per-parameter state is created with the optimizer, so it can be reached
 by name before the first step: ``state[p]["exp_avg"]`` (m),
@@ -40,25 +45,28 @@ class Adan(torch.optim.Optimizer):
                  betas: Tuple[float, float, float] = (0.98, 0.92, 0.99),
                  eps: float = 1e-8, weight_decay: float = 0.0,
                  max_grad_norm: float = 0.0, no_prox: bool = False):
-        # a schedule stays off the param groups so state_dict() pickles
-        self.lr_fn = lr if callable(lr) else None
-        defaults = dict(lr=None if callable(lr) else float(lr), betas=betas,
-                        eps=eps, weight_decay=weight_decay, no_prox=no_prox,
-                        count=0)
+        # lr_fns[i]: group i's schedule, or None for a number; a schedule
+        # stays off the param groups so that state_dict() pickles
+        self.lr_fns = []
+        defaults = dict(lr=lr, betas=betas, eps=eps,
+                        weight_decay=weight_decay, no_prox=no_prox, count=0)
         super().__init__(params, defaults)
         self.max_grad_norm = max_grad_norm
-        for group in self.param_groups:
-            for p in group["params"]:
-                self.state[p] = {k: torch.zeros_like(p, memory_format=torch.
-                                                     preserve_format)
-                                 for k in _MOMENTS}
 
-    def _clip_scale(self):
-        grads = [p.grad for g in self.param_groups for p in g["params"]
-                 if p.grad is not None]
-        if self.max_grad_norm <= 0.0 or not grads:
+    def add_param_group(self, param_group: dict) -> None:
+        super().add_param_group(param_group)
+        group = self.param_groups[-1]
+        fn = group["lr"] if callable(group["lr"]) else None
+        group["lr"] = None if fn is not None else float(group["lr"])
+        self.lr_fns.append(fn)
+        for p in group["params"]:
+            self.state[p] = {k: torch.zeros_like(p, memory_format=torch.
+                                                 preserve_format)
+                             for k in _MOMENTS}
+
+    def _clip_scale(self, grads, eps):
+        if self.max_grad_norm <= 0.0:
             return None
-        eps = self.param_groups[0]["eps"]
         gnorm = torch.linalg.vector_norm(torch.stack(
             torch._foreach_norm(grads)))
         return torch.clamp(self.max_grad_norm / (gnorm + eps), max=1.0)
@@ -69,17 +77,17 @@ class Adan(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        clip = self._clip_scale()
-        for group in self.param_groups:
+        for group, lr_fn in zip(self.param_groups, self.lr_fns):
             ps = [p for p in group["params"] if p.grad is not None]
             if not ps:
                 continue
             count = group["count"]
             t = count + 1
-            lr = self.lr_fn(count) if self.lr_fn is not None else group["lr"]
+            lr = lr_fn(count) if lr_fn is not None else group["lr"]
             b1, b2, b3 = group["betas"]
             eps, wd = group["eps"], group["weight_decay"]
             grads = [p.grad for p in ps]
+            clip = self._clip_scale(grads, eps)
             if clip is not None:
                 grads = torch._foreach_mul(grads, clip)
             st = [self.state[p] for p in ps]

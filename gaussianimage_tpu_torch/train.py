@@ -12,15 +12,25 @@ the depth-sorted blend (K8 forward, K9 backward). The JAX package scans
 250 steps per compiled call; here the chunk is bookkeeping only: reseed
 rounds fire at the first chunk boundary at or after each scheduled
 iteration, the stream overflow (``n_dropped``) is read once per chunk, and
-the per-step metrics are read back once per chunk. ``scalars.jsonl`` gets
-every ``--log_every``-th step, viz PNGs come every ``--viz_every``
-iterations, and a resume snapshot every ``--ckpt_every``.
+the per-step metrics are read back once per chunk. Step j of a chunk that
+starts after iteration ``it`` runs at iteration it + 1 + j with the
+trainer's generator, which only the wMask model
+(``--model_name GaussianImage_Cholesky_wMask`` and its ten mask flags)
+reads: its mask phase, temperature and Gumbel noise. ``scalars.jsonl`` gets
+every ``--log_every``-th step (with the model's step metrics, wMask's
+sparsity), viz PNGs come every ``--viz_every`` iterations, and a resume
+snapshot every ``--ckpt_every``. ``--profile <dir>`` writes a
+``torch.profiler`` Chrome trace of the second chunk and 10 evaluation
+renders into ``<dir>``, as the JAX trainer traces those.
 
-Every run ends as the JAX trainer's does: ``test()`` (n_dropped warning,
-PSNR, MS-SSIM, ``*_fitting.png`` under ``--save_imgs``), the 100-frame FPS
+Every run ends as the JAX trainer's does: a model that prunes (wMask)
+drops its masked Gaussians, then ``test()`` (n_dropped warning, PSNR,
+MS-SSIM, ``*_fitting.png`` under ``--save_imgs``), the 100-frame FPS
 probe, ``train.txt`` lines in the JAX package's format,
 ``gaussian_model.npz`` in its checkpoint format and ``training.npy`` with
-its keys. ``--iterations 0 --model_path <checkpoint>`` evaluates a fitted
+its keys. Every evaluation render runs at iteration ``EVAL_ITERATION``, as
+in the JAX trainer, where wMask takes its deterministic mask.
+``--iterations 0 --model_path <checkpoint>`` evaluates a fitted
 checkpoint.
 
 Run:  python -m gaussianimage_tpu_torch.train --data_name photos \\
@@ -48,9 +58,10 @@ from gaussianimage_tpu_torch import resolve_device
 from gaussianimage_tpu_torch.core.reseed import default_schedule, reseed_state
 from gaussianimage_tpu_torch.datasets import iterate_dataset
 from gaussianimage_tpu_torch.models import MODEL_REGISTRY, make_model
-from gaussianimage_tpu_torch.models.base import GaussianModelBase
+from gaussianimage_tpu_torch.models.base import GaussianModelBase, MaskConfig
 from gaussianimage_tpu_torch.utils import LogWriter, ms_ssim, ssim
 from gaussianimage_tpu_torch.utils.checkpoint import (
+    checkpoint_trees,
     load_checkpoint,
     load_train_state,
     merge_matching,
@@ -61,19 +72,27 @@ from gaussianimage_tpu_torch.utils.checkpoint import (
 from gaussianimage_tpu_torch.utils.image_io import save_image_array
 
 FPS_FRAMES = 100  # renders per FPS probe, as in the JAX package
-PROFILE_NOT_PORTED = (
-    "--profile is not ported yet (ROADMAP.md): chip_smoke.py traces the "
-    "training step with torch.profiler")
+# the iteration of every evaluation render, as in the JAX trainer: a
+# phase-scheduled model (wMask) takes its deterministic mask there
+EVAL_ITERATION = 1 << 30
+PROFILE_RENDERS = 10  # evaluation renders in the --profile trace
+MASK_FLAGS = ("start_mask_training", "stop_mask_training", "reg_type",
+              "target_sparsity", "lambda_reg", "init_mask_logit", "use_ema",
+              "use_score", "temp_init", "temp_final")
+# the step metrics every model reports; the rest (wMask's) go to
+# scalars.jsonl beside loss and psnr
+BASE_METRICS = ("loss", "psnr", "n_dropped")
 
 
 def render_burst(model):
-    """Queue ``FPS_FRAMES`` renders back to back, each on sub-ulp-perturbed
-    ``_xyz`` (the image is unchanged), without synchronising; returns a
-    device scalar that depends on every frame."""
+    """Queue ``FPS_FRAMES`` evaluation renders back to back, each on
+    sub-ulp-perturbed ``_xyz`` (the image is unchanged), without
+    synchronising; returns a device scalar that depends on every frame."""
     xyz = model._xyz
     acc = torch.zeros((), device=xyz.device)
     for i in range(1, FPS_FRAMES + 1):
-        acc += model.render(xyz=xyz + 1e-30 * i)["render"][0, 0, 0, 0]
+        acc += model.render(xyz=xyz + 1e-30 * i, iteration=EVAL_ITERATION
+                            )["render"][0, 0, 0, 0]
     return acc
 
 
@@ -148,8 +167,6 @@ class SimpleTrainer2d:
                  iterations: int = 30000, model_path=None, args=None,
                  log_dir: Path | None = None, chunk_size: int = 250,
                  device=None):
-        if getattr(args, "profile", None):
-            raise NotImplementedError(PROFILE_NOT_PORTED)
         if iterations == 0 and model_path is None:
             raise ValueError("--iterations 0 evaluates a fitted checkpoint: "
                              "pass --model_path")
@@ -172,6 +189,11 @@ class SimpleTrainer2d:
                            else chunk_size)
         self.H, self.W = int(gt_image.shape[2]), int(gt_image.shape[3])
         self.save_imgs = bool(getattr(args, "save_imgs", False))
+        self.profile_dir = getattr(args, "profile", None)
+        mask = None
+        if model_name == "GaussianImage_Cholesky_wMask":
+            mask = MaskConfig(**{f: getattr(args, f) for f in MASK_FLAGS
+                                 if hasattr(args, f)})
         self.model = make_model(
             model_name, device=self.device, num_points=num_points, H=self.H,
             W=self.W,
@@ -181,7 +203,7 @@ class SimpleTrainer2d:
             opt_type=getattr(args, "opt_type", "adan"),
             no_clamp=bool(getattr(args, "no_clamp", False)),
             sh_degree=getattr(args, "sh_degree", 3),
-            init_mode=getattr(args, "init_mode", "adaptive"))
+            mask=mask, init_mode=getattr(args, "init_mode", "adaptive"))
 
         self.log_dir = Path(log_dir) if log_dir is not None else Path(
             f"./checkpoints/run/{model_name}_{iterations}_{num_points}/"
@@ -239,27 +261,31 @@ class SimpleTrainer2d:
                     f"wandb unavailable ({e}); file logging only")
 
     def _load(self, path: Path, strict: bool) -> None:
-        """Load a checkpoint's parameters: all of them (``strict``, for
-        evaluation) or those whose name and shape match (a warm start)."""
+        """Load a checkpoint: all of the model's parameters and carried
+        state (``strict``, for evaluation), or the parameters whose name
+        and shape match (a warm start, as JAX's ``merge_matching``)."""
         self.logwriter.write(f"loading model path:{path}")
-        params = load_checkpoint(path)["params"]
+        ck = load_checkpoint(path)
         if not strict:
-            merge_matching(self.model, params)
+            merge_matching(self.model, ck["params"])
             return
+        state = params_from_numpy(ck["params"], self.device, ck["extra"])
         own = self.model.state_dict()
         for k, v in own.items():
-            if k not in params or tuple(params[k].shape) != tuple(v.shape):
+            if k not in state or tuple(state[k].shape) != tuple(v.shape):
                 raise ValueError(
                     f"checkpoint {path} has no {k} of shape {tuple(v.shape)} "
-                    f"(found {getattr(params.get(k), 'shape', None)}); "
+                    f"(found {getattr(state.get(k), 'shape', None)}); "
                     "check --num_points and --model_name")
-        self.model.load_state_dict(
-            params_from_numpy({k: params[k] for k in own}, self.device))
+        self.model.load_state_dict({k: state[k] for k in own})
 
     # -- run observability ---------------------------------------------------
-    def _log_scalars(self, it0: int, losses, psnrs, n: int) -> None:
+    def _log_scalars(self, it0: int, losses, psnrs, n: int,
+                     extra_series=None) -> None:
         """Append every ``log_every``-th step (and step 1) to
-        scalars.jsonl, one JSON object per line."""
+        scalars.jsonl, one JSON object per line, with the model's step
+        metrics (``extra_series``: name -> per-step array; integer ones
+        stay integers)."""
         if not self.log_every:
             return
         with open(self.log_dir / "scalars.jsonl", "a") as fh:
@@ -268,6 +294,10 @@ class SimpleTrainer2d:
                 if step % self.log_every == 0 or step == 1:
                     rec = {"iteration": step, "loss": float(losses[j]),
                            "psnr": float(psnrs[j])}
+                    for k, v in (extra_series or {}).items():
+                        rec[k] = (int(v[j]) if np.issubdtype(v.dtype,
+                                                             np.integer)
+                                  else float(v[j]))
                     fh.write(json.dumps(rec) + "\n")
                     if self._wandb is not None:
                         self._wandb.log(rec, step=step)
@@ -277,7 +307,7 @@ class SimpleTrainer2d:
         """Render and alpha heat map PNGs under ``viz/``, and where the
         model's render gives them the Gaussian-shape render (Cholesky) and
         the center overlay."""
-        out = self.model.render(render_viz=True)
+        out = self.model.render(render_viz=True, iteration=EVAL_ITERATION)
         viz_dir = self.log_dir / "viz"
         viz_dir.mkdir(parents=True, exist_ok=True)
         ch, cw = self.crop_h, self.crop_w
@@ -301,6 +331,35 @@ class SimpleTrainer2d:
                              viz_dir / f"iter_{it:06d}_overlay.png")
 
     # -- the fit -------------------------------------------------------------
+    def _chunk(self, it: int, n: int):
+        """Steps it + 1 .. it + n; their metric dicts (device scalars)."""
+        return [self.model.train_step(self.optimizer, self.gt_image,
+                                      iteration=it + 1 + j,
+                                      generator=self.generator)
+                for j in range(n)]
+
+    def _traced_chunk(self, it: int, n: int):
+        """``_chunk`` and ``PROFILE_RENDERS`` evaluation renders under
+        torch.profiler (CUDA activity on the card), its Chrome trace
+        written into ``profile_dir`` as ``<image>.pt.trace.json``."""
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            ms = self._chunk(it, n)
+            with torch.no_grad():
+                for _ in range(PROFILE_RENDERS):
+                    self.model.render(iteration=EVAL_ITERATION)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        out = Path(self.profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out / f"{self.image_name}.pt.trace.json"))
+        self.logwriter.write(f"profiler trace written to {out}")
+        return ms
+
     def fit(self) -> None:
         """Run the training loop from ``start_iter`` to ``iterations``."""
         hist = self._hist
@@ -316,16 +375,23 @@ class SimpleTrainer2d:
                 reseed_state(self.model, self.optimizer, self.gt_image, gen,
                              frac=self.reseed_frac)
             n = min(cs, self.iterations - it)
-            ms = [self.model.train_step(self.optimizer, self.gt_image)
-                  for _ in range(n)]
+            # the second chunk (the first where there is one) is traced
+            if self.profile_dir and (it == cs or (it == 0 and
+                                                  self.iterations <= cs)):
+                ms = self._traced_chunk(it, n)
+                self.profile_dir = None
+            else:
+                ms = self._chunk(it, n)
             # one read-back per chunk
             losses, psnrs, dropped = torch.stack([torch.stack(
                 [m["loss"].float(), m["psnr"].float(),
                  m["n_dropped"].float()]) for m in ms], dim=1).cpu().numpy()
+            extra = {k: torch.stack([m[k] for m in ms]).cpu().numpy()
+                     for k in ms[0] if k not in BASE_METRICS}
             hist["loss"].extend(losses.tolist())
             hist["psnr"].extend(psnrs.tolist())
             hist["iter"].extend(range(it + 1, it + n + 1))
-            self._log_scalars(it, losses, psnrs, n)
+            self._log_scalars(it, losses, psnrs, n, extra)
             it += n
             nd = int(dropped.max())
             self.chunk_dropped.append(nd)
@@ -350,20 +416,27 @@ class SimpleTrainer2d:
                     self.generator)
 
     def train(self):
-        """Fit (if ``iterations`` > 0), then test, FPS probe and artifacts.
-        Returns a dict of the image's results."""
+        """Fit (if ``iterations`` > 0), then ``finish``. Returns a dict of
+        the image's results."""
         start_time = time.time()
         self.fit()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        end_time = time.time() - start_time
+        return self.finish(time.time() - start_time)
+
+    def finish(self, end_time: float):
+        """After the fit (``end_time`` seconds): the prune of a model that
+        prunes (wMask, before the test, as in the JAX trainer), then test,
+        FPS probe and artifacts. Returns a dict of the image's results."""
+        if hasattr(self.model, "prune_points"):
+            self.optimizer = self.model.prune_points(threshold=0.5)
         psnr_value, ms_ssim_value, num_points_final, n_dropped = self.test()
         test_end_time = self.fps_probe()
         self.logwriter.write(
             "Training Complete in {:.4f}s, Eval time:{:.8f}s, FPS:{:.4f}"
             .format(end_time, test_end_time, 1 / test_end_time))
         save_checkpoint(self.log_dir / "gaussian_model.npz",
-                        dict(self.model.state_dict()))
+                        *checkpoint_trees(self.model))
         np.save(self.log_dir / "training.npy",
                 {"iterations": self._hist["iter"],
                  "training_psnr": self._hist["psnr"],
@@ -380,9 +453,9 @@ class SimpleTrainer2d:
 
     @torch.no_grad()
     def test(self):
-        """(psnr, ms_ssim, final_points, n_dropped) of the clamped render,
-        on the original crop."""
-        full = self.model.render()
+        """(psnr, ms_ssim, final_points, n_dropped) of the clamped
+        evaluation render, on the original crop."""
+        full = self.model.render(iteration=EVAL_ITERATION)
         n_dropped = int(full["raster_aux"]["n_dropped"])
         if n_dropped > 0:
             self.logwriter.write(
@@ -453,7 +526,8 @@ def parse_args(argv):
                    help="pad images up to a multiple of this many pixels "
                         "(metrics use the original crop); 0 = off")
     p.add_argument("--profile", type=str, default=None,
-                   help="not ported yet; raises")
+                   help="directory for a torch.profiler Chrome trace of the "
+                        "second training chunk and 10 evaluation renders")
     p.add_argument("--log_every", type=int, default=100,
                    help="append loss/psnr to scalars.jsonl every N iters; "
                         "0 = off")
@@ -463,12 +537,23 @@ def parse_args(argv):
     p.add_argument("--wandb", action="store_true",
                    help="mirror scalars to wandb if installed")
     p.add_argument("--wandb_project", type=str, default="gaussianimage_tpu")
+    # wMask options (reference train.py:310-326), JAX's defaults
+    p.add_argument("--start_mask_training", type=int, default=0)
+    p.add_argument("--stop_mask_training", type=int, default=50000)
+    p.add_argument("--reg_type", type=str, default="kl")
+    p.add_argument("--target_sparsity", type=float, default=0.7)
+    p.add_argument("--lambda_reg", type=float, default=0.005)
     p.add_argument("--no_reseed", action="store_true",
                    help="disable error-driven relocation rounds "
                         "(core/reseed.py; reference behavior)")
     p.add_argument("--reseed_rounds", type=int, default=6)
     p.add_argument("--reseed_frac", type=float, default=0.05)
+    p.add_argument("--init_mask_logit", type=float, default=2.0)
+    p.add_argument("--use_ema", action="store_true")
+    p.add_argument("--use_score", action="store_true")
     p.add_argument("--no_clamp", action="store_true")
+    p.add_argument("--temp_init", type=float, default=0.5)
+    p.add_argument("--temp_final", type=float, default=0.5)
     p.add_argument("--device", type=str, default=None,
                    help="cuda (the default) or cpu")
     return p.parse_args(argv)
@@ -477,8 +562,6 @@ def parse_args(argv):
 def main(argv):
     """Runs the CLI; returns the per-image result dicts."""
     args = parse_args(argv)
-    if args.profile:
-        raise NotImplementedError(PROFILE_NOT_PORTED)
     device = resolve_device(args.device)
     folder = f"{args.model_name}_{args.iterations}_{args.num_points}"
     root = Path(args.checkpoint_root) / args.data_name / folder

@@ -10,7 +10,11 @@ best checkpoints, ``training.npy`` with the bpp, and ``train.txt``.
 
 Each QAT step renders through the generic differentiable rasterizer (K1
 forward, K2 backward; ``quantize=True`` opts out of the fused L2 kernel)
-and then installs the VQ state its forward computed. Steps run as a plain
+and then installs the VQ state its forward computed. Step j of a chunk
+that starts after iteration ``it`` runs at iteration it + 1 + j with the
+trainer's generator, as in the JAX package: the wMask model (its default
+``MaskConfig``, as there) renders with its deterministic mask and adds its
+regularizer in its mask phase. Steps run as a plain
 Python loop; the chunk is bookkeeping only: the per-step metrics and the
 stream overflow are read back once per chunk, and the best-PSNR snapshot
 is taken on the device with ``torch.where``, without a host read per step.
@@ -76,10 +80,12 @@ class QuantizeTrainer2d:
             f"{image_name}")
         self.logwriter = LogWriter(self.log_dir)
         seed = int(getattr(args, "seed", 1) or 1)
-        self.optimizer = self.model.init_state(
-            torch.Generator(device=self.device).manual_seed(seed))
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.optimizer = self.model.init_state(self.generator)
         if model_path is not None:
             self.logwriter.write(f"loading model path:{model_path}")
+            # the parameters whose name and shape match (a pruned wMask fit
+            # needs --num_points at its pruned count)
             merge_matching(self.model, load_checkpoint(model_path)["params"])
             # two-stage warm start: quantizer ranges and codebooks from the
             # loaded weights
@@ -103,8 +109,10 @@ class QuantizeTrainer2d:
         while it < self.iterations:
             n = min(cs, self.iterations - it)
             ms = []
-            for _ in range(n):
-                m = model.train_step(self.optimizer, self.gt_image)
+            for j in range(n):
+                m = model.train_step(self.optimizer, self.gt_image,
+                                     iteration=it + 1 + j,
+                                     generator=self.generator)
                 with torch.no_grad():
                     better = m["psnr"] > best_psnr
                     for k, p in params.items():

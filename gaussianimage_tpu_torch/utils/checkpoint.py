@@ -4,8 +4,9 @@
   (:31-46), one flat .npz with ``params/<name>`` and ``extra/<name>`` keys,
   so every checkpoint the JAX package wrote loads unchanged, and a
   checkpoint written here loads there. ``checkpoint_trees`` splits a
-  model into those two trees: its parameters, and its VQ state as
-  ``extra/vq/<name>`` (a QAT checkpoint).
+  model into those two trees: its parameters, and its carried state
+  (persistent buffers): the VQ state as ``extra/vq/<name>`` (a QAT
+  checkpoint), any other buffer by its name (wMask's ``extra/mask_ema``).
 - ``save_train_state`` / ``load_train_state``: the mid-fit resume snapshot.
   Its format is the port's own, not the JAX package's leaf-indexed npz:
   one ``torch.save`` file with the model's and the optimizer's
@@ -46,12 +47,19 @@ def save_checkpoint(path, params: Dict, extra: Dict | None = None) -> None:
 
 def checkpoint_trees(model: torch.nn.Module):
     """(params, extra) of ``model`` in the JAX package's checkpoint schema:
-    its parameters by name, and its VQ buffers ``vq.<name>`` as
-    ``{"vq": {<name>: ...}}``, the JAX package's ``extra["vq"]``
-    ResidualVQState."""
-    vq = {k.split(".", 1)[1]: v for k, v in model.named_buffers()
-          if k.startswith("vq.")}
-    return dict(model.named_parameters()), ({"vq": vq} if vq else {})
+    its parameters by name; its persistent buffers as extra, the VQ
+    buffers ``vq.<name>`` as ``{"vq": {<name>: ...}}`` (the JAX package's
+    ``extra["vq"]`` ResidualVQState) and any other by its name."""
+    params = dict(model.named_parameters())
+    extra, vq = {}, {}
+    for k, v in model.state_dict().items():
+        if k.startswith("vq."):
+            vq[k.split(".", 1)[1]] = v
+        elif k not in params:
+            extra[k] = v
+    if vq:
+        extra["vq"] = vq
+    return params, extra
 
 
 def load_checkpoint(path) -> Dict[str, Dict[str, np.ndarray]]:
@@ -71,11 +79,11 @@ def params_from_numpy(params: Dict[str, np.ndarray], device="cpu",
     """JAX parameters (numpy arrays, as ``load_checkpoint`` returns them),
     the quantizers' scale and beta among them, -> a state dict on
     ``device`` for ``nn.Module.load_state_dict``. From ``extra`` it takes
-    the residual VQ's state, ``vq/<name>``, as the buffers ``vq.<name>``.
-    Arrays become float32, except boolean ones (the VQ's init flag)."""
+    the carried state as buffers: the residual VQ's ``vq/<name>`` as
+    ``vq.<name>``, the rest by name (wMask's ``mask_ema``). Arrays become
+    float32, except boolean ones (the VQ's init flag)."""
     flat = dict(params)
-    flat.update({k.replace("/", "."): v for k, v in (extra or {}).items()
-                 if k.startswith("vq/")})
+    flat.update({k.replace("/", "."): v for k, v in (extra or {}).items()})
     # np.array(order="C"): ascontiguousarray would make a 0-d array 1-d
     return {k: torch.as_tensor(np.array(
                 v, order="C",

@@ -257,8 +257,8 @@ def test_china_checkpoint_codes_bpp_and_decode():
                       ["render"])
     jmeans, _, _ = jm.dequantize_wo_ec(jparams, jextra, jenc_dev)
     means, geo, colors = m.dequantize_wo_ec(enc)
-    img, _, _ = m._rasterize_quantized(torch.from_numpy(np.array(jmeans)),
-                                       geo, colors)
+    img, _, _ = m._rasterize_quantized(
+        None, torch.from_numpy(np.array(jmeans)), geo, colors)
     same = img.clamp(0, 1).permute(2, 0, 1)[None].numpy()
     assert int((np.abs(same - want) > 2e-5).sum()) <= 16
     # 2. the port's own decode, tanh included: its means are within two

@@ -119,25 +119,53 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
                              "10"])
 
 
-def test_training_and_other_models_are_not_ported():
-    """Fitting and the 3DGS baseline are ported; --profile and wMask are
-    not yet."""
+def test_training_and_other_models_are_not_ported(tmp_path, monkeypatch):
+    """wMask and --profile are ported since this test was written, and
+    with them every model and every flag of the JAX fit CLI: the wMask
+    model builds (on the CPU when asked), the parser takes the ten mask
+    flags with JAX's defaults, ``--profile`` writes a torch.profiler trace
+    of the second chunk and logs where, and an unknown model name still
+    raises."""
+    import itertools
+
     from gaussianimage_tpu_torch import train
     from gaussianimage_tpu_torch.models import make_model
 
     args = train.parse_args(["--data_name", "synthetic", "--iterations",
                              "10", "--device", "cpu"])
     assert args.iterations == 10 and args.init_mode == "adaptive"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train.main(["--data_name", "synthetic", "--iterations", "10",
-                    "--device", "cpu", "--profile", "unused"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_model("GaussianImage_Cholesky_wMask", num_points=4, H=8, W=8)
+    assert (args.start_mask_training, args.stop_mask_training,
+            args.reg_type, args.target_sparsity, args.lambda_reg,
+            args.init_mask_logit, args.use_ema, args.use_score,
+            args.temp_init, args.temp_final) == (
+        0, 50000, "kl", 0.7, 0.005, 2.0, False, False, 0.5, 0.5)
+    m = make_model("GaussianImage_Cholesky_wMask", device="cpu",
+                   num_points=4, H=8, W=8)
+    assert type(m).__name__ == "GaussianImageCholeskyMask"
+    assert tuple(m._mask_logits.shape) == (4, 1)
+    assert not (m.fused_l2 or m.fused_prep_ok or m.reseed_ok)
     gs = make_model("3DGS", device="cpu", num_points=4, H=8, W=8)
     assert type(gs).__name__ == "Gaussian3D" and gs.cfg.sh_degree == 3
     assert tuple(gs._features_rest.shape) == (4, 15, 3)
     with pytest.raises(ValueError, match="unknown model"):
         make_model("NoSuchModel", num_points=4, H=8, W=8)
+
+    real = train.iterate_dataset
+    monkeypatch.setattr(
+        train, "iterate_dataset",
+        lambda name, d: itertools.islice(real(name, d, image_hw=(32, 48)), 1))
+    prof = tmp_path / "prof"
+    train.main(["--data_name", "synthetic", "--iterations", "4",
+                "--chunk_size", "2", "--num_points", "32", "--device", "cpu",
+                "--viz_every", "0", "--checkpoint_root", str(tmp_path),
+                "--model_name", "GaussianImage_Cholesky_wMask",
+                "--profile", str(prof)])
+    trace = json.loads((prof / "synth01.pt.trace.json").read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any("mul" in n for n in names), sorted(names)[:20]
+    txt = (tmp_path / "synthetic" / "GaussianImage_Cholesky_wMask_4_32" /
+           "synth01" / "train.txt").read_text()
+    assert f"profiler trace written to {prof}" in txt
 
 
 def test_cuda_wrapper_never_falls_back():
