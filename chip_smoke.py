@@ -53,7 +53,13 @@ Phases, one JSON line each (with ``elapsed_s``):
              under 64 rows take the variant that reads the frame tables
              through the cache), held to its plain version as K5 is, and
              at B = 1 equal to K4 (rows max |diff| 0, keys and counts
-             equal);
+             equal); case tile16: K1-K3 built for 16-pixel tiles (the
+             sharded fit's default) held as above (K1 bit for bit to the
+             in-order plain version, K2 / K3 to ROW_TOL, K3 against K1 ->
+             L2 -> K2 to CHAIN_TOL, K2 and K3 twice bit-identical, no
+             gated pair culled), flat on the flower@10k state (whose
+             stream at 16 fills the auto cap of 40,000 and drops the rest,
+             reported) and aligned on flower@40k;
 4. slice     the evaluation entry point ``gaussianimage_tpu_torch.train
              --iterations 0`` on the fitted flower@10k checkpoint
              (768x512): PSNR within 0.01 dB of 41.906, n_dropped == 0, K1
@@ -97,6 +103,26 @@ Phases, one JSON line each (with ``elapsed_s``):
 8. generic   50 steps of the model's train_step under a non-L2 loss
              (Fusion2 = 0.7 L1 + 0.3 (1 - SSIM)), which renders through
              the differentiable rasterizer: K1 forward, K2 backward;
+8'. sharded the sharded fit CLI (``gaussianimage_tpu_torch.train_sharded``)
+             at its defaults (tile 16, adaptive init) on the photos at N =
+             10,000 on a 1 x 1 x 1 mesh, SHARD_ITERS iterations in chunks
+             of SHARD_CHUNK, in a temp dir: the first SHARD_EQ_STEPS
+             sharded steps bit-equal (loss, parameters, Adan's moments) to
+             ``model.train_step`` from the same init; no NaN loss, each
+             image's final state >= its initial state + SHARD_GAIN dB, at
+             least as many K3 launches (all at 16) as steps, every
+             artifact; n_dropped reported, not gated (the reference drops
+             at tile 16 too). Then the 40k fit's render at tile 16 (the
+             aligned K1), and two ranks on the one card over gloo (this
+             script again, ``--two-rank-worker``): TWO_RANK_STEPS steps on
+             (1, 2, 1) (K1 + K2 at 16), (1, 1, 2) (K3 on each half) and (1,
+             2, 1) at 40k points (aligned K1 + K2) from the CLI's init,
+             each within rtol 2e-4 / atol 2e-5 (params) and 1e-4 (loss)
+             of 1 x 1 x 1 steps from the same state on the same path (the
+             generic one for a gauss axis above 1; against the fused one
+             reported, with the init's pixels at exactly 0 or 1), and from
+             the committed 40k fit (reported); the scaling probe
+             (``parallel.scaling_bench``) once on this one rank;
 8a. wmask_fit ``SimpleTrainer2d`` with ``GaussianImage_Cholesky_wMask``
              fits the flower photo at N = 16,000 for 3000 iterations with
              the repo's sweep flags (ada_kl, target 0.7, lambda 0.005,
@@ -258,18 +284,23 @@ Phases, one JSON line each (with ``elapsed_s``):
              to every pair of the windows, is ``sum_bound_ms_all_pairs``;
              the fused prep's floor (``prep_floor``): K5, K4, K6b, K6a,
              K7 (B = 2) and K10 at each sh_degree 0-4 traced beside zero_() of
-             each of their three outputs and of one buffer of those bytes.
+             each of their three outputs and of one buffer of those bytes;
+             K1-K3 at tile 16 (flat flower@10k, aligned flower@40k) with
+             their device times, plain versions and bounds.
 
 Then the raw ``nvidia-smi`` name/power-limit line, one ``{"kernels": [...]}``
 line (the 13 kernels; K1-K3, K8 and K9 with their aligned branch's numbers
-under "aligned"), and last ``{"ok": true, "device": {...}}``. Any failed
+under "aligned", K1-K3 with their 16-pixel builds' under "tile16"), and
+last ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero before that last line. It needs a CUDA card and a
 checkout of the repository around it; without either it exits non-zero.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
+import io
 import json
 import math
 import re
@@ -285,6 +316,7 @@ ROOT = Path(__file__).resolve().parent
 FLOWER_DIR = ROOT / "results/photos/GaussianImage_Cholesky_50000_10000"
 FLOWER_PHOTO = ROOT / "data/flower_768x512.png"
 FLOWER_PSNR = 41.906  # the JAX package's render of this checkpoint
+FLOWER40_DIR = ROOT / "results/photos/GaussianImage_Cholesky_50000_40000"
 QAT_DIR = ROOT / "results_quant/photos/GaussianImage_Cholesky_50000_10000"
 # the JAX package's codec evaluation of those checkpoints (generic decode,
 # default config, on the CPU); the TPU's test.txt agrees to ~1e-3 dB
@@ -411,6 +443,38 @@ WMASK_EMA_FLAGS = ["--reg_type", "kl", "--use_ema", "--use_score",
 WMASK_EMA_STOP = 250
 WMASK_QAT_ITERS = 500
 WMASK_DECODE_TOL = 1e-6  # the QAT state's decode against its eval render
+SHARD_N = 10000          # the sharded CLI's default --num_points
+SHARD_ITERS = 2000
+SHARD_CHUNK = 500
+SHARD_EQ_STEPS = 20      # sharded steps held bit for bit to train_step
+SHARD_GAIN = 1.0         # dB over each image's initial state
+TWO_RANK_STEPS = 3
+TWO_RANK_RTOL = 2e-4     # JAX's sharded-vs-single tolerance on the params
+TWO_RANK_ATOL = 2e-5     # (tests/test_parallel.py)
+TWO_RANK_LOSS_RTOL = 1e-4
+TWO_RANK_TIMEOUT = 300
+# (label, num_points, mesh data,gauss,tile, the 1 x 1 x 1 path it is held
+# to) of the two-rank gloo runs, and the kernels each must launch on every
+# rank. A gauss axis above 1 takes the generic step (K1, the clip, K2),
+# held to the generic step on one rank: the fused K3 masks the clip's
+# cotangent at exactly 0 and 1, the generic step passes half of it there
+# (jnp.clip's tie, as in the JAX package), and Adan turns the few entries
+# that differ into steps of up to lr
+# (label, num_points, mesh, path, the state it starts from: the CLI's
+# init at 10k or 40k points, or the committed 40k fit, whether the
+# tolerance gates it). From the converged fit a gradient is rounding noise
+# on many rows, whose sign Adan's first steps follow with steps of lr, so
+# that run is reported, not gated.
+TWO_RANK_MESHES = (("gauss2", 10000, "1,2,1", "generic", "init_10k", True),
+                   ("tile2", 10000, "1,1,2", "fused", "init_10k", True),
+                   ("gauss2_40k", 40000, "1,2,1", "generic", "init_40k",
+                    True),
+                   ("gauss2_40k_fit", 40000, "1,2,1", "generic", "fit_40k",
+                    False))
+TWO_RANK_KERNELS = {"gauss2": ("rasterize_sum_fwd", "rasterize_sum_bwd"),
+                    "tile2": ("rasterize_sum_l2",),
+                    "gauss2_40k": ("rasterize_sum_fwd_aligned",
+                                   "rasterize_sum_bwd_aligned")}
 CULL_N = 2000
 CULL_HW = (192, 256)
 CULL_SEED = 5
@@ -462,9 +526,9 @@ def burst_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     return s.elapsed_time(e) / reps
 
 
-def pair_work(torch, rs, sc, feat, sp, H, W, q_cut):
-    """The work K1-K3 meet on the stream ``sp`` (flat or aligned) over the
-    rows ``feat``: ``slots``, the windows' live slots (each staged once a
+def pair_work(torch, rs, sc, feat, sp, H, W, q_cut, tp=32):
+    """The work K1-K3 meet on the stream ``sp`` (flat or aligned, tiles of
+    ``tp`` pixels) over the rows ``feat``: ``slots``, the windows' live slots (each staged once a
     walk); of their (slot, pixel) pairs with the pixel inside the image,
     ``pairs``, all of them; ``gated``, those that pass the q <= q_cut gate;
     ``nan_pairs``, those whose form is NaN (they fail it); ``cull_pairs``,
@@ -475,17 +539,16 @@ def pair_work(torch, rs, sc, feat, sp, H, W, q_cut):
     the rectangle (must be 0)."""
     work = dict(slots=0, pairs=0, gated=0, nan_pairs=0, cull_pairs=0,
                 visits=0, culled_gated=0)
-    tp = 32
     pidx = torch.arange(tp * tp, device=feat.device)
     X, Y = pidx % tp, torch.div(pidx, tp, rounding_mode="floor")
     bw, bh = rs.WARP_BLOCK
     for pr in rs.window_pairs(sc.gather_stream(sp.gids, feat), sp.starts,
-                              sp.counts, H, W):
+                              sp.counts, H, W, tp):
         on = pr.inside & (pr.q <= q_cut)
         cl = rs.sum_cull_plain(
             pr.rows, ((pr.tile % sp.tiles_x) * tp).float(),
             (torch.div(pr.tile, sp.tiles_x, rounding_mode="floor")
-             * tp).float(), q_cut)
+             * tp).float(), q_cut, tile_px=tp)
         kept = ((X >= cl.x0[:, None]) & (X <= cl.x1[:, None])
                 & (Y >= cl.y0[:, None]) & (Y <= cl.y1[:, None]))
         work["slots"] += pr.rows.shape[0]
@@ -595,6 +658,12 @@ def same_bits(torch, got, want) -> bool:
                                 want[~nan].view(torch.int32)))
 
 
+def finite_max(torch, d) -> float:
+    """max |d| over its finite entries (0 if none)."""
+    d = d[torch.isfinite(d)].abs()
+    return float(d.max()) if d.numel() else 0.0
+
+
 def row_err(torch, got, want):
     """Per-row max of |got - want| / the column's max |want| (columns with
     a zero max compare absolutely)."""
@@ -624,18 +693,21 @@ def rows_err(torch, got, want):
 # (5) and the four dcm sums (4): 22 + 1 ex2; K3 both walks (18 + 35, 2
 # ex2). Per slot and walk its cull: the rectangle of CULL_OPS without
 # q_cut's division and log (~30 + 2 MUFU) and a 4-compare test of each of
-# the tile's 32 patches. (FP32 slots, MUFU, walks) per kernel.
+# the tile's patches (32 at 32 pixels, 8 at 16). (FP32 slots, MUFU, walks)
+# per kernel.
 SUM_GATED = {"rasterize_sum_fwd": (22, 1, 1), "rasterize_sum_bwd": (31, 1, 1),
              "rasterize_sum_l2": (53, 2, 2)}
-SUM_CULL_OPS = (30 + 4 * 32, 2)
+SUM_CULL_OPS = (30, 2)  # the rectangle; + 4 per patch of the tile
 
 
-def sum_ops(kernel, work):
-    """(FP32 slots, MUFU ops) K1, K2 or K3 needs on a stream's pairs: the
-    gated pairs' q and terms, and a cull per slot and walk. The pairs that
-    fail the gate need no work: a cull skips them."""
+def sum_ops(kernel, work, tp=32):
+    """(FP32 slots, MUFU ops) K1, K2 or K3 needs on a stream's pairs at
+    tiles of ``tp`` pixels: the gated pairs' q and terms, and a cull per
+    slot and walk. The pairs that fail the gate need no work: a cull skips
+    them."""
     slots, mufu, walks = SUM_GATED[kernel]
-    return (slots * work["gated"] + walks * SUM_CULL_OPS[0] * work["slots"],
+    cull = SUM_CULL_OPS[0] + 4 * (tp * tp // 32)
+    return (slots * work["gated"] + walks * cull * work["slots"],
             mufu * work["gated"] + walks * SUM_CULL_OPS[1] * work["slots"])
 
 
@@ -874,10 +946,10 @@ def main() -> None:
                      dg2):
         fail("two runs of K2 on flower@10k differ")
 
-    def window_slots(sp_, H_):
-        """The live slots of the windows of ``sp_`` (flat or aligned) and
-        the tile of each."""
-        T_ = sp_.tiles_x * (-(-H_ // 32))
+    def window_slots(sp_, H_, tp=32):
+        """The live slots of the windows of ``sp_`` (flat or aligned, tiles
+        of ``tp`` pixels) and the tile of each."""
+        T_ = sp_.tiles_x * (-(-H_ // tp))
         cnt = sp_.counts[:T_].long()
         tile = torch.repeat_interleave(torch.arange(T_, device=dev), cnt)
         slot = (sp_.starts[:T_].long()[tile] - (torch.cumsum(cnt, 0)
@@ -886,7 +958,7 @@ def main() -> None:
         return slot, tile
 
     def k3_check(label, dg, dg_p, sse, sse_p, img_k, img_p, tile_of, T_,
-                 tiles_x, clamp=True):
+                 tiles_x, clamp=True, tp=32):
         """K3's rows ``dg`` [L, 16] and per-tile SSE against its plain
         version's: the SSE within 1e-5 relative, every row to ROW_TOL of
         the column max but in tiles that hold a pixel whose clip mask
@@ -900,7 +972,7 @@ def main() -> None:
             flipped = flipped[:0]
         flips = int(flipped.shape[0])
         flip_tiles = torch.zeros(T_, dtype=torch.bool, device=dev)
-        flip_tiles[(flipped[:, 0] // 32) * tiles_x + flipped[:, 1] // 32] = True
+        flip_tiles[(flipped[:, 0] // tp) * tiles_x + flipped[:, 1] // tp] = True
         in_flip = flip_tiles[tile_of]
         e, same = rows_err(torch, dg, dg_p)
         worst_clean = float(e[~in_flip].max()) if bool((~in_flip).any()) \
@@ -967,14 +1039,15 @@ def main() -> None:
     if not deterministic:
         fail("two runs of K3 and the scatter on the same step differ")
 
-    def sum_case(label, feat_, sp_, H_, W_, g_, gt_, clamp=True):
-        """K1, K2 and K3 on the stream ``sp_`` (flat or aligned) over the
-        rows ``feat_`` against their plain versions (K1 to K1_TOL and bit
-        for bit to the in-order plain version, K2's rows to ROW_TOL and
-        bit-identical twice, K3 by k3_check), K3 against K1 -> L2 -> K2,
-        and the cull's work (no gated pair culled); K3's L2 clipped or
-        not."""
-        slot_, tile_ = window_slots(sp_, H_)
+    def sum_case(label, feat_, sp_, H_, W_, g_, gt_, clamp=True, tp=32):
+        """K1, K2 and K3 on the stream ``sp_`` (flat or aligned, tiles of
+        ``tp`` pixels) over the rows ``feat_`` against their plain versions
+        (K1 to K1_TOL and bit for bit to the in-order plain version, K2's
+        rows to ROW_TOL and bit-identical twice, K3 by k3_check), K3
+        against K1 -> L2 -> K2, and the cull's work (no gated pair culled);
+        K3's L2 clipped or not."""
+        slot_, tile_ = window_slots(sp_, H_, tp)
+        kw = {"tile_px": tp}
         if sp_.aligned:
             src = (sc.blockize_stream(feat_, sp_.gids), sp_.starts,
                    sp_.counts)
@@ -987,13 +1060,13 @@ def main() -> None:
             run = (rs.sum_fwd, rs.sum_bwd, rs.sum_l2)
             ref = (rs.sum_fwd_plain, rs.sum_bwd_plain, rs.sum_l2_plain)
             rows = lambda d: d  # noqa: E731
-        img = run[0](*src, H_, W_)
-        dg2_ = run[1](*src, g_, H_, W_)
-        sse_, dg3_ = run[2](*src, gt_, H_, W_, clamp=clamp)
+        img = run[0](*src, H_, W_, **kw)
+        dg2_ = run[1](*src, g_, H_, W_, **kw)
+        sse_, dg3_ = run[2](*src, gt_, H_, W_, clamp=clamp, **kw)
         torch.cuda.synchronize()
-        img_p_ = ref[0](*src, H_, W_)
-        dg2_p = ref[1](*src, g_, H_, W_)
-        sse_p, dg3_p = ref[2](*src, gt_, H_, W_, clamp=clamp)
+        img_p_ = ref[0](*src, H_, W_, **kw)
+        dg2_p = ref[1](*src, g_, H_, W_, **kw)
+        sse_p, dg3_p = ref[2](*src, gt_, H_, W_, clamp=clamp, **kw)
         # K1_TOL per unit of the pixel's magnitude: these scenes' indefinite
         # rows add w = 1 over whole regions, so pixels reach tens, and the
         # plain version's index_add_ sums in the atomics' order
@@ -1001,29 +1074,39 @@ def main() -> None:
         if not (bool(torch.isfinite(img).all()) and k1e <= K1_TOL):
             fail(f"{label}: K1 disagrees with its plain version: max |diff| "
                  f"{k1e} of max(1, |pixel|) (<= {K1_TOL})")
-        if not same_bits(torch, img, ref[0](*src, H_, W_, in_order=True)):
+        if not same_bits(torch, img, ref[0](*src, H_, W_, in_order=True,
+                                            **kw)):
             fail(f"{label}: K1 differs from the in-order plain version")
         e2_, same2 = rows_err(torch, rows(dg2_)[slot_], rows(dg2_p)[slot_])
         if not (same2 and float(e2_.max()) <= ROW_TOL):
             fail(f"{label}: K2 disagrees with its plain version: worst row "
                  f"{float(e2_.max())} (<= {ROW_TOL}), NaN elsewhere "
                  f"{not same2}")
-        if not same_bits(torch, run[1](*src, g_, H_, W_), dg2_):
+        if not same_bits(torch, run[1](*src, g_, H_, W_, **kw), dg2_):
             fail(f"{label}: two runs of K2 differ")
         k3 = k3_check(label, rows(dg3_)[slot_], rows(dg3_p)[slot_], sse_,
                       sse_p, img[:3], img_p_[:3], tile_, sp_.T, sp_.tiles_x,
-                      clamp)
+                      clamp, tp)
+        if not same_bits(torch, run[2](*src, gt_, H_, W_, clamp=clamp,
+                                       **kw)[1], dg3_):
+            fail(f"{label}: two runs of K3 differ")
         _, G_ = rs.l2_cotangent(img[:3], gt_, H_, W_, clamp)
         chain = chain_check(label, rows(dg3_)[slot_], rows(
-            run[1](*src, G_.contiguous(), H_, W_))[slot_])
+            run[1](*src, G_.contiguous(), H_, W_, **kw))[slot_])
         return {"k1_max_rel_err": k1e, "k1_in_order_bit_equal": True,
                 "img_max": float(img_p_.abs().max()),
                 "k2_worst_row": float(e2_.max()),
                 "k2_bit_identical_twice": True,
                 "k3": k3, "k3_vs_k1_l2_k2_worst_row": chain,
                 "nan_rows": int(rows(dg3_p)[slot_].isnan().any(dim=1).sum()),
+                "k1_max_abs_err": finite_max(torch, img - img_p_),
+                "k2_max_abs_err": finite_max(
+                    torch, (rows(dg2_) - rows(dg2_p))[slot_]),
+                "k3_max_abs_err": finite_max(
+                    torch, (rows(dg3_) - rows(dg3_p))[slot_]),
+                "k3_bit_identical_twice": True,
                 "work": cull_check(label, pair_work(
-                    torch, rs, sc, feat_, sp_, H_, W_, q_cut))}
+                    torch, rs, sc, feat_, sp_, H_, W_, q_cut, tp))}
 
     # NaN and negative forms (the gate's repair): the 300-point random
     # state's rows 0-11 take an infinite conic coefficient at an integer
@@ -1120,6 +1203,31 @@ def main() -> None:
                  "rows": n10},
         device_us={"masked": k12_device_us(feat_m),
                    "opacity_1": k12_device_us(feat)})
+    # K1-K3 at tile 16, the sharded fit's default tile: flat on the
+    # flower@10k state, whose stream at 16 fills the auto cap of 40,000
+    # instances and drops the rest (reported), aligned on flower@40k
+    def stream16(params_np):
+        m = make_model("GaussianImage_Cholesky", device=dev,
+                       num_points=params_np["_xyz"].shape[0], H=Hf, W=Wf,
+                       raster=RasterizeConfig(tile_px=16), block_h=16,
+                       block_w=16)
+        m.load_state_dict(params_from_numpy(params_np, dev))
+        return stream_inputs(m)
+
+    ck40 = load_checkpoint(FLOWER40_DIR / "flower" / "gaussian_model.npz")
+    feat16, sp16 = stream16(ckpt["params"])
+    featA16, spA16 = stream16(ck40["params"])
+    if sp16.aligned or not spA16.aligned:
+        fail(f"tile 16: flower@10k aligned {sp16.aligned}, flower@40k "
+             f"aligned {spA16.aligned}")
+    tile16 = {}
+    for name, f_, s_ in (("flat_flower_10k", feat16, sp16),
+                         ("aligned_flower_40k", featA16, spA16)):
+        tile16[name] = sum_case(f"tile16 {name}", f_, s_, Hf, Wf, g, gt_f,
+                                tp=16)
+        tile16[name].update(n_dropped=int(s_.n_dropped), capacity=s_.I,
+                            live=int(s_.counts[:s_.T].sum()))
+
     # K5 and K4, the fused splat prep, under serving(10000)
     serve_cfg = RasterizeConfig.serving(SERVE_N)
     I_s, m_s, _ = sc.stream_caps(SERVE_N, serve_cfg)
@@ -1302,7 +1410,8 @@ def main() -> None:
           k3={"row_tol": ROW_TOL, **k3_case, "flip_row_tol": FLIP_ROW_TOL,
               "vs_k1_l2_k2_worst_row": e_chain, "chain_tol": CHAIN_TOL,
               "bit_identical_twice": deterministic, "work": work10},
-          nan_form=nan_form, k3_cull_edge=k3_edge, masked=masked)
+          nan_form=nan_form, k3_cull_edge=k3_edge, masked=masked,
+          tile16=tile16)
 
     # -- slice: the evaluation entry point, counts read around it ------------
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1660,6 +1769,244 @@ def main() -> None:
     phase("generic", loss_type="Fusion2", steps=GENERIC_STEPS,
           launches=generic_counts, loss_first=float(gen_losses[0]),
           loss_last=float(gen_losses[-1]))
+
+    # -- sharded: the sharded fit CLI at its defaults, 1 x 1 x 1 -------------
+    def sharded_model(n):
+        """The sharded CLI's model at ``n`` points on flower's 768x512."""
+        return make_model("GaussianImage_Cholesky", device=dev, num_points=n,
+                          H=Hf, W=Wf, raster=RasterizeConfig(tile_px=16),
+                          block_h=16, block_w=16, init_mode="adaptive")
+
+    from gaussianimage_tpu_torch import train_sharded
+    from gaussianimage_tpu_torch.datasets import iterate_dataset
+    from gaussianimage_tpu_torch.parallel import (
+        init_sharded_fit, make_mesh, make_sharded_train_step)
+    from gaussianimage_tpu_torch.parallel import scaling_bench
+    from gaussianimage_tpu_torch.parallel.fit import load_fit as load_shards
+
+    mesh1 = make_mesh()
+    photos = dict(iterate_dataset("photos", str(ROOT / "data")))
+
+    def psnr_of(img, gt):
+        mse = torch.mean((img - torch.as_tensor(gt, device=dev)[0]) ** 2)
+        return float(10.0 * torch.log10(1.0 / torch.clamp(mse, min=1e-12)))
+
+    # each image's initial state, as the CLI draws it (seed 1), and its PSNR
+    init_psnr = {}
+    for name, im in photos.items():
+        st = init_sharded_fit(sharded_model(SHARD_N), mesh1, im, seed=1)
+        with torch.no_grad():
+            init_psnr[name] = psnr_of(st.model.render()["render"][0], im)
+    # the first SHARD_EQ_STEPS sharded steps against model.train_step from
+    # the same init (flower), bit for bit: loss, parameters, Adan's moments
+    st = init_sharded_fit(sharded_model(SHARD_N), mesh1, photos["flower"],
+                          seed=1)
+    ref = sharded_model(SHARD_N)
+    ref.load_state_dict(st.model.state_dict())
+    opt_ref = ref.make_optimizer()
+    gt_ref = torch.as_tensor(photos["flower"], device=dev)
+    step1 = make_sharded_train_step(st.model, mesh1, n_steps=1)
+    eq_losses = True
+    for i in range(SHARD_EQ_STEPS):
+        loss_s, _, _ = step1(st)
+        m_ref = ref.train_step(opt_ref, gt_ref, iteration=i + 1)
+        eq_losses &= same_bits(torch, loss_s, m_ref["loss"])
+    eq_params = all(torch.equal(p, getattr(ref, k))
+                    for k, p in st.model.named_parameters())
+    eq_moments = all(
+        torch.equal(st.optimizer.state[p][mom], opt_ref.state[q][mom])
+        for p, q in zip(st.model.parameters(), ref.parameters())
+        for mom in ("exp_avg", "exp_avg_sq", "exp_avg_diff", "prev_grad"))
+    if not (eq_losses and eq_params and eq_moments):
+        fail(f"{SHARD_EQ_STEPS} sharded steps on 1 x 1 x 1 differ from "
+             f"model.train_step: losses equal {eq_losses}, parameters "
+             f"{eq_params}, moments {eq_moments}")
+    # the CLI at its defaults (tile 16, adaptive init, chunks of 500)
+    sh_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+    try:
+        reset_counts()
+        t_sh = time.time()
+        train_sharded.main([
+            "-d", str(ROOT / "data"), "--data_name", "photos",
+            "--num_points", str(SHARD_N), "--iterations", str(SHARD_ITERS),
+            "--chunk_size", str(SHARD_CHUNK), "--checkpoint_root",
+            str(sh_dir)])
+        sharded_counts = read_counts()
+        sh_seconds = time.time() - t_sh
+        run_dir = sh_dir / "photos" / f"sharded_{SHARD_ITERS}_{SHARD_N}"
+        sh_log = (run_dir / "train.txt").read_text()
+        sharded_imgs = {}
+        for name in photos:
+            missing = [f for f in ("gaussian_model.npz", "training.npy")
+                       if not (run_dir / name / f).is_file()]
+            if missing:
+                fail(f"the sharded CLI left no {missing} for {name}")
+            rec = np.load(run_dir / name / "training.npy",
+                          allow_pickle=True).item()
+            final = float(re.search(rf"{name}: final state PSNR:(\S+)",
+                                    sh_log).group(1))
+            ck = load_checkpoint(run_dir / name / "gaussian_model.npz")
+            _, sp_fin = stream16(ck["params"])
+            sharded_imgs[name] = {
+                "training_psnr": float(rec["psnr"]), "final_psnr": final,
+                "initial_psnr": init_psnr[name],
+                "training_time": float(rec["training_time"]),
+                "final_state_n_dropped": int(sp_fin.n_dropped)}
+    finally:
+        shutil.rmtree(sh_dir, ignore_errors=True)
+    warn = re.search(r"dropped up to (\d+)", sh_log)
+    for name, r in sharded_imgs.items():
+        if not (math.isfinite(r["training_psnr"])
+                and math.isfinite(r["final_psnr"])):
+            fail(f"sharded {name}: a NaN loss ({r})")
+        if not r["final_psnr"] >= r["initial_psnr"] + SHARD_GAIN:
+            fail(f"sharded {name}: final PSNR {r['final_psnr']} is not "
+                 f"{SHARD_GAIN} dB above the initial {r['initial_psnr']}")
+    if sharded_counts["rasterize_sum_l2"] < SHARD_ITERS * len(photos):
+        fail(f"the sharded fit launched K3 "
+             f"{sharded_counts['rasterize_sum_l2']} times at tile 16, fewer "
+             f"than its {SHARD_ITERS * len(photos)} steps")
+    # the 40k fit's evaluation render at tile 16 (aligned K1, the CLI's
+    # final render) and 3 sharded steps from it on 1 x 1 x 1 (aligned K3)
+    flower_t = torch.as_tensor(photos["flower"], device=dev)
+    p40 = {k: np.asarray(v)[None] for k, v in ck40["params"].items()}
+    reset_counts()
+    eval40_psnr = train_sharded.final_psnr(
+        "GaussianImage_Cholesky", {k: torch.as_tensor(v, device=dev)
+                                   for k, v in p40.items()},
+        photos["flower"], dict(num_points=40000, H=Hf, W=Wf,
+                               raster=RasterizeConfig(tile_px=16),
+                               block_h=16, block_w=16), dev)[0]
+    eval40_counts = read_counts()
+
+    def one_rank_steps(n, params_np, path):
+        """TWO_RANK_STEPS sharded steps on 1 x 1 x 1 from ``params_np``
+        ([1, N, ...], Adan fresh), through the fused K3 step or the
+        generic one (the model's ``fused_l2`` off): (params, loss,
+        counts)."""
+        st_ = init_sharded_fit(sharded_model(n), mesh1, photos["flower"],
+                               seed=1)
+        load_shards(st_, mesh1, params_np)
+        st_.model.fused_l2 = path == "fused"
+        reset_counts()
+        loss_, _, _ = make_sharded_train_step(
+            st_.model, mesh1, n_steps=TWO_RANK_STEPS)(st_)
+        cnt = read_counts()
+        return ({k: p.detach().cpu().numpy()
+                 for k, p in st_.model.named_parameters()}, float(loss_), cnt)
+
+    # two ranks on the card over gloo, from the CLI's init of flower: (1,
+    # 2, 1) through K1 + K2 at 16, (1, 1, 2) through K3 on each half, and
+    # (1, 2, 1) at 40k points (each shard's 20,000 rows past the flat
+    # limit: aligned K1 + K2) from the CLI's init and from the 40k fit,
+    # each against 1 x 1 x 1 from the same state
+    states = {}
+    for key, n in (("init_10k", SHARD_N), ("init_40k", 40000)):
+        st = init_sharded_fit(sharded_model(n), mesh1, photos["flower"],
+                              seed=1)
+        states[key] = {k: p.detach().cpu().numpy()[None]
+                       for k, p in st.model.named_parameters()}
+    states["fit_40k"] = p40
+    st = init_sharded_fit(sharded_model(SHARD_N), mesh1, photos["flower"],
+                          seed=1)
+    two_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_two_rank_"))
+    try:
+        for key, arrays in states.items():
+            np.savez(two_dir / f"{key}.npz", **arrays)
+        t_two = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--two-rank-worker", str(r), str(two_dir)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        logs = []
+        try:
+            for p_ in procs:
+                logs.append(p_.communicate(timeout=TWO_RANK_TIMEOUT)[0])
+        finally:
+            for p_ in procs:
+                if p_.poll() is None:
+                    p_.kill()
+                    p_.communicate()
+        for r, (p_, lg) in enumerate(zip(procs, logs)):
+            if p_.returncode != 0:
+                fail(f"two-rank gloo run: rank {r} exited {p_.returncode}:"
+                     f"\n{lg[-3000:]}")
+        two_seconds = time.time() - t_two
+        two_out = {lab: dict(np.load(two_dir / f"out_{lab}.npz"))
+                   for lab, *_ in TWO_RANK_MESHES}
+        two_counts = [json.loads((two_dir / f"counts_{r}.json").read_text())
+                      for r in range(2)]
+    finally:
+        shutil.rmtree(two_dir, ignore_errors=True)
+    refs = {(key, path): one_rank_steps(n, states[key], path)
+            for key, n in (("init_10k", SHARD_N), ("init_40k", 40000),
+                           ("fit_40k", 40000))
+            for path in ("fused", "generic")}
+
+    def of_tolerance(got, want):
+        """Per parameter max |got - want| / (atol + rtol |want|)."""
+        return {k: float(np.max(np.abs(got[k][0] - v) / (
+            TWO_RANK_ATOL + TWO_RANK_RTOL * np.abs(v))))
+            for k, v in want.items()}
+
+    # the init's pixel-channels at exactly 0 or 1, where the two steps'
+    # clip cotangents differ
+    with torch.no_grad():
+        img0 = st.model.render()["render"][0]
+    ties = int(((img0 == 0) | (img0 == 1)).sum())
+    two_rank = {}
+    for lab, n, mesh_s, path, key, gated in TWO_RANK_MESHES:
+        want, want_loss, _ = refs[(key, path)]
+        got = two_out[lab]
+        errs = of_tolerance(got, want)
+        loss_rel = abs(float(got["loss"][0]) / want_loss - 1)
+        two_rank[lab] = {"mesh": mesh_s, "num_points": n,
+                         "steps": TWO_RANK_STEPS, "held_to": path,
+                         "from": key, "gated": gated,
+                         "worst_of_tolerance": errs, "loss_rel_err": loss_rel,
+                         "loss": float(got["loss"][0]),
+                         "loss_one_rank": want_loss,
+                         "n_dropped": int(got["n_dropped"][0]),
+                         "launches_rank0": two_counts[0][lab]}
+        if gated and (max(errs.values()) > 1.0
+                      or loss_rel > TWO_RANK_LOSS_RTOL):
+            fail(f"two-rank {lab} {mesh_s} differs from 1 x 1 x 1: "
+                 f"|diff| / (atol + rtol |ref|) {errs} (<= 1), loss rel "
+                 f"{loss_rel} (<= {TWO_RANK_LOSS_RTOL})")
+    for lab, kernels in TWO_RANK_KERNELS.items():
+        for k in kernels:
+            if any(c[lab][k] < TWO_RANK_STEPS for c in two_counts):
+                fail(f"two-rank {lab}: {k} launched "
+                     f"{[c[lab][k] for c in two_counts]} times, fewer than "
+                     f"{TWO_RANK_STEPS} a rank")
+    two_rank["gauss2"]["vs_fused_worst_of_tolerance"] = of_tolerance(
+        two_out["gauss2"], refs[("init_10k", "fused")][0])
+    two_rank["gauss2"]["init_pixel_channels_at_0_or_1"] = ties
+    aligned16_k3 = refs[("init_40k", "fused")][2][
+        "rasterize_sum_l2_aligned"]
+    if aligned16_k3 < TWO_RANK_STEPS or eval40_counts[
+            "rasterize_sum_fwd_aligned"] < 1:
+        fail(f"the 40k steps at tile 16 launched the aligned K3 "
+             f"{aligned16_k3} times, its render the aligned K1 "
+             f"{eval40_counts['rasterize_sum_fwd_aligned']}")
+    # the scaling probe once on this one rank (its baseline rows)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        scale = scaling_bench.run(device=dev)
+    phase("sharded", mesh=mesh1.shape, num_points=SHARD_N,
+          iterations=SHARD_ITERS, chunk_size=SHARD_CHUNK, tile_px=16,
+          launches=sharded_counts, seconds=sh_seconds,
+          ms_per_step=1e3 * sh_seconds / (SHARD_ITERS * len(photos)),
+          images=sharded_imgs,
+          n_dropped_warning=int(warn.group(1)) if warn else 0,
+          first_steps_bit_equal_to_train_step=SHARD_EQ_STEPS,
+          eval_40k_tile16={"psnr": eval40_psnr, "launches": eval40_counts},
+          one_rank_40k_launches={p_: refs[("init_40k", p_)][2]
+                                 for p_ in ("fused", "generic")},
+          two_rank_gloo={"seconds": two_seconds, "rtol": TWO_RANK_RTOL,
+                         "atol": TWO_RANK_ATOL, "runs": two_rank},
+          scaling_bench_world_1=scale)
 
     # -- the wMask phases: fit + prune, the EMA's finalization, QAT, codec --
     wm_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_wmask_"))
@@ -3179,6 +3526,74 @@ def main() -> None:
         if None not in flat_twin_device_ms.values():
             break
 
+    # K1-K3 at tile 16: flat on flower@10k, aligned on flower@40k; time,
+    # device time (one trace of each layout's launches alone: the tile-16
+    # kernels share the 32-pixel ones' names, as template instances), the
+    # plain version's time and the bound from this run's pairs
+    def tile16_timing(layout, src, H_, W_):
+        if layout == "flat":
+            run, ref = ((rs.sum_fwd, rs.sum_bwd, rs.sum_l2),
+                        (rs.sum_fwd_plain, rs.sum_bwd_plain,
+                         rs.sum_l2_plain))
+        else:
+            run, ref = ((rs.sum_fwd_aligned, rs.sum_bwd_aligned,
+                         rs.sum_l2_aligned),
+                        (rs.sum_fwd_aligned_plain, rs.sum_bwd_aligned_plain,
+                         rs.sum_l2_aligned_plain))
+
+        def calls(fns):
+            return {"rasterize_sum_fwd": lambda: fns[0](*src, H_, W_,
+                                                        tile_px=16),
+                    "rasterize_sum_bwd": lambda: fns[1](*src, g, H_, W_,
+                                                        tile_px=16),
+                    "rasterize_sum_l2": lambda: fns[2](*src, gt_f, H_, W_,
+                                                       tile_px=16)}
+
+        out = {"ms": {k: burst_ms(torch, fn, reps=20)
+                      for k, fn in calls(run).items()},
+               "plain_ms": {k: burst_ms(torch, fn, reps=2, warmup=1)
+                            for k, fn in calls(ref).items()}}
+        launch = calls(run)
+        for _ in range(2):
+            us = profile_of(torch, lambda: [fn() for _ in range(2)
+                                            for fn in launch.values()
+                                            for _ in range(20)], 40,
+                            tuple(launch))["ported_us_per_launch"]
+            out["device_ms"] = {k: None if v is None else v / 1e3
+                                for k, v in us.items()}
+            if None not in out["device_ms"].values():
+                break
+        return out
+
+    blocksA16 = sc.blockize_stream(featA16, spA16.gids)
+    t16 = {"flat": tile16_timing("flat", (feat16, sp16.gids, sp16.starts),
+                                 Hf, Wf),
+           "aligned": tile16_timing("aligned", (blocksA16, spA16.starts,
+                                                spA16.counts), Hf, Wf)}
+    for layout, case, stream_b, live16 in (
+            ("flat", tile16["flat_flower_10k"],
+             4 * (feat16.numel() + tile16["flat_flower_10k"]["live"]
+                  + sp16.starts.numel()),
+             tile16["flat_flower_10k"]["live"]),
+            ("aligned", tile16["aligned_flower_40k"],
+             4 * (blocksA16.numel() + spA16.starts.numel()
+                  + spA16.counts.numel()),
+             tile16["aligned_flower_40k"]["live"])):
+        px16, n_t16 = Hf * Wf, (Hf // 16) * (-(-Wf // 16))
+        b16 = {"rasterize_sum_fwd": stream_b + 4 * 4 * px16,
+               "rasterize_sum_bwd": stream_b + 4 * 4 * px16 + 4 * 16 * live16,
+               "rasterize_sum_l2": stream_b + 4 * 3 * px16 + 4 * n_t16
+               + 4 * 16 * live16}
+        w16 = {k: (*sum_ops(k, case["work"], tp=16), b)
+               for k, b in b16.items()}
+        bd16 = {k: bound(*v) for k, v in w16.items()}
+        t16[layout].update(
+            bound_ms={k: v[0] for k, v in bd16.items()},
+            bound_by={k: v[1] for k, v in bd16.items()},
+            fp32_instr={k: v[0] for k, v in w16.items()},
+            mufu={k: v[1] for k, v in w16.items()},
+            bytes={k: v[2] for k, v in w16.items()}, work=case["work"])
+
     # the fused prep's floor: one trace of 20 x (a launch of the kernel, a
     # zero_() of each of its three outputs: PyTorch's fill writing the same
     # bytes, and one zero_() of a float64 buffer of their total size, whose
@@ -3362,7 +3777,8 @@ def main() -> None:
                    "fp32_instr": {k: v[0] for k, v in aligned_work.items()},
                    "bytes": {k: v[2] for k, v in aligned_work.items()},
                    "sum_work": work40,
-                   "gs3d_work": {k: case30[k] for k in BLEND_WORK}})
+                   "gs3d_work": {k: case30[k] for k in BLEND_WORK}},
+          tile16=t16)
 
     print(smi, flush=True)
     replaces = {"rasterize_sum_fwd": "gaussianimage_tpu/ops/rasterize_sum.py:205",
@@ -3450,6 +3866,40 @@ def main() -> None:
             "stream_unblockize": float(
                 (rowsK11b - sc.unblockize_stream_plain(dg3A)).abs().max())}
 
+    # K1-K3 at tile 16: launches on the paths that drive each (flat: the
+    # sharded CLI's fit, K1 its final renders, K2 the two-rank gauss axis;
+    # aligned: the 40k render, 1 x 1 x 1 steps and the two-rank gauss axis
+    # at 40k)
+    tile16_launches = {
+        "flat": {"rasterize_sum_fwd": sharded_counts["rasterize_sum_fwd"],
+                 "rasterize_sum_bwd":
+                     two_rank["gauss2"]["launches_rank0"]["rasterize_sum_bwd"],
+                 "rasterize_sum_l2": sharded_counts["rasterize_sum_l2"]},
+        "aligned": {
+            "rasterize_sum_fwd": eval40_counts["rasterize_sum_fwd_aligned"],
+            "rasterize_sum_bwd": two_rank["gauss2_40k"]["launches_rank0"][
+                "rasterize_sum_bwd_aligned"],
+            "rasterize_sum_l2": refs[("init_40k", "fused")][2][
+                "rasterize_sum_l2_aligned"]}}
+    tile16_case = {"flat": tile16["flat_flower_10k"],
+                   "aligned": tile16["aligned_flower_40k"]}
+    tile16_err = {"rasterize_sum_fwd": "k1_max_abs_err",
+                  "rasterize_sum_bwd": "k2_max_abs_err",
+                  "rasterize_sum_l2": "k3_max_abs_err"}
+
+    def tile16_entry(k):
+        """K1-K3's numbers at tile 16, flat and aligned."""
+        if k not in tile16_err:
+            return {}
+        return {"tile16": {lay: {
+            "launches": tile16_launches[lay][k],
+            "max_abs_err": tile16_case[lay][tile16_err[k]],
+            "ms": t16[lay]["ms"][k], "device_ms": t16[lay]["device_ms"][k],
+            "plain_ms": t16[lay]["plain_ms"][k],
+            "bound_ms": t16[lay]["bound_ms"][k],
+            "bound_by": t16[lay]["bound_by"][k], "library_ms": None}
+            for lay in ("flat", "aligned")}}
+
     def aligned_entry(k):
         """The aligned branch's numbers of a kernel that has one."""
         if k not in aligned_launches:
@@ -3479,11 +3929,73 @@ def main() -> None:
         **({"launches_wmask_fit": wmask_counts[k]}
            if k in ("rasterize_sum_fwd", "rasterize_sum_bwd") else {}),
         **aligned_entry(k),
+        **tile16_entry(k),
     } for k in counters]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 
 
+def two_rank_worker(rank: int, work_dir: str) -> None:
+    """One of the two ranks of phase ``sharded``'s gloo run on the one
+    card (``chip_smoke.py --two-rank-worker <rank> <dir>``): for each of
+    TWO_RANK_MESHES, the state saved in ``<dir>`` onto its shards, then
+    TWO_RANK_STEPS sharded steps; rank 0 saves the gathered parameters and
+    loss, and each rank its launch counts."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gaussianimage_tpu_torch.models import make_model
+    from gaussianimage_tpu_torch.ops import RasterizeConfig
+    from gaussianimage_tpu_torch.ops import rasterize_sum as rs
+    from gaussianimage_tpu_torch.parallel import (
+        init_sharded_fit, make_mesh, make_sharded_train_step)
+    from gaussianimage_tpu_torch.parallel.fit import (gather_fit,
+                                                      image_metrics, load_fit)
+    from gaussianimage_tpu_torch.utils.image_io import image_path_to_array
+
+    counters = {"rasterize_sum_fwd": rs.sum_fwd,
+                "rasterize_sum_bwd": rs.sum_bwd,
+                "rasterize_sum_l2": rs.sum_l2,
+                "rasterize_sum_fwd_aligned": rs.sum_fwd_aligned,
+                "rasterize_sum_bwd_aligned": rs.sum_bwd_aligned,
+                "rasterize_sum_l2_aligned": rs.sum_l2_aligned}
+    work = Path(work_dir)
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{work / 'rdv'}",
+                            rank=rank, world_size=2)
+    image = image_path_to_array(FLOWER_PHOTO)  # [1, 3, H, W]
+    counts = {}
+    for label, n, mesh_s, _, key, _ in TWO_RANK_MESHES:
+        mesh = make_mesh(dict(zip(("data", "gauss", "tile"),
+                                  (int(x) for x in mesh_s.split(",")))))
+        model = make_model("GaussianImage_Cholesky", device=dev,
+                           num_points=n, H=image.shape[2], W=image.shape[3],
+                           raster=RasterizeConfig(tile_px=16), block_h=16,
+                           block_w=16, init_mode="adaptive")
+        state = init_sharded_fit(model, mesh, image, seed=1)
+        init = np.load(work / f"{key}.npz")
+        load_fit(state, mesh, {k: init[k] for k in init.files})
+        for fn in counters.values():
+            fn.launches = 0
+        loss, _, nd = make_sharded_train_step(
+            model, mesh, n_steps=TWO_RANK_STEPS)(state)
+        torch.cuda.synchronize()
+        counts[label] = {k: fn.launches for k, fn in counters.items()}
+        params, _ = gather_fit(state, mesh)
+        loss, nd = image_metrics(mesh, loss, nd)
+        if rank == 0:
+            np.savez(work / f"out_{label}.npz", loss=loss, n_dropped=nd,
+                     **{k: v.cpu().numpy() for k, v in params.items()})
+    (work / f"counts_{rank}.json").write_text(json.dumps(counts))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 4 and sys.argv[1] == "--two-rank-worker":
+        two_rank_worker(int(sys.argv[2]), sys.argv[3])
+    else:
+        main()

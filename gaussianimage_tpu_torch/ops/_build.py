@@ -37,32 +37,32 @@ _f = ctypes.c_float
 KERNELS = {
     "rasterize_sum_fwd": (
         "rasterize_sum_fwd.cu",
-        # feat, n_rows, gids, starts, out, H, W, tiles_x, tiles_y, q_cut,
-        # stream
-        {"rasterize_sum_fwd": ([_p, _i, _p, _p, _p, _i, _i, _i, _i, _f, _p],
+        # feat, n_rows, gids, starts, out, H, W, tiles_x, tiles_y, tile_px,
+        # q_cut, stream
+        {"rasterize_sum_fwd": ([_p, _i, _p, _p, _p] + [_i] * 5 + [_f, _p],
                                _i),
          # aligned: blocks, starts, counts, out, H, W, tiles_x, tiles_y,
-         # q_cut, stream
-         "rasterize_sum_fwd_aligned": ([_p] * 4 + [_i] * 4 + [_f, _p], _i)},
+         # tile_px, q_cut, stream
+         "rasterize_sum_fwd_aligned": ([_p] * 4 + [_i] * 5 + [_f, _p], _i)},
     ),
     "rasterize_sum_bwd": (
         "rasterize_sum_bwd.cu",
         {
             # K2: feat, n_rows, gids, starts, g, dgfeat, H, W, tiles_x,
-            # tiles_y, q_cut, stream
-            "rasterize_sum_bwd": ([_p, _i, _p, _p, _p, _p, _i, _i, _i, _i,
-                                   _f, _p], _i),
+            # tiles_y, tile_px, q_cut, stream
+            "rasterize_sum_bwd": ([_p, _i, _p, _p, _p, _p] + [_i] * 5
+                                  + [_f, _p], _i),
             # K3: feat, n_rows, gids, starts, gt, sse, dgfeat, H, W,
-            # tiles_x, tiles_y, q_cut, gscale, clamp, stream
-            "rasterize_sum_l2": ([_p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i,
-                                  _f, _f, _i, _p], _i),
+            # tiles_x, tiles_y, tile_px, q_cut, gscale, clamp, stream
+            "rasterize_sum_l2": ([_p, _i, _p, _p, _p, _p, _p] + [_i] * 5
+                                 + [_f, _f, _i, _p], _i),
             # aligned K2: blocks, starts, counts, g, dgb, H, W, tiles_x,
-            # tiles_y, q_cut, stream
-            "rasterize_sum_bwd_aligned": ([_p] * 5 + [_i] * 4 + [_f, _p],
+            # tiles_y, tile_px, q_cut, stream
+            "rasterize_sum_bwd_aligned": ([_p] * 5 + [_i] * 5 + [_f, _p],
                                           _i),
             # aligned K3: blocks, starts, counts, gt, sse, dgb, H, W,
-            # tiles_x, tiles_y, q_cut, gscale, clamp, stream
-            "rasterize_sum_l2_aligned": ([_p] * 6 + [_i] * 4
+            # tiles_x, tiles_y, tile_px, q_cut, gscale, clamp, stream
+            "rasterize_sum_l2_aligned": ([_p] * 6 + [_i] * 5
                                          + [_f, _f, _i, _p], _i),
         },
     ),

@@ -11,7 +11,8 @@
 // blocks) and write their gradients as [NB, 16, 64] blocks, the TPU
 // kernels' `aligned` branch.
 //
-// Function. Per 32x32 tile t, over its window [starts[t], starts[t+1]) of
+// Function. Per tile t of TILE x TILE pixels (TILE = 32, or 16, the
+// sharded fit's default), over its window [starts[t], starts[t+1]) of
 // the tile-sorted stream, with rows feat[gids[s]] = (x, y, a, b, c, o*r,
 // o*g, o*b, o, pad..) and the pair weight w = exp(-q/2) gated at q <= q_cut
 // (rasterize_sum_common.cuh, as K1):
@@ -52,8 +53,9 @@
 //
 // Design, K2 and K3 alike. A window of the fit's stream is shallow (67
 // slots on the mean tile at 10k points, at most 3 chunks; 177 and 7 at
-// 40k), so one CTA of 256 threads per tile, on the layout, staging and
-// cull of rasterize_sum_common.cuh (shared with K1). A walk of every pair
+// 40k), so one CTA per tile (256 threads at 32 pixels, 64 at 16:
+// Geo<TILE>), on the layout, staging and cull of rasterize_sum_common.cuh
+// (shared with K1). A walk of every pair
 // spends most of its time on pairs that fail the gate (8-21x more than
 // pass) and, per (slot, warp), on one 5-level shuffle tree per term.
 // Here:
@@ -96,12 +98,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 // The backward walk's shared memory for kTerms terms a slot: the staged
 // chunk, the per-warp sums per slot, the tile's sums per slot and the
 // slots each warp has a part of.
-template <int kTerms>
+template <int TILE, int kTerms>
 struct BackShared {
   Slots s;
-  float part[kWarps][kTerms][kBK];
+  float part[Geo<TILE>::kWarps][kTerms][kBK];
   float sum[kTerms][kBK];
-  unsigned long long live[kWarps];
+  unsigned long long live[Geo<TILE>::kWarps];
 };
 
 // The backward walk over a staged chunk, then its gradient rows: per slot
@@ -111,10 +113,11 @@ struct BackShared {
 // block (aligned) written by threads 0-63. G is the cotangent of the
 // thread's pixels: kCG = 4 channels (K2), or rgb only (kCG = 3, K3, whose
 // alpha cotangent is 0).
-template <bool kBlocks, int kCG>
-__device__ __forceinline__ void backward_slots(BackShared<5 + kCG>& sh, const Pixels& p,
+template <int TILE, bool kBlocks, int kCG>
+__device__ __forceinline__ void backward_slots(BackShared<TILE, 5 + kCG>& sh, const Pixels& p,
                                                const float (&G)[kPixels][kCG], float q_cut,
                                                int base, int n, float* __restrict__ dgfeat) {
+  using L = Geo<TILE>;
   constexpr int kTerms = 5 + kCG;
   static_assert(kTerms == 8 || kTerms == 9, "rgb or rgb + alpha cotangent");
   const Slots& s = sh.s;
@@ -176,11 +179,11 @@ __device__ __forceinline__ void backward_slots(BackShared<5 + kCG>& sh, const Pi
   }
   if (p.lane == 0) sh.live[p.warp] = live;
   __syncthreads();
-  for (int i = threadIdx.x; i < kTerms * kBK; i += kThreads) {
+  for (int i = threadIdx.x; i < kTerms * kBK; i += L::kThreads) {
     const int t = i / kBK, k = i % kBK;
     float a = 0.0f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w)
+    for (int w = 0; w < L::kWarps; ++w)
       if ((sh.live[w] >> k) & 1ull) a += sh.part[w][t][k];
     sh.sum[t][k] = a;
   }
@@ -221,13 +224,13 @@ __device__ __forceinline__ void backward_slots(BackShared<5 + kCG>& sh, const Pi
 // K2
 // ---------------------------------------------------------------------------
 
-template <bool kBlocks>
-__global__ void __launch_bounds__(kThreads, 3)
+template <int TILE, bool kBlocks>
+__global__ void __launch_bounds__(Geo<TILE>::kThreads, Geo<TILE>::kMinBlocks)
 rasterize_sum_bwd_kernel(Stream st, const float* __restrict__ g,
                          float* __restrict__ dgfeat, int H, int W,
                          int tiles_x, float q_cut) {
-  __shared__ BackShared<5 + kC> sh;
-  const Pixels p = pixels_of<kBlocks>(st, H, W, tiles_x);
+  __shared__ BackShared<TILE, 5 + kC> sh;
+  const Pixels p = pixels_of<TILE, kBlocks>(st, H, W, tiles_x);
   const int len = p.end - p.start;
   if (len <= 0) return;
   const int nch = (len + kBK - 1) / kBK;
@@ -248,13 +251,13 @@ rasterize_sum_bwd_kernel(Stream st, const float* __restrict__ g,
   for (int ci = 0; ci < nch; ++ci) {
     const int base = p.start + ci * kBK;
     const int n = min(kBK, p.end - base);
-    stage_slots(sh.s, row, n, p.tx0, p.ty0, q_cut);
+    stage_slots<TILE>(sh.s, row, n, p.tx0, p.ty0, q_cut);
     __syncthreads();
     if (ci + 1 < nch) {
       if (k_own < min(kBK, p.end - base - kBK)) row = load_slot<kBlocks>(st, base + kBK, k_own);
       prefetch_ids<kBlocks>(st, base + 2 * kBK, p.end - base - 2 * kBK);
     }
-    backward_slots<kBlocks, kC>(sh, p, G, q_cut, base, n, dgfeat);
+    backward_slots<TILE, kBlocks, kC>(sh, p, G, q_cut, base, n, dgfeat);
   }
 }
 
@@ -262,15 +265,16 @@ rasterize_sum_bwd_kernel(Stream st, const float* __restrict__ g,
 // K3
 // ---------------------------------------------------------------------------
 
-template <bool kBlocks>
-__global__ void __launch_bounds__(kThreads, 3)
+template <int TILE, bool kBlocks>
+__global__ void __launch_bounds__(Geo<TILE>::kThreads, Geo<TILE>::kMinBlocks)
 rasterize_sum_l2_kernel(Stream st, const float* __restrict__ gt,
                         float* __restrict__ sse, float* __restrict__ dgfeat,
                         int H, int W, int tiles_x, float q_cut, float gscale,
                         int clamp) {
-  __shared__ BackShared<5 + 3> sh;
-  __shared__ float red[kWarps];  // per-warp partial SSE
-  const Pixels p = pixels_of<kBlocks>(st, H, W, tiles_x);
+  using L = Geo<TILE>;
+  __shared__ BackShared<TILE, 5 + 3> sh;
+  __shared__ float red[L::kWarps];  // per-warp partial SSE
+  const Pixels p = pixels_of<TILE, kBlocks>(st, H, W, tiles_x);
   const int len = p.end - p.start;
   const int nch = len > 0 ? (len + kBK - 1) / kBK : 0;
   const int k_own = threadIdx.x;  // the slot this thread loads and stages
@@ -279,7 +283,7 @@ rasterize_sum_l2_kernel(Stream st, const float* __restrict__ gt,
   // forward: K1's sums, chunk by chunk in stream order; then `row` holds
   // the backward's first chunk to stage
   float acc[kPixels][kC];
-  walk_forward<kBlocks, true>(sh.s, st, p, q_cut, acc, row);
+  walk_forward<TILE, kBlocks, true>(sh.s, st, p, q_cut, acc, row);
 
   // clip, masked L2 and its cotangent, per pixel; the tile's SSE
   const size_t plane = static_cast<size_t>(H) * W;
@@ -304,7 +308,7 @@ rasterize_sum_l2_kernel(Stream st, const float* __restrict__ gt,
   if (threadIdx.x == 0) {
     float total = red[0];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) total += red[w];
+    for (int w = 1; w < L::kWarps; ++w) total += red[w];
     sse[blockIdx.x] = total;
   }
 
@@ -312,37 +316,64 @@ rasterize_sum_l2_kernel(Stream st, const float* __restrict__ gt,
   for (int ci = nch - 1; ci >= 0; --ci) {
     const int base = p.start + ci * kBK;
     if (ci < nch - 1) {
-      stage_slots(sh.s, row, kBK, p.tx0, p.ty0, q_cut);  // only the last chunk is partial
+      stage_slots<TILE>(sh.s, row, kBK, p.tx0, p.ty0, q_cut);  // only the last chunk is partial
       __syncthreads();
       if (ci > 0 && k_own < kBK) row = load_slot<kBlocks>(st, base - kBK, k_own);
       if (ci > 1) prefetch_ids<kBlocks>(st, base - 2 * kBK, kBK);
     }
-    backward_slots<kBlocks, 3>(sh, p, G, q_cut, base, min(kBK, p.end - base), dgfeat);
+    backward_slots<TILE, kBlocks, 3>(sh, p, G, q_cut, base, min(kBK, p.end - base), dgfeat);
   }
 }
 
-int check_args(int n_tiles, int n_rows) {
-  return (n_tiles <= 0 || n_rows <= 0) ? static_cast<int>(cudaErrorInvalidValue) : 0;
+// The launches at tile_px 32 or 16 (anything else: cudaErrorInvalidValue).
+template <bool kBlocks>
+int launch_bwd(const Stream& st, const float* g, float* dgfeat, int H, int W, int tiles_x,
+               int tiles_y, int tile_px, float q_cut, cudaStream_t stream) {
+  const int n_tiles = tiles_x * tiles_y;
+  if (n_tiles <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (tile_px == 32)
+    rasterize_sum_bwd_kernel<32, kBlocks><<<n_tiles, Geo<32>::kThreads, 0, stream>>>(
+        st, g, dgfeat, H, W, tiles_x, q_cut);
+  else if (tile_px == 16)
+    rasterize_sum_bwd_kernel<16, kBlocks><<<n_tiles, Geo<16>::kThreads, 0, stream>>>(
+        st, g, dgfeat, H, W, tiles_x, q_cut);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBlocks>
+int launch_l2(const Stream& st, const float* gt, float* sse, float* dgfeat, int H, int W,
+              int tiles_x, int tiles_y, int tile_px, float q_cut, float gscale, int clamp,
+              cudaStream_t stream) {
+  const int n_tiles = tiles_x * tiles_y;
+  if (n_tiles <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (tile_px == 32)
+    rasterize_sum_l2_kernel<32, kBlocks><<<n_tiles, Geo<32>::kThreads, 0, stream>>>(
+        st, gt, sse, dgfeat, H, W, tiles_x, q_cut, gscale, clamp);
+  else if (tile_px == 16)
+    rasterize_sum_l2_kernel<16, kBlocks><<<n_tiles, Geo<16>::kThreads, 0, stream>>>(
+        st, gt, sse, dgfeat, H, W, tiles_x, q_cut, gscale, clamp);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // K2. feat [n_rows, 16] f32, gids [I] i32, starts [>= tiles_x*tiles_y + 1]
 // i32, g [4, H, W] f32 cotangent, dgfeat [I, 16] f32 (rows of slots past
-// the last window are left as they are); all device pointers. Launches on
-// `stream` and returns the launch's cudaError_t (0 = success); it does not
-// synchronise.
+// the last window are left as they are); all device pointers; tile_px 32
+// or 16. Launches on `stream` and returns the launch's cudaError_t (0 =
+// success); it does not synchronise.
 extern "C" int rasterize_sum_bwd(const float* feat, int n_rows,
                                  const int* gids, const int* starts,
                                  const float* g, float* dgfeat, int H, int W,
-                                 int tiles_x, int tiles_y, float q_cut,
+                                 int tiles_x, int tiles_y, int tile_px, float q_cut,
                                  cudaStream_t stream) {
-  const int n_tiles = tiles_x * tiles_y;
-  if (int rc = check_args(n_tiles, n_rows)) return rc;
-  const Stream st{feat, n_rows, gids, nullptr, starts, nullptr};
-  rasterize_sum_bwd_kernel<false><<<n_tiles, kThreads, 0, stream>>>(st, g, dgfeat, H, W,
-                                                                    tiles_x, q_cut);
-  return static_cast<int>(cudaGetLastError());
+  if (n_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd<false>(Stream{feat, n_rows, gids, nullptr, starts, nullptr}, g, dgfeat,
+                           H, W, tiles_x, tiles_y, tile_px, q_cut, stream);
 }
 
 // K3. As K2, with gt [3, H, W] f32 in place of the cotangent, and
@@ -351,15 +382,13 @@ extern "C" int rasterize_sum_bwd(const float* feat, int n_rows,
 extern "C" int rasterize_sum_l2(const float* feat, int n_rows,
                                 const int* gids, const int* starts,
                                 const float* gt, float* sse, float* dgfeat,
-                                int H, int W, int tiles_x, int tiles_y,
+                                int H, int W, int tiles_x, int tiles_y, int tile_px,
                                 float q_cut, float gscale, int clamp,
                                 cudaStream_t stream) {
-  const int n_tiles = tiles_x * tiles_y;
-  if (int rc = check_args(n_tiles, n_rows)) return rc;
-  const Stream st{feat, n_rows, gids, nullptr, starts, nullptr};
-  rasterize_sum_l2_kernel<false><<<n_tiles, kThreads, 0, stream>>>(
-      st, gt, sse, dgfeat, H, W, tiles_x, q_cut, gscale, clamp);
-  return static_cast<int>(cudaGetLastError());
+  if (n_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_l2<false>(Stream{feat, n_rows, gids, nullptr, starts, nullptr}, gt, sse,
+                          dgfeat, H, W, tiles_x, tiles_y, tile_px, q_cut, gscale, clamp,
+                          stream);
 }
 
 // K2 on the aligned stream: blocks [NB, 16, 64] f32 (K11a's), starts
@@ -370,13 +399,9 @@ extern "C" int rasterize_sum_l2(const float* feat, int n_rows,
 extern "C" int rasterize_sum_bwd_aligned(const float* blocks, const int* starts,
                                          const int* counts, const float* g, float* dgb,
                                          int H, int W, int tiles_x, int tiles_y,
-                                         float q_cut, cudaStream_t stream) {
-  const int n_tiles = tiles_x * tiles_y;
-  if (n_tiles <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Stream st{nullptr, 0, nullptr, blocks, starts, counts};
-  rasterize_sum_bwd_kernel<true><<<n_tiles, kThreads, 0, stream>>>(st, g, dgb, H, W,
-                                                                   tiles_x, q_cut);
-  return static_cast<int>(cudaGetLastError());
+                                         int tile_px, float q_cut, cudaStream_t stream) {
+  return launch_bwd<true>(Stream{nullptr, 0, nullptr, blocks, starts, counts}, g, dgb, H,
+                          W, tiles_x, tiles_y, tile_px, q_cut, stream);
 }
 
 // K3 on the aligned stream: as rasterize_sum_bwd_aligned, with gt [3, H, W]
@@ -384,12 +409,8 @@ extern "C" int rasterize_sum_bwd_aligned(const float* blocks, const int* starts,
 extern "C" int rasterize_sum_l2_aligned(const float* blocks, const int* starts,
                                         const int* counts, const float* gt, float* sse,
                                         float* dgb, int H, int W, int tiles_x, int tiles_y,
-                                        float q_cut, float gscale, int clamp,
+                                        int tile_px, float q_cut, float gscale, int clamp,
                                         cudaStream_t stream) {
-  const int n_tiles = tiles_x * tiles_y;
-  if (n_tiles <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Stream st{nullptr, 0, nullptr, blocks, starts, counts};
-  rasterize_sum_l2_kernel<true><<<n_tiles, kThreads, 0, stream>>>(
-      st, gt, sse, dgb, H, W, tiles_x, q_cut, gscale, clamp);
-  return static_cast<int>(cudaGetLastError());
+  return launch_l2<true>(Stream{nullptr, 0, nullptr, blocks, starts, counts}, gt, sse, dgb,
+                         H, W, tiles_x, tiles_y, tile_px, q_cut, gscale, clamp, stream);
 }

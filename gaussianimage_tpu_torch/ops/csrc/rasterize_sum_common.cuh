@@ -11,17 +11,23 @@
 // (load_slot), the per-slot cull rectangle (slot_cull) and the eight-term
 // warp reduction (warp_sum8).
 //
-// Layout (Pixels). One CTA of 256 threads a 32 x 32 tile. Warp w owns the
-// 16 x 8 block at (16 (w % 2), 8 (w / 2)), four 8 x 4 patches; each of its
-// threads owns one pixel of each patch j = jx + 2 jy, lane l at (l % 8,
-// l / 8) of the patch. The cull tests patches (the fewest pairs), and a
-// warp reduces per slot once for its four patches (the fewest visits). A
-// warp's store of one pixel index writes one 32-byte sector per patch row.
+// Layout (Pixels, Geo<TILE>). The tile side TILE is 32 or 16, a template
+// parameter of the layout, the staging and the walk. One CTA of TILE^2 / 4
+// threads a tile (256 at 32, 64 at 16): TILE / 16 columns of warps, each
+// warp w the 16 x 8 block at (16 (w % kWarpsX), 8 (w / kWarpsX)), four
+// 8 x 4 patches; each of its threads owns one pixel of each patch j = jx +
+// 2 jy, lane l at (l % 8, l / 8) of the patch. So a 32-pixel tile is 8
+// warps in a 2 x 4 grid and a 16-pixel tile 2 warps in a column, with the
+// same patch, warp block and per-thread work. The cull tests patches (the
+// fewest pairs), and a warp reduces per slot once for its four patches
+// (the fewest visits). A warp's store of one pixel index writes one
+// 32-byte sector per patch row.
 //
 // The walk (stage_slots, warp_slots, forward_slots, walk_forward). Threads
 // 0-63 stage a chunk of at most 64 slots from registers, each with its cull
-// rectangle at q_cut (slot_cull) as a 32-bit mask of the tile's patches
-// (bit 4w + j), and load the next chunk's rows while the warps walk this
+// rectangle at q_cut (slot_cull) as a mask of the tile's patches (bit 4w +
+// j: 32 bits at 32 pixels, 8 at 16), and load the next chunk's rows while
+// the warps walk this
 // one. Each warp ballots the slots whose mask meets its patches and walks
 // only those, in stream order, and per slot only its patches in the mask:
 // warp-uniform branches. A pair outside the rectangle fails the gate, so
@@ -71,15 +77,29 @@
 
 namespace gsum {
 
-constexpr int kTile = 32;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;               // 8
-constexpr int kPixels = kTile * kTile / kThreads;   // 4, one per patch
+constexpr int kPixels = 4;                          // a thread's, one per patch
 constexpr int kBK = 64;                             // instances per chunk
 constexpr int kFW = 16;                             // floats per feature row
 constexpr int kC = 4;                               // rgb + alpha
 constexpr int kPatchW = 8;  // a patch: 8 columns x 4 rows, one pixel a lane
 constexpr int kPatchH = 4;
+
+// A tile of TILE x TILE pixels over its CTA: kWarps warps of 16 x 8 pixel
+// blocks, kWarpsX of them across the tile, four pixels a thread.
+template <int TILE>
+struct Geo {
+  static_assert(TILE == 16 || TILE == 32, "K1-K3 are built for 16 and 32");
+  static constexpr int kTile = TILE;
+  static constexpr int kWarpsX = TILE / (2 * kPatchW);                  // 2 or 1
+  static constexpr int kWarps = kWarpsX * TILE / (2 * kPatchH);         // 8 or 2
+  static constexpr int kThreads = 32 * kWarps;                          // 256 or 64
+  // K2 / K3's CTAs a SM (__launch_bounds__): 768 threads either way, which
+  // caps a thread at 85 registers
+  static constexpr int kMinBlocks = 768 / kThreads;                     // 3 or 12
+  static_assert(kThreads * kPixels == TILE * TILE, "four pixels a thread");
+  static_assert(kThreads >= kBK, "threads 0-63 stage a chunk");
+  static_assert(4 * kWarps <= 32, "a slot's patch mask fits 32 bits");
+};
 
 // The stream a kernel walks. Flat: feat [n_rows, 16], gids [I], starts
 // [T+1]; counts and blocks unused. Aligned: blocks [NB, 16, 64], starts
@@ -231,12 +251,13 @@ struct Pixels {
   bool inside[kPixels];  // pixel within H x W
 };
 
-template <bool kBlocks>
+template <int TILE, bool kBlocks>
 __device__ __forceinline__ Pixels pixels_of(const Stream& st, int H, int W, int tiles_x) {
+  using G = Geo<TILE>;
   Pixels p;
   const int t = blockIdx.x;
-  p.x0 = (t % tiles_x) * kTile;
-  p.y0 = (t / tiles_x) * kTile;
+  p.x0 = (t % tiles_x) * TILE;
+  p.y0 = (t / tiles_x) * TILE;
   p.tx0 = static_cast<float>(p.x0);
   p.ty0 = static_cast<float>(p.y0);
   p.start = st.starts[t];
@@ -246,8 +267,8 @@ __device__ __forceinline__ Pixels pixels_of(const Stream& st, int H, int W, int 
   int lx[2], ly[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    lx[i] = 2 * kPatchW * (p.warp % 2) + kPatchW * i + p.lane % kPatchW;
-    ly[i] = 2 * kPatchH * (p.warp / 2) + kPatchH * i + p.lane / kPatchW;
+    lx[i] = 2 * kPatchW * (p.warp % G::kWarpsX) + kPatchW * i + p.lane % kPatchW;
+    ly[i] = 2 * kPatchH * (p.warp / G::kWarpsX) + kPatchH * i + p.lane / kPatchW;
     p.X[i] = static_cast<float>(lx[i]);
     p.Y[i] = static_cast<float>(ly[i]);
   }
@@ -277,8 +298,10 @@ struct Slots {
 // Thread k < kBK stages slot k of the chunk (its row `v`, where k < n)
 // with its patch mask; slots n..kBK-1 meet no patch. The caller
 // synchronises before the chunk is read.
+template <int TILE>
 __device__ __forceinline__ void stage_slots(Slots& s, const SlotRow& v, int n, float tx0,
                                             float ty0, float q_cut) {
+  using G = Geo<TILE>;
   const int k = threadIdx.x;
   if (k >= kBK) return;
   unsigned hit = 0;
@@ -292,15 +315,16 @@ __device__ __forceinline__ void stage_slots(Slots& s, const SlotRow& v, int n, f
     s.c[k] = v.c;
 #pragma unroll
     for (int ch = 0; ch < kC; ++ch) s.cm[ch][k] = v.f[ch];
-    const SlotCull cl = slot_cull(gx, gy, v.a, v.b, v.c, q_cut, kTile);
+    const SlotCull cl = slot_cull(gx, gy, v.a, v.b, v.c, q_cut, TILE);
     if (cl.x0 <= cl.x1 && cl.y0 <= cl.y1) {
-      // the patch columns (0..3) and rows (0..7) the rectangle meets
+      // the patch columns (0..TILE/8-1) and rows (0..TILE/4-1) the
+      // rectangle meets
       const unsigned cols = (2u << (cl.x1 / kPatchW)) - (1u << (cl.x0 / kPatchW));
       const unsigned rows = (2u << (cl.y1 / kPatchH)) - (1u << (cl.y0 / kPatchH));
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const unsigned cb = (cols >> (2 * (w % 2))) & 3u;
-        const unsigned rb = (rows >> (2 * (w / 2))) & 3u;
+      for (int w = 0; w < G::kWarps; ++w) {
+        const unsigned cb = (cols >> (2 * (w % G::kWarpsX))) & 3u;
+        const unsigned rb = (rows >> (2 * (w / G::kWarpsX))) & 3u;
         hit |= (((rb & 1u) ? cb : 0u) | ((rb & 2u) ? cb << 2 : 0u)) << (4 * w);
       }
     }
@@ -354,7 +378,7 @@ __device__ __forceinline__ void forward_slots(const Slots& s, const Pixels& p, f
 // the last of several chunks `row` holds the chunk before it, the first a
 // backward walk from the last chunk stages. Every thread of the CTA calls
 // it; the last chunk stays staged in `s`.
-template <bool kBlocks, bool kThenBack>
+template <int TILE, bool kBlocks, bool kThenBack>
 __device__ __forceinline__ void walk_forward(Slots& s, const Stream& st, const Pixels& p,
                                              float q_cut, float (&acc)[kPixels][kC],
                                              SlotRow& row) {
@@ -369,7 +393,7 @@ __device__ __forceinline__ void walk_forward(Slots& s, const Stream& st, const P
   prefetch_ids<kBlocks>(st, p.start + kBK, len - kBK);
   for (int ci = 0; ci < nch; ++ci) {
     const int base = p.start + ci * kBK;
-    stage_slots(s, row, min(kBK, p.end - base), p.tx0, p.ty0, q_cut);
+    stage_slots<TILE>(s, row, min(kBK, p.end - base), p.tx0, p.ty0, q_cut);
     __syncthreads();
     if (ci + 1 < nch) {
       if (k_own < min(kBK, p.end - base - kBK)) row = load_slot<kBlocks>(st, base + kBK, k_own);

@@ -67,7 +67,7 @@ from gaussianimage_tpu_torch.ops.tiles import INT32_MAX, sorted_window_bounds
 
 _C = 4  # output channels: rgb + alpha
 _PLAIN_CHUNK = 4096  # stream slots per step of the plain versions
-_KERNEL_TILE = 32  # the CUDA kernels' tile side
+_TILES = (16, 32)  # the tile sides the CUDA kernels are built for
 PATCH = (8, 4)        # K1-K3's patch, columns x rows (kPatchW, kPatchH in
 #   csrc/rasterize_sum_common.cuh): a warp skips a slot per patch
 WARP_BLOCK = (16, 8)  # K1-K3's warp: a block of 2 x 2 patches, one pixel of
@@ -76,7 +76,7 @@ WARP_BLOCK = (16, 8)  # K1-K3's warp: a block of 2 x 2 patches, one pixel of
 
 class RasterizeConfig(NamedTuple):
     """The JAX package's RasterizeConfig: same fields, same defaults."""
-    tile_px: int = 32        # square image tile side (the kernels take 32)
+    tile_px: int = 32        # square image tile side (K1-K3 take 32 or 16)
     tiles_per_step: int = 8  # tiles per grid step on the TPU; pads T only
     block_inst: int = 64     # instances per chunk (BK); rounds the stream cap
     q_cut: float = 9.0       # Mahalanobis cutoff (3 sigma)
@@ -222,17 +222,19 @@ def slot_cull_plain(gx, gy, a, b, c, qc, tile_px: int) -> Cull:
     return Cull(qc, x0, x1, y0, y1)
 
 
-def sum_cull_plain(rows: torch.Tensor, tx0, ty0, q_cut: float) -> Cull:
+def sum_cull_plain(rows: torch.Tensor, tx0, ty0, q_cut: float,
+                   tile_px: int = 32) -> Cull:
     """The cull K1-K3 apply to each staged slot (``stage_slots`` in
     csrc/rasterize_sum_common.cuh): the rectangle of ``slot_cull_plain``
-    for the gate q <= q_cut on their 32-pixel tiles. rows [..., 16] feature
-    rows, tx0 / ty0 their tiles' origins (broadcastable). The kernels
-    compute this on the card; the plain versions do not cull, so nothing
-    but tests and measurements calls it."""
+    for the gate q <= q_cut on the launch's tiles of ``tile_px`` pixels.
+    rows [..., 16] feature rows, tx0 / ty0 their tiles' origins
+    (broadcastable). The kernels compute this on the card; the plain
+    versions do not cull, so nothing but tests and measurements calls
+    it."""
     gx = rows[..., 0] - tx0
     gy = rows[..., 1] - ty0
     return slot_cull_plain(gx, gy, rows[..., 2], rows[..., 3], rows[..., 4],
-                           torch.full_like(gx, q_cut), _KERNEL_TILE)
+                           torch.full_like(gx, q_cut), tile_px)
 
 
 def cull_patches(cull: Cull, tile_px: int, patch) -> torch.Tensor:
@@ -541,7 +543,7 @@ def _check_tile_px(kernel: str, tile_px: int, tiles) -> None:
 
 
 def _check_launch(kernel: str, feat, gids, starts, tile_px, images=(),
-                  tiles=(_KERNEL_TILE,)):
+                  tiles=_TILES):
     """Checks of a launch on the flat stream; raises on anything the
     kernels do not take. ``images`` as ``_check_tensors``' ; ``tiles`` the
     tile sides the kernel is built for."""
@@ -557,7 +559,7 @@ def _check_launch(kernel: str, feat, gids, starts, tile_px, images=(),
 
 
 def _check_aligned_launch(kernel: str, blocks, starts, counts, tile_px, H,
-                          W, images=(), tiles=(_KERNEL_TILE,)):
+                          W, images=(), tiles=_TILES):
     """Checks of a launch on the aligned stream: the blocks [NB, 16, 64]
     float32, int32 starts and counts for every tile, every window starting
     on a block and ending inside the stream. Reads one flag back to the
@@ -598,7 +600,7 @@ def sum_fwd(feat: torch.Tensor, gids: torch.Tensor, starts: torch.Tensor,
     out = torch.empty(_C, H, W, dtype=torch.float32, device=feat.device)
     _raise_on("K1 rasterize_sum_fwd", lib.rasterize_sum_fwd(
         feat.data_ptr(), feat.shape[0], gids.data_ptr(), starts.data_ptr(),
-        out.data_ptr(), H, W, tiles_x, tiles_y, ctypes.c_float(q_cut),
+        out.data_ptr(), H, W, tiles_x, tiles_y, tile_px, ctypes.c_float(q_cut),
         _stream_ptr(feat)))
     sum_fwd.launches += 1
     return out
@@ -622,7 +624,7 @@ def sum_bwd(feat: torch.Tensor, gids: torch.Tensor, starts: torch.Tensor,
                      device=feat.device)
     _raise_on("K2 rasterize_sum_bwd", lib.rasterize_sum_bwd(
         feat.data_ptr(), feat.shape[0], gids.data_ptr(), starts.data_ptr(),
-        g.data_ptr(), dg.data_ptr(), H, W, tiles_x, tiles_y,
+        g.data_ptr(), dg.data_ptr(), H, W, tiles_x, tiles_y, tile_px,
         ctypes.c_float(q_cut), _stream_ptr(feat)))
     sum_bwd.launches += 1
     return dg
@@ -652,7 +654,7 @@ def sum_l2(feat: torch.Tensor, gids: torch.Tensor, starts: torch.Tensor,
     _raise_on("K3 rasterize_sum_l2", lib.rasterize_sum_l2(
         feat.data_ptr(), feat.shape[0], gids.data_ptr(), starts.data_ptr(),
         gt.data_ptr(), sse.data_ptr(), dg.data_ptr(), H, W, tiles_x, tiles_y,
-        ctypes.c_float(q_cut), ctypes.c_float(2.0 / (3.0 * H * W)),
+        tile_px, ctypes.c_float(q_cut), ctypes.c_float(2.0 / (3.0 * H * W)),
         int(bool(clamp)), _stream_ptr(feat)))
     sum_l2.launches += 1
     return sse, dg
@@ -677,7 +679,7 @@ def sum_fwd_aligned(blocks: torch.Tensor, starts: torch.Tensor,
     out = torch.empty(_C, H, W, dtype=torch.float32, device=blocks.device)
     _raise_on("K1 rasterize_sum_fwd_aligned", lib.rasterize_sum_fwd_aligned(
         blocks.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-        out.data_ptr(), H, W, tiles_x, tiles_y, ctypes.c_float(q_cut),
+        out.data_ptr(), H, W, tiles_x, tiles_y, tile_px, ctypes.c_float(q_cut),
         _stream_ptr(blocks)))
     sum_fwd.launches += 1
     sum_fwd_aligned.launches += 1
@@ -705,7 +707,7 @@ def sum_bwd_aligned(blocks: torch.Tensor, starts: torch.Tensor,
     dgb = torch.zeros_like(blocks)
     _raise_on("K2 rasterize_sum_bwd_aligned", lib.rasterize_sum_bwd_aligned(
         blocks.data_ptr(), starts.data_ptr(), counts.data_ptr(), g.data_ptr(),
-        dgb.data_ptr(), H, W, tiles_x, tiles_y, ctypes.c_float(q_cut),
+        dgb.data_ptr(), H, W, tiles_x, tiles_y, tile_px, ctypes.c_float(q_cut),
         _stream_ptr(blocks)))
     sum_bwd.launches += 1
     sum_bwd_aligned.launches += 1
@@ -736,8 +738,9 @@ def sum_l2_aligned(blocks: torch.Tensor, starts: torch.Tensor,
     _raise_on("K3 rasterize_sum_l2_aligned", lib.rasterize_sum_l2_aligned(
         blocks.data_ptr(), starts.data_ptr(), counts.data_ptr(),
         gt.data_ptr(), sse.data_ptr(), dgb.data_ptr(), H, W, tiles_x,
-        tiles_y, ctypes.c_float(q_cut), ctypes.c_float(2.0 / (3.0 * H * W)),
-        int(bool(clamp)), _stream_ptr(blocks)))
+        tiles_y, tile_px, ctypes.c_float(q_cut),
+        ctypes.c_float(2.0 / (3.0 * H * W)), int(bool(clamp)),
+        _stream_ptr(blocks)))
     sum_l2.launches += 1
     sum_l2_aligned.launches += 1
     return sse, dgb

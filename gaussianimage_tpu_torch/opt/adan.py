@@ -36,7 +36,7 @@ from typing import Callable, Iterable, Tuple, Union
 
 import torch
 
-_MOMENTS = ("exp_avg", "exp_avg_sq", "exp_avg_diff", "prev_grad")
+MOMENTS = ("exp_avg", "exp_avg_sq", "exp_avg_diff", "prev_grad")
 
 
 class Adan(torch.optim.Optimizer):
@@ -62,7 +62,7 @@ class Adan(torch.optim.Optimizer):
         for p in group["params"]:
             self.state[p] = {k: torch.zeros_like(p, memory_format=torch.
                                                  preserve_format)
-                             for k in _MOMENTS}
+                             for k in MOMENTS}
 
     def _clip_scale(self, grads, eps):
         if self.max_grad_norm <= 0.0:
@@ -91,7 +91,7 @@ class Adan(torch.optim.Optimizer):
             if clip is not None:
                 grads = torch._foreach_mul(grads, clip)
             st = [self.state[p] for p in ps]
-            m, n, d, prev = ([s[k] for s in st] for k in _MOMENTS)
+            m, n, d, prev = ([s[k] for s in st] for k in MOMENTS)
             if count == 0:
                 torch._foreach_copy_(prev, grads)
             diff = torch._foreach_sub(grads, prev)

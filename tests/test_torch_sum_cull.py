@@ -118,9 +118,10 @@ def test_patch_matches_the_kernel():
     """The mirror's patch and warp block are the shared layout's kPatchW x
     kPatchH and the 2 x 2 patches of a warp (``pixels_of`` in
     csrc/rasterize_sum_common.cuh), and K1, K2 and K3 all take that layout
-    and staging: each kernel places its pixels with ``pixels_of`` and stages
-    through ``stage_slots`` (K1 and K3 in ``walk_forward``), and neither
-    kernel source defines a patch of its own."""
+    and staging at their tile side: each kernel places its pixels with
+    ``pixels_of<TILE, ...>`` and stages through ``stage_slots<TILE>`` (K1
+    and K3 in ``walk_forward``), and neither kernel source defines a patch
+    of its own."""
     for src, kernels in (("rasterize_sum_fwd.cu",
                           ("rasterize_sum_fwd_kernel",)),
                          ("rasterize_sum_bwd.cu",
@@ -132,9 +133,10 @@ def test_patch_matches_the_kernel():
         for kernel in kernels:
             body = text[text.index(kernel + "("):]
             body = body[:body.index("\n}\n")]
-            assert "pixels_of<kBlocks>" in body, kernel
-            assert "walk_forward<" in body or "stage_slots(" in body, kernel
-    assert "stage_slots(" in HEADER.split("walk_forward(")[1]
+            assert "pixels_of<TILE, kBlocks>" in body, kernel
+            assert ("walk_forward<" in body
+                    or "stage_slots<TILE>(" in body), kernel
+    assert "stage_slots<TILE>(" in HEADER.split("walk_forward(")[1]
     patch = tuple(int(re.search(rf"constexpr int {k} = (\d+);", HEADER)
                       .group(1)) for k in ("kPatchW", "kPatchH"))
     assert patch == rs.PATCH
