@@ -248,6 +248,21 @@ Phases, one JSON line each (with ``elapsed_s``):
              launched; each render against ``render_fast`` under
              ``RasterizeConfig.serving(N)`` (flat, K5) within IMG_TOL /
              MAX_EDGE_PX, its n_dropped 0;
+8k'. codec_rates the codec CLI on the committed QAT states of both photos
+             at 20,000 and 40,000 points (CODEC_RATES_ROOT), each held to
+             the JAX package's evaluation of the same state
+             (CODEC_RATE_ANCHORS, pinned by
+             tests/test_torch_codec_rates.py): PSNR +- 0.01 dB, MS-SSIM
+             +- 1e-4, bpp and entropy-coded bpp to 4 decimals, round trip
+             < 1e-6, the serving twin's n_dropped equal; >= MIN_K4 K4
+             launches for each serving probe, K11a and the aligned K1
+             launched; the probe's model and ms per decode frame, the
+             "Dataset decode" line and the phase's seconds reported; on
+             each 40k state K4 (40,001 rows under serving(40000)) held to
+             its plain version as in phase 3, bit for bit, and the aligned
+             K1 on the evaluation decode's stream to K1_TOL, bit for bit
+             to the in-order plain version and, clipped, to the decode;
+             both with device time, host burst, plain time and bound;
 8l. aligned_fit 50 K3 steps from the flower@40k state on the aligned
              stream and on its flat twin: losses and parameters bit-equal;
              50 Fusion2 steps at 40k (K11a, K1, K2, K11b); then
@@ -311,6 +326,7 @@ import tempfile
 import time
 from copy import deepcopy
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 FLOWER_DIR = ROOT / "results/photos/GaussianImage_Cholesky_50000_10000"
@@ -325,6 +341,23 @@ CODEC_ANCHORS = {
               "bpp_ec": 1.3920},
     "flower": {"psnr": 38.8210, "ms-ssim": 0.992063, "bpp": 1.4285,
                "bpp_ec": 1.4000},
+}
+# the JAX package's codec evaluation of the committed 20k and 40k QAT
+# states (generic decode on the aligned stream, default config; on the
+# CPU, tests/test_torch_codec_rates.py, which holds these values), with
+# its serving twin's n_dropped; phase codec_rates gates the port's codec
+# CLI on them as the codec phase gates the 10k states. The TPU runs'
+# results_quant/RD_TABLE.md is not used.
+CODEC_RATES_ROOT = ROOT / "results_quant/photos"
+CODEC_RATE_ANCHORS = {
+    20000: {"china": {"psnr": 30.6350, "ms-ssim": 0.973221, "bpp": 2.8527,
+                      "bpp_ec": 2.7784, "serving_n_dropped": 0},
+            "flower": {"psnr": 41.0711, "ms-ssim": 0.993748, "bpp": 2.8527,
+                       "bpp_ec": 2.7537, "serving_n_dropped": 0}},
+    40000: {"china": {"psnr": 34.9142, "ms-ssim": 0.985585, "bpp": 5.7010,
+                      "bpp_ec": 5.5390, "serving_n_dropped": 0},
+            "flower": {"psnr": 43.1140, "ms-ssim": 0.996028, "bpp": 5.7010,
+                       "bpp_ec": 5.4999, "serving_n_dropped": 0}},
 }
 SERVE_N = 10000
 PREP_TOL = 1e-6    # feature rows, K4 / K5 against their plain versions
@@ -801,6 +834,7 @@ def main() -> None:
     from gaussianimage_tpu_torch import batched as bt
     from gaussianimage_tpu_torch import test_quantize, train, train_quantize
     from gaussianimage_tpu_torch.blend_cull_scene import cull_edge_scene
+    from gaussianimage_tpu_torch.core import clip01
     from gaussianimage_tpu_torch.models import make_model
     from gaussianimage_tpu_torch.models.cholesky import CHOLESKY_BOUND
     from gaussianimage_tpu_torch.models.rs import SCALING_BOUND
@@ -1755,6 +1789,10 @@ def main() -> None:
                          loss_type="Fusion2", init_mode="adaptive")
     opt = generic.init_state(torch.Generator(device=dev).manual_seed(1),
                              gt_image=gt_nchw)
+    # pixel-channels of the init's render at exactly 0 (colors of 0 on
+    # black pixels): where the clip's tie gradient splits, as jnp.clip's
+    with torch.no_grad():
+        init_zeros = int((generic.render()["render"] == 0).sum())
     reset_counts()
     gen_losses = [generic.train_step(opt, gt_nchw)["loss"]
                   for _ in range(GENERIC_STEPS)]
@@ -1768,7 +1806,8 @@ def main() -> None:
         fail(f"the Fusion2 loss went {gen_losses[0]} -> {gen_losses[-1]}")
     phase("generic", loss_type="Fusion2", steps=GENERIC_STEPS,
           launches=generic_counts, loss_first=float(gen_losses[0]),
-          loss_last=float(gen_losses[-1]))
+          loss_last=float(gen_losses[-1]),
+          init_pixel_channels_at_zero=init_zeros)
 
     # -- sharded: the sharded fit CLI at its defaults, 1 x 1 x 1 -------------
     def sharded_model(n):
@@ -3138,6 +3177,210 @@ def main() -> None:
                      f"to {off}")
     phase("aligned_slice", tol_db=ALIGNED_PSNR_TOL, images=aligned_eval,
           launches=aligned_eval_counts, serving_twin=twin_checks)
+
+    # codec_rates: the codec CLI on the committed 20k and 40k QAT states,
+    # gated on the JAX package's evaluation of each (CODEC_RATE_ANCHORS):
+    # the evaluation's decode takes the aligned stream (K11a, the aligned
+    # K1), the decode probe the serving twin (K4, the flat K1 on up to 3N
+    # instances); then K4 on each 40k state's codes and the aligned K1 on
+    # its decode, against their plain versions and timed
+    t_rates = time.time()
+    rates, rates_counts, rates_dataset = {}, {}, {}
+    rate_keys = ("psnr", "ms-ssim", "bpp", "bpp_ec", "ec_roundtrip_err",
+                 "position_bpp", "cholesky_bpp", "feature_dc_bpp",
+                 "serving_n_dropped", "probe_model", "rendering_fps")
+    for n, anchors in CODEC_RATE_ANCHORS.items():
+        folder = f"GaussianImage_Cholesky_50000_{n}"
+        out_dir = tempfile.mkdtemp(prefix="chip_smoke_codec_rates_")
+        try:
+            reset_counts()
+            res = test_quantize.main([
+                "--data_name", "photos", "--dataset", str(ROOT / "data"),
+                "--model_path", str(CODEC_RATES_ROOT / folder),
+                "--num_points", str(n), "--checkpoint_root", out_dir])
+            cnt = read_counts()
+            root_txt = (Path(out_dir) / "photos" / folder / "test.txt"
+                        ).read_text()
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        rates_counts[n] = cnt
+        dd = re.search(r"Dataset decode \(.*", root_txt)
+        rates_dataset[n] = dd.group(0) if dd else None
+        for r in res:
+            want = anchors[r["image"]]
+            if (abs(r["psnr"] - want["psnr"]) > 0.01
+                    or abs(r["ms-ssim"] - want["ms-ssim"]) > 1e-4
+                    or round(r["bpp"], 4) != want["bpp"]
+                    or round(r["bpp_ec"], 4) != want["bpp_ec"]
+                    or not r["ec_roundtrip_err"] < 1e-6
+                    or r["serving_n_dropped"] != want["serving_n_dropped"]):
+                fail(f"codec {r['image']}@{n}: "
+                     f"{ {k: r[k] for k in rate_keys} }; want {want}, "
+                     "round trip < 1e-6")
+            rates[f"{r['image']}@{n}"] = {
+                **{k: r[k] for k in rate_keys},
+                "ms_per_decode_frame": 1e3 * r["rendering_time"],
+                "jax": want}
+        n_serving = sum(r["probe_model"] == "serving" for r in res)
+        if (cnt["splat_prep_decode"] < MIN_K4 * n_serving
+                or not cnt["stream_blockize"]
+                or not cnt["rasterize_sum_fwd_aligned"]):
+            fail(f"the {n}-point codec run launched {cnt}: K4 fewer than "
+                 f"{MIN_K4} a serving probe, or no K11a or aligned K1")
+
+    def device_us(fn, name, n=20):
+        """(device us per launch, launches seen) of kernel
+        ``<name>_kernel`` in a trace of ``n`` calls of ``fn``, over the
+        launches the trace saw, as ``profile_of`` counts them; the profiler
+        can miss launches, so up to five traces until one sees any."""
+        for _ in range(5):
+            hits = [v for k, v in traced_us(
+                torch, lambda: [fn() for _ in range(n)]).items()
+                if f"{name}_kernel" in k]
+            seen = sum(c for _, c in hits)
+            if seen:
+                return sum(us for us, _ in hits) / seen, seen
+        return None, 0
+
+    n40, plane = 40000, Hf * Wf
+    cfg40 = RasterizeConfig.serving(n40)
+    I40, m40, aligned40 = sc.stream_caps(n40, cfg40)
+    if aligned40:
+        fail(f"serving({n40}) takes the aligned stream")
+    k4_40k, k1_40k, k1s_40k = {}, {}, {}
+    for image in ("china", "flower"):
+        qm = make_model("GaussianImage_Cholesky", device=dev, num_points=n40,
+                        H=Hf, W=Wf, quantize=True)
+        ckn = load_checkpoint(CODEC_RATES_ROOT
+                              / f"GaussianImage_Cholesky_50000_{n40}" / image
+                              / "gaussian_model.best.npz")
+        merge_matching(qm, ckn["params"], ckn["extra"])
+        enc_n = {k: torch.as_tensor(v, device=dev)
+                 for k, v in qm.compress_wo_ec().items()}
+        a4 = (enc_n["xyz"].float(), enc_n["quant_cholesky"],
+              enc_n["feature_dc_index"], qm.cholesky_quant_scale.detach(),
+              qm.cholesky_quant_beta.detach(),
+              qm.features_vq.combined_codebook(qm.vq_state()).contiguous(),
+              CHOLESKY_BOUND, Hf, Wf, cfg40.tile_px, m40, float(cfg40.q_cut))
+        out4n = prep.decode_prep(*a4)
+        torch.cuda.synchronize()
+        res4 = prep_check(f"K4 ({image}@40k)", out4n,
+                          prep.decode_prep_plain(*a4), bits=True)
+        rows = n40 + 1
+        b4 = bound(rows * (PREP_ROW_SLOTS["splat_prep_decode"]
+                           + PREP_KEY_SLOTS * m40), 0,
+                   28 * n40 + 4 * (6 + 192)
+                   + rows * (4 * sc.FW + 4 * m40 + 8))
+        us4, seen4 = device_us(lambda: prep.decode_prep(*a4),
+                               "splat_prep_decode")
+        res4.update(
+            rows=int(out4n[0].shape[0]), device_us=us4,
+            device_launches_seen=seen4,
+            ms=burst_ms(torch, lambda: prep.decode_prep(*a4), reps=20),
+            plain_ms=burst_ms(torch, lambda: prep.decode_prep_plain(*a4),
+                              reps=5),
+            bound_ms=b4[0], bound_by=b4[1])
+        k4_40k[image] = res4
+        # the serving twin's decode: K4's keys, one sort, the flat K1 on a
+        # stream past the default config's flat limit; against its plain
+        # versions, and its image against the aligned decode's below
+        feat4, keys4, trunc4, ntot4 = prep._finish(out4n)
+        gids4, starts4, counts4 = rs.stream_from_keys(keys4, n40, Hf, Wf,
+                                                      cfg40, I40)
+        fwd_s = (feat4, gids4, starts4, Hf, Wf, cfg40.tile_px,
+                 float(cfg40.q_cut))
+        img_s = rs.sum_fwd(*fwd_s)
+        torch.cuda.synchronize()
+        err_s = float((img_s - rs.sum_fwd_plain(*fwd_s)).abs().max())
+        nd_s = int(trunc4 + torch.clamp(ntot4 - I40, min=0))
+        qm_s = make_model("GaussianImage_Cholesky", device=dev,
+                          num_points=n40, H=Hf, W=Wf, quantize=True,
+                          raster=cfg40)
+        qm_s.load_state_dict(qm.state_dict())
+        dec_s = qm_s.decompress_wo_ec(enc_n)
+        if not (same_bits(torch, img_s, rs.sum_fwd_plain(
+                *fwd_s, in_order=True))
+                and math.isfinite(err_s) and err_s <= K1_TOL
+                and torch.equal(clip01(img_s[:3]), dec_s["render"][0])
+                and nd_s == 0 and int(dec_s["raster_aux"]["n_dropped"]) == 0):
+            fail(f"{image}@40k QAT serving: the flat K1 on K4's stream "
+                 f"against its plain versions (max |diff| {err_s} <= "
+                 f"{K1_TOL}, in order bit for bit), the serving decode, or "
+                 f"n_dropped {nd_s}")
+        sp_s = SimpleNamespace(gids=gids4, starts=starts4, counts=counts4,
+                               tiles_x=-(-Wf // cfg40.tile_px))
+        work_s = cull_check(f"{image}@40k QAT serving", pair_work(
+            torch, rs, sc, feat4, sp_s, Hf, Wf, float(cfg40.q_cut)))
+        b1s = bound(*sum_ops("rasterize_sum_fwd", work_s),
+                    4 * (feat4.numel() + gids4.numel() + starts4.numel())
+                    + 4 * 4 * plane)
+        us1s, seen1s = device_us(lambda: rs.sum_fwd(*fwd_s),
+                                 "rasterize_sum_fwd")
+        k1s_40k[image] = {
+            "max_abs_err": err_s, "tol": K1_TOL, "in_order_bit_equal": True,
+            "equals_serving_decode": True, "instances": int(starts4[-1]),
+            "cap": I40, "n_dropped": nd_s, "work": work_s,
+            "device_us": us1s, "device_launches_seen": seen1s,
+            "ms": burst_ms(torch, lambda: rs.sum_fwd(*fwd_s), reps=20),
+            "plain_ms": burst_ms(torch, lambda: rs.sum_fwd_plain(*fwd_s),
+                                 reps=3),
+            "bound_ms": b1s[0], "bound_by": b1s[1]}
+        # the evaluation's decode: its stream, the aligned K1 on it
+        with torch.no_grad():
+            means, geo, colors = qm.dequantize_wo_ec(enc_n)
+            xys, radii, conics, colors, opac = qm._quantized_splat(
+                None, means, geo, colors)
+            rxy = rs._axis_radii(conics, radii.float(), q_cut)
+            spq = sc.prepare_stream(xys, rxy, Hf, Wf, qm.cfg.raster)
+            featq = sc.pack_feat(xys, conics, colors, opac, premultiply=True)
+            dec = qm.decompress_wo_ec(enc_n)["render"][0]
+        if not spq.aligned or int(spq.n_dropped):
+            fail(f"{image}@40k QAT: aligned {spq.aligned}, n_dropped "
+                 f"{int(spq.n_dropped)}")
+        blocksq = sc.blockize_stream(featq, spq.gids)
+        img_q = rs.sum_fwd_aligned(blocksq, spq.starts, spq.counts, Hf, Wf)
+        torch.cuda.synchronize()
+        img_qp = rs.sum_fwd_aligned_plain(blocksq, spq.starts, spq.counts,
+                                          Hf, Wf)
+        err = float((img_q - img_qp).abs().max())
+        if not (same_bits(torch, img_q, rs.sum_fwd_aligned_plain(
+                blocksq, spq.starts, spq.counts, Hf, Wf, in_order=True))
+                and math.isfinite(err) and err <= K1_TOL
+                and torch.equal(img_q[:3].clamp(0, 1), dec)):
+            fail(f"{image}@40k QAT: the aligned K1 against its plain "
+                 f"versions (max |diff| {err} <= {K1_TOL}, in order bit for "
+                 "bit) or the codec's decode")
+        # the serving decode against the evaluation's (aligned) one
+        diff_s = (dec_s["render"][0] - dec).abs()
+        edge_s = int((diff_s > 1e-4).sum())
+        off_s = float(diff_s[diff_s <= 1e-4].max())
+        k1s_40k[image].update(vs_aligned_decode={
+            "max_abs_diff": float(diff_s.max()), "pixels_above_1e4": edge_s,
+            "rest_max_abs_diff": off_s})
+        if edge_s > MAX_EDGE_PX or off_s > IMG_TOL:
+            fail(f"{image}@40k QAT: the serving decode against the aligned "
+                 f"decode: {k1s_40k[image]['vs_aligned_decode']} (at most "
+                 f"{MAX_EDGE_PX} pixels above 1e-4, the rest <= {IMG_TOL})")
+        work_q = cull_check(f"{image}@40k QAT", pair_work(
+            torch, rs, sc, featq, spq, Hf, Wf, q_cut))
+        b1 = bound(*sum_ops("rasterize_sum_fwd", work_q),
+                   4 * (blocksq.numel() + spq.starts.numel()
+                        + spq.counts.numel()) + 4 * 4 * plane)
+        us1, seen1 = device_us(lambda: rs.sum_fwd_aligned(
+            blocksq, spq.starts, spq.counts, Hf, Wf), "rasterize_sum_fwd")
+        k1_40k[image] = {
+            "max_abs_err": err, "tol": K1_TOL, "in_order_bit_equal": True,
+            "equals_decode": True, "live": int(spq.counts.sum()),
+            "work": work_q, "device_us": us1, "device_launches_seen": seen1,
+            "ms": burst_ms(torch, lambda: rs.sum_fwd_aligned(
+                blocksq, spq.starts, spq.counts, Hf, Wf), reps=20),
+            "plain_ms": burst_ms(torch, lambda: rs.sum_fwd_aligned_plain(
+                blocksq, spq.starts, spq.counts, Hf, Wf), reps=3),
+            "bound_ms": b1[0], "bound_by": b1[1]}
+    phase("codec_rates", seconds=round(time.time() - t_rates, 3),
+          images=rates, launches=rates_counts, dataset_decode=rates_dataset,
+          k4_40k=k4_40k, k1_flat_serving_40k=k1s_40k,
+          k1_aligned_40k=k1_40k)
 
     # aligned_fit: TWIN_STEPS K3 steps from the 40k state, aligned and
     # flat; Fusion2 steps (K1 + K2) on it; then the CLI's fit at N = 50,000

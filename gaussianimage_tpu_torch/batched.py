@@ -37,6 +37,7 @@ from typing import Dict, Optional
 
 import torch
 
+from gaussianimage_tpu_torch.core import clip01
 from gaussianimage_tpu_torch.ops import stream_common as sc
 from gaussianimage_tpu_torch.ops.rasterize_sum import (
     RasterizeConfig, rasterize_gaussians_sum_chw)
@@ -72,7 +73,7 @@ def _raster_stacked(model, flat_splat, band):
     img, alpha, aux = rasterize_gaussians_sum_chw(
         xys, conics, colors, opac, cfg.H * B, cfg.W, radii=radii,
         config=cfg.raster.stacked(cfg.num_points, B), band=band)
-    img = torch.clamp(img, 0.0, 1.0)
+    img = clip01(img)
     img = img.reshape(3, B, cfg.H, cfg.W).permute(1, 0, 2, 3)
     return img, alpha.reshape(B, cfg.H, cfg.W), aux
 

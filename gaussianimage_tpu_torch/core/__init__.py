@@ -1,3 +1,4 @@
+from gaussianimage_tpu_torch.core.clip import clip01
 from gaussianimage_tpu_torch.core.covariance import (
     conic_from_cov2d,
     cov2d_from_cholesky,
@@ -12,6 +13,7 @@ from gaussianimage_tpu_torch.core.project import (
 from gaussianimage_tpu_torch.core.render_ref import render_sum_dense
 
 __all__ = [
+    "clip01",
     "cov2d_from_cholesky",
     "cov2d_from_scale_rot",
     "conic_from_cov2d",

@@ -233,3 +233,25 @@ class GaussianModelBase(nn.Module):
                                       device=mse.device))
         return {"loss": loss.detach(), "psnr": psnr, "n_dropped": n_dropped,
                 **self.step_metrics()}
+
+    def train_chunk(self, optimizer: torch.optim.Optimizer,
+                    gt_image: torch.Tensor, start_iteration: int,
+                    n_steps: int,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """``n_steps`` calls of ``train_step`` at iterations
+        ``start_iteration`` + 0 .. n_steps - 1 (the JAX package scans
+        them in one jit call; here a plain loop). Returns the steps'
+        ``loss``, ``psnr`` and step metrics stacked on the device, [n_steps]
+        each, and ``n_dropped_max``, the chunk's worst instance-stream
+        overflow, so that a fit that outgrows its stream cap warns during
+        training."""
+        ms = [self.train_step(optimizer, gt_image,
+                              iteration=start_iteration + i,
+                              generator=generator)
+              for i in range(n_steps)]
+        out = {k: torch.stack([m[k] for m in ms])
+               for k in ms[0] if k != "n_dropped"}
+        out["n_dropped_max"] = torch.stack(
+            [m["n_dropped"] for m in ms]).max()
+        return out

@@ -6,7 +6,8 @@ gaussianimage_cholesky.py):
  - _cholesky [N,3] raw; L elements = _cholesky + (0.5, 0, 0.5)
  - _features_dc [N,3] colors (raw, no activation)
  - opacity fixed at 1
- - render: project + accumulated-sum rasterize, clamp [0,1]
+ - render: project + accumulated-sum rasterize, clip to [0, 1] as
+   ``jnp.clip`` (``core.clip01``)
 
 The parameters start at zero; ``init_params`` initialises them for a fit
 (grid when N = H*W, adaptive from the GT, or uniform), and a fitted
@@ -26,7 +27,7 @@ import torch
 from torch import nn
 
 from gaussianimage_tpu_torch import resolve_device
-from gaussianimage_tpu_torch.core import project_gaussians_2d
+from gaussianimage_tpu_torch.core import clip01, project_gaussians_2d
 from gaussianimage_tpu_torch.core.init import (adaptive_init_sigma,
                                                adaptive_init_xyz,
                                                init_colors_from_gt)
@@ -152,7 +153,7 @@ class GaussianImageCholesky(QuantizeMixin, GaussianModelBase):
             self.features_vq.combined_codebook(
                 self.vq_state() if vq is None else vq), cfg.H, cfg.W,
             cfg.raster)
-        img = torch.clamp(img, 0.0, 1.0)
+        img = clip01(img)
         return {"render": img[None], "raster_aux": aux}
 
     @torch.no_grad()
@@ -179,7 +180,7 @@ class GaussianImageCholesky(QuantizeMixin, GaussianModelBase):
             params_b["cholesky_quant_scale"], params_b["cholesky_quant_beta"],
             CHOLESKY_BOUND, self._on_device(enc_b["feature_dc_index"]), comb,
             cfg.H, cfg.W, bcfg)
-        img = torch.clamp(img, 0.0, 1.0)
+        img = clip01(img)
         img = img.reshape(3, B, cfg.H, cfg.W).permute(1, 0, 2, 3)
         return {"render": img, "raster_aux": aux}
 
@@ -197,7 +198,7 @@ class GaussianImageCholesky(QuantizeMixin, GaussianModelBase):
             self._xyz, self._cholesky, self._features_dc, CHOLESKY_BOUND,
             cfg.H, cfg.W, cfg.raster)
         if not cfg.no_clamp:
-            img = torch.clamp(img, 0.0, 1.0)
+            img = clip01(img)
         return (img[None], aux) if with_aux else img[None]
 
     # activations ----------------------------------------------------------
@@ -232,7 +233,7 @@ class GaussianImageCholesky(QuantizeMixin, GaussianModelBase):
         return xys, radii, conics, colors, opac
 
     def render(self, xyz=None, render_viz: bool = False, **kw) -> dict:
-        """The clamped render [1, 3, H, W], the alpha map, the projected
+        """The clipped render [1, 3, H, W], the alpha map, the projected
         centers and the rasterizer's aux. ``render_viz`` adds
         ``gauss_render``, the Gaussians' shapes in fixed random colors."""
         cfg = self.cfg
@@ -241,7 +242,7 @@ class GaussianImageCholesky(QuantizeMixin, GaussianModelBase):
             xys, conics, colors, opac, cfg.H, cfg.W, radii=radii,
             config=cfg.raster)
         if not cfg.no_clamp:
-            img = torch.clamp(img, 0.0, 1.0)
+            img = clip01(img)
         out = {
             "render": img.permute(2, 0, 1)[None],   # [1,3,H,W]
             "alpha_map": alpha[None, None],         # [1,1,H,W]
@@ -256,5 +257,5 @@ class GaussianImageCholesky(QuantizeMixin, GaussianModelBase):
             gimg, _, _ = rasterize_gaussians_sum(
                 xys.detach(), conics.detach(), viz_colors, opac, cfg.H,
                 cfg.W, radii=radii, config=cfg.raster)
-            out["gauss_render"] = torch.clamp(gimg, 0, 1).permute(2, 0, 1)[None]
+            out["gauss_render"] = clip01(gimg).permute(2, 0, 1)[None]
         return out

@@ -34,6 +34,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from gaussianimage_tpu_torch.core import clip01
 from gaussianimage_tpu_torch.models.base import MaskConfig, ModelConfig
 from gaussianimage_tpu_torch.models.cholesky import GaussianImageCholesky
 from gaussianimage_tpu_torch.ops import rasterize_gaussians_sum
@@ -191,8 +192,7 @@ class GaussianImageCholeskyMask(GaussianImageCholesky):
             xys, conics, colors, opac, cfg.H, cfg.W, radii=radii,
             config=cfg.raster)
         if not cfg.no_clamp:
-            img = torch.minimum(torch.maximum(img, img.new_zeros(())),
-                                img.new_ones(()))
+            img = clip01(img)
         return {"render": img.permute(2, 0, 1)[None],
                 "alpha_map": alpha[None, None], "final_opacities": opac,
                 "xys": xys, "raster_aux": aux}

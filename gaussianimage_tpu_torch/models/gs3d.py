@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from gaussianimage_tpu_torch import resolve_device
+from gaussianimage_tpu_torch.core import clip01
 from gaussianimage_tpu_torch.core.camera3d import project_gaussians
 from gaussianimage_tpu_torch.core.sh import num_sh_bases, spherical_harmonics
 from gaussianimage_tpu_torch.models.base import GaussianModelBase, ModelConfig
@@ -167,7 +168,7 @@ class Gaussian3D(GaussianModelBase):
         img, alpha, aux = rasterize_gaussians_blend(
             xys, depths, radii, conics, rgbs, opac, cfg.H, cfg.W,
             background=self.background, config=self.blend_cfg)
-        img = torch.minimum(img, img.new_ones(()))
+        img = clip01(img, lower=False)
         return {
             "render": img.permute(2, 0, 1)[None],   # [1,3,H,W]
             "alpha_map": alpha[None, None],         # [1,1,H,W]
@@ -217,5 +218,5 @@ class Gaussian3D(GaussianModelBase):
         img, _, aux = rasterize_blend_from_keys_chw(
             feat, keys, trunc, n_total, cfg.H, cfg.W, self.background, bcfg,
             I0)
-        img = torch.minimum(img, img.new_ones(()))[None]
+        img = clip01(img, lower=False)[None]
         return (img, aux) if with_aux else img

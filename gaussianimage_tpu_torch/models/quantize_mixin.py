@@ -33,6 +33,7 @@ from gaussianimage_tpu_torch.codec import (ResidualVQ, ResidualVQState,
 from gaussianimage_tpu_torch.codec.bitstream import (compress_categorical,
                                                      decompress_categorical,
                                                      np_bits)
+from gaussianimage_tpu_torch.core import clip01
 from gaussianimage_tpu_torch.ops import rasterize_gaussians_sum
 from gaussianimage_tpu_torch.utils.losses import loss_fn
 
@@ -165,9 +166,7 @@ class QuantizeMixin:
         means, geo, colors, vq_loss, vq_state = self.quantized_splat_inputs(
             training=training)
         img, alpha, aux = self._rasterize_quantized(None, means, geo, colors)
-        # jnp.clip: the gradient splits at a tie with a bound
-        img = torch.minimum(torch.maximum(img, img.new_zeros(())),
-                            img.new_ones(()))
+        img = clip01(img)
         N = self._xyz.shape[0]
         return {"render": img.permute(2, 0, 1)[None],
                 "alpha_map": alpha[None, None], "vq_loss": vq_loss,
@@ -234,7 +233,7 @@ class QuantizeMixin:
         Returns {"render": [1, 3, H, W], "raster_aux": ...}."""
         means, geo, colors = self.dequantize_wo_ec(enc, params, vq)
         img, _, aux = self._rasterize_quantized(params, means, geo, colors)
-        img = torch.clamp(img, 0.0, 1.0)
+        img = clip01(img)
         return {"render": img.permute(2, 0, 1)[None], "raster_aux": aux}
 
     def compress(self) -> Dict:

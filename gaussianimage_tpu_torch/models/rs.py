@@ -5,7 +5,8 @@ gaussianimage_tpu/models/rs.py; reference gaussianimage_rs.py):
  - _scaling [N,2] raw; scales = |_scaling + 0.5|
  - _rotation [N,1] raw; theta = sigmoid(_rotation) * 2 pi
  - _features_dc [N,3] colors (raw, no activation); opacity fixed at 1
- - render: project + accumulated-sum rasterize, always clamped to [0, 1]
+ - render: project + accumulated-sum rasterize, always clipped to [0, 1]
+   as ``jnp.clip``
 
 Under ``quantize`` the codec quantizes the raw scaling and the *activated*
 rotation (radians) with 6-bit uniform quantizers, the means to float16 and
@@ -22,7 +23,8 @@ import torch
 from torch import nn
 
 from gaussianimage_tpu_torch import resolve_device
-from gaussianimage_tpu_torch.core import project_gaussians_2d_scale_rot
+from gaussianimage_tpu_torch.core import (clip01,
+                                         project_gaussians_2d_scale_rot)
 from gaussianimage_tpu_torch.core.init import (adaptive_init_sigma,
                                                adaptive_init_xyz,
                                                init_colors_from_gt)
@@ -141,7 +143,7 @@ class GaussianImageRS(QuantizeMixin, GaussianModelBase):
             self.features_vq.combined_codebook(
                 self.vq_state() if vq is None else vq), cfg.H, cfg.W,
             cfg.raster)
-        img = torch.clamp(img, 0.0, 1.0)
+        img = clip01(img)
         return {"render": img[None], "raster_aux": aux}
 
     @torch.no_grad()
@@ -156,7 +158,7 @@ class GaussianImageRS(QuantizeMixin, GaussianModelBase):
             self._xyz, self._scaling, self._rotation, self._features_dc,
             SCALING_BOUND, cfg.H, cfg.W, cfg.raster)
         if not cfg.no_clamp:
-            img = torch.clamp(img, 0.0, 1.0)
+            img = clip01(img)
         return (img[None], aux) if with_aux else img[None]
 
     # activations ----------------------------------------------------------
@@ -196,7 +198,7 @@ class GaussianImageRS(QuantizeMixin, GaussianModelBase):
         return xys, radii, conics, colors, opac
 
     def render(self, xyz=None, **kw) -> dict:
-        """The render [1, 3, H, W], clamped to [0, 1] always (the JAX model
+        """The render [1, 3, H, W], clipped to [0, 1] always (the JAX model
         ignores ``no_clamp`` here), the alpha map, the projected centers and
         the rasterizer's aux. Other keywords (``render_viz``) are accepted
         and ignored: there is no Gaussian-shape visualization."""
@@ -205,7 +207,7 @@ class GaussianImageRS(QuantizeMixin, GaussianModelBase):
         img, alpha, aux = rasterize_gaussians_sum(
             xys, conics, colors, opac, cfg.H, cfg.W, radii=radii,
             config=cfg.raster)
-        img = torch.clamp(img, 0.0, 1.0)
+        img = clip01(img)
         return {
             "render": img.permute(2, 0, 1)[None],   # [1,3,H,W]
             "alpha_map": alpha[None, None],         # [1,1,H,W]

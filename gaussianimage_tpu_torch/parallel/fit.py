@@ -39,6 +39,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from gaussianimage_tpu_torch.core import clip01
 from gaussianimage_tpu_torch.ops import (rasterize_gaussians_sum,
                                          rasterize_gaussians_sum_l2)
 from gaussianimage_tpu_torch.opt import Adan
@@ -169,16 +170,8 @@ def sharded_render(model, mesh: Mesh):
         radii=radii, config=cfg.raster)
     img = gauss_sum(img, mesh)
     if not cfg.no_clamp:
-        img = _clip01(img)
+        img = clip01(img)
     return img, aux["n_dropped"]
-
-
-def _clip01(x: torch.Tensor) -> torch.Tensor:
-    """x clipped to [0, 1] as ``jnp.clip`` clips it, gradient included:
-    half the cotangent passes at exactly 0 or 1 (a tie of the max / min),
-    where ``torch.clamp`` passes all of it. Where colors start at exactly 0
-    (adaptive init on black pixels), whole regions render exactly 0."""
-    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
 
 
 def _uses_fused(model, mesh: Mesh) -> bool:

@@ -107,31 +107,52 @@ class CodecEvaluator2d:
         self.model_s.load_state_dict(self.model.state_dict())
 
     @torch.no_grad()
-    def test(self):
+    def evaluate(self):
+        """The evaluation without its timed probes: compress once, decode
+        (the default model), and return the bpp breakdown
+        (``analysis_wo_ec``) with psnr, ms-ssim, bpp_ec (the real rANS
+        streams), ec_roundtrip_err (the entropy-coded decode against the
+        decode) and serving_n_dropped (the serving twin's overflow on this
+        scene). Keeps the code arrays (``enc``, ``enc_dev``, ``enc_ec``)
+        for the probes."""
         model, dev = self.model, self.device
-        enc = model.compress_wo_ec()
-        self.enc = enc  # for the whole-dataset decode probe
-        enc_dev = {k: torch.as_tensor(v, device=dev) for k, v in enc.items()}
-        out = model.decompress_wo_ec(enc_dev)["render"]
-
-        # the probe's model: the serving twin unless it drops instances
-        nd = int(self.model_s.decompress_wo_ec(enc_dev)["raster_aux"]
+        self.enc = enc = model.compress_wo_ec()
+        self.enc_dev = {k: torch.as_tensor(v, device=dev)
+                        for k, v in enc.items()}
+        out = model.decompress_wo_ec(self.enc_dev)["render"]
+        nd = int(self.model_s.decompress_wo_ec(self.enc_dev)["raster_aux"]
                  ["n_dropped"])
-        probe_model = self.model_s if nd == 0 else model
-        end_time = timed_bursts(lambda: decode_burst(probe_model, enc_dev),
-                                dev)
-
         data = model.analysis_wo_ec(enc)
-        enc_ec = model.compress()
-        data_ec = model.analysis(enc_ec)
-        out_ec = model.decompress(enc_ec)["render"]
-        rt_err = float((out_ec - out).abs().max())
+        self.enc_ec = model.compress()
+        data_ec = model.analysis(self.enc_ec)
+        out_ec = model.decompress(self.enc_ec)["render"]
+        mse = float(torch.mean((out - self.gt_image) ** 2))
+        metric = ms_ssim if min(self.H, self.W) >= 161 else ssim
+        data.update({"psnr": 10 * math.log10(1.0 / max(mse, 1e-12)),
+                     "ms-ssim": float(metric(out, self.gt_image,
+                                             data_range=1.0)),
+                     "bpp_ec": data_ec["bpp"],
+                     "ec_roundtrip_err": float((out_ec - out).abs().max()),
+                     "serving_n_dropped": nd})
+        return data
+
+    @torch.no_grad()
+    def test(self):
+        """``evaluate``, then the decode probe (on the serving twin unless
+        it drops instances) and the entropy-coded decode's timed parts;
+        writes test.npy and the test.txt lines."""
+        model, dev = self.model, self.device
+        data = self.evaluate()
+        nd = data["serving_n_dropped"]
+        probe_model = self.model_s if nd == 0 else model
+        end_time = timed_bursts(
+            lambda: decode_burst(probe_model, self.enc_dev), dev)
 
         # the entropy-coded decode in three parts, synchronised between them
         parts = np.zeros(3)
         for _ in range(EC_FRAMES):
             t0 = time.perf_counter()
-            dec = model.entropy_decode(enc_ec)
+            dec = model.entropy_decode(self.enc_ec)
             t1 = time.perf_counter()
             dec_dev = {k: torch.as_tensor(v, device=dev)
                        for k, v in dec.items()}
@@ -143,26 +164,20 @@ class CodecEvaluator2d:
         parts /= EC_FRAMES
         ec_time = float(parts.sum())
 
-        mse = float(torch.mean((out - self.gt_image) ** 2))
-        psnr = 10 * math.log10(1.0 / max(mse, 1e-12))
-        metric = ms_ssim if min(self.H, self.W) >= 161 else ssim
-        msv = float(metric(out, self.gt_image, data_range=1.0))
-        data.update({"psnr": psnr, "ms-ssim": msv, "rendering_time": end_time,
+        data.update({"rendering_time": end_time,
                      "rendering_fps": 1 / end_time,
                      "rendering_time_ec": ec_time,
                      "rendering_fps_ec": 1 / ec_time,
                      "rendering_time_ec_rans": float(parts[0]),
                      "rendering_time_ec_h2d": float(parts[1]),
                      "rendering_time_ec_device": float(parts[2]),
-                     "bpp_ec": data_ec["bpp"], "ec_roundtrip_err": rt_err,
-                     "serving_n_dropped": nd,
                      "probe_model": "serving" if nd == 0 else "default"})
         np.save(self.log_dir / "test.npy", data)
         self.logwriter.write(
             "Eval time:{:.8f}s, FPS:{:.4f}, EC-decode FPS:{:.4f}".format(
                 end_time, 1 / end_time, 1 / ec_time))
         self.logwriter.write("PSNR:{:.4f}, MS_SSIM:{:.6f}, bpp:{:.4f}".format(
-            psnr, msv, data["bpp"]))
+            data["psnr"], data["ms-ssim"], data["bpp"]))
         self.logwriter.write(
             "position_bpp:{:.4f}, cholesky_bpp:{:.4f}, feature_dc_bpp:{:.4f}, "
             "entropy-coded bpp:{:.4f}".format(

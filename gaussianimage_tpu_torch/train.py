@@ -79,9 +79,9 @@ PROFILE_RENDERS = 10  # evaluation renders in the --profile trace
 MASK_FLAGS = ("start_mask_training", "stop_mask_training", "reg_type",
               "target_sparsity", "lambda_reg", "init_mask_logit", "use_ema",
               "use_score", "temp_init", "temp_final")
-# the step metrics every model reports; the rest (wMask's) go to
-# scalars.jsonl beside loss and psnr
-BASE_METRICS = ("loss", "psnr", "n_dropped")
+# the chunk metrics every model reports (``train_chunk``); the rest
+# (wMask's) go to scalars.jsonl beside loss and psnr
+BASE_METRICS = ("loss", "psnr", "n_dropped_max")
 
 
 def render_burst(model):
@@ -332,11 +332,10 @@ class SimpleTrainer2d:
 
     # -- the fit -------------------------------------------------------------
     def _chunk(self, it: int, n: int):
-        """Steps it + 1 .. it + n; their metric dicts (device scalars)."""
-        return [self.model.train_step(self.optimizer, self.gt_image,
-                                      iteration=it + 1 + j,
-                                      generator=self.generator)
-                for j in range(n)]
+        """Steps it + 1 .. it + n through ``train_chunk``; their metrics
+        stacked on the device."""
+        return self.model.train_chunk(self.optimizer, self.gt_image, it + 1,
+                                      n, self.generator)
 
     def _traced_chunk(self, it: int, n: int):
         """``_chunk`` and ``PROFILE_RENDERS`` evaluation renders under
@@ -383,17 +382,18 @@ class SimpleTrainer2d:
             else:
                 ms = self._chunk(it, n)
             # one read-back per chunk
-            losses, psnrs, dropped = torch.stack([torch.stack(
-                [m["loss"].float(), m["psnr"].float(),
-                 m["n_dropped"].float()]) for m in ms], dim=1).cpu().numpy()
-            extra = {k: torch.stack([m[k] for m in ms]).cpu().numpy()
-                     for k in ms[0] if k not in BASE_METRICS}
+            head = torch.cat([ms["loss"].float(), ms["psnr"].float(),
+                              ms["n_dropped_max"].float()[None]]
+                             ).cpu().numpy()
+            losses, psnrs = head[:n], head[n:2 * n]
+            extra = {k: v.cpu().numpy() for k, v in ms.items()
+                     if k not in BASE_METRICS}
             hist["loss"].extend(losses.tolist())
             hist["psnr"].extend(psnrs.tolist())
             hist["iter"].extend(range(it + 1, it + n + 1))
             self._log_scalars(it, losses, psnrs, n, extra)
             it += n
-            nd = int(dropped.max())
+            nd = int(head[-1])
             self.chunk_dropped.append(nd)
             if nd > 0 and not warned_overflow:
                 warned_overflow = True

@@ -63,9 +63,11 @@ def _worker(a) -> None:
     mesh = make_mesh({"data": d, "gauss": g, "tile": t})
     src = np.load(a.inp)
     images = src["images"]
+    caps = {k: getattr(a, k) for k in ("max_instances", "max_tiles_per_gauss")
+            if getattr(a, k) is not None}
     model = make_model("GaussianImage_Cholesky", device="cpu",
                        num_points=a.n, H=images.shape[2], W=images.shape[3],
-                       raster=RasterizeConfig(tile_px=16))
+                       raster=RasterizeConfig(tile_px=16, **caps))
     state = init_sharded_fit(model, mesh, images, seed=SEED,
                              shard_opt=a.shard_opt)
     names = [k[len("p/"):] for k in src.files if k.startswith("p/")]
@@ -160,15 +162,25 @@ def test_single_worker_environments_start_nothing(monkeypatch):
         make_mesh({"data": 1, "gauss": 1, "tile": 2})
 
 
-MESHES = [("2,2,2", False, H), ("1,1,2", False, H), ("1,2,2", True, H),
-          ("1,1,4", False, 64)]
+# stream caps that make every step drop instances, at the scale of the
+# blend's dropping scene (tests/test_torch_blend.py, n120_drop)
+DROP = {"max_instances": 128, "max_tiles_per_gauss": 2}
+MESHES = [("2,2,2", False, H, {}), ("1,1,2", False, H, {}),
+          ("1,2,2", True, H, {}), ("1,1,4", False, 64, {}),
+          ("1,1,2", False, H, DROP), ("1,2,1", False, H, DROP)]
 
 
-@pytest.mark.parametrize("mesh_s,shard_opt,h", MESHES)
-def test_sharded_step_matches_jax(tmp_path, mesh_s, shard_opt, h):
+@pytest.mark.parametrize("mesh_s,shard_opt,h,caps", [
+    pytest.param(*m, id="-".join(map(str, m[:3])) + ("-drop" if m[3] else ""))
+    for m in MESHES])
+def test_sharded_step_matches_jax(tmp_path, mesh_s, shard_opt, h, caps):
+    """The last two cases overflow the stream (``DROP``): on (1, 1, 2)
+    through the fused K3 step, on (1, 2, 1) through the generic one. Both
+    packages drop the same number, and the fit agrees as it does without
+    a drop."""
     d, g, t = (int(x) for x in mesh_s.split(","))
     model = j_make_model("GaussianImage_Cholesky", num_points=N, H=h, W=W,
-                         raster=JCfg(tile_px=16))
+                         raster=JCfg(tile_px=16, **caps))
     mesh = j_mesh({"data": d, "gauss": g, "tile": t},
                   devices=jax.devices()[:d * g * t])
     images = np.concatenate([synthetic_image(h, W, seed=i)
@@ -188,7 +200,8 @@ def test_sharded_step_matches_jax(tmp_path, mesh_s, shard_opt, h):
         sys.executable, __file__, "--worker", "--rank", str(r),
         "--mesh", mesh_s, "--rendezvous", str(tmp_path / "rdv"),
         "--inp", str(inp), "--out", str(out), "--n", str(N)]
-        + (["--shard_opt"] if shard_opt else []), n=d * g * t)
+        + (["--shard_opt"] if shard_opt else [])
+        + [f"--{k}={v}" for k, v in caps.items()], n=d * g * t)
     try:
         step = j_step(model, mesh, n_steps=STEPS, shard_opt=shard_opt)(
             params, opt_state, gt)
@@ -203,6 +216,7 @@ def test_sharded_step_matches_jax(tmp_path, mesh_s, shard_opt, h):
                                    err_msg=k)
     np.testing.assert_allclose(got["loss"], j_loss, rtol=1e-4)
     np.testing.assert_array_equal(got["n_dropped"], j_nd)
+    assert (int(j_nd.max()) > 0) == bool(caps), j_nd
 
 
 def _free_port() -> int:
@@ -318,17 +332,52 @@ def test_comm_accounting_matches_jax(axes, shard_opt):
 
 
 def test_sharded_clip_gradient_is_jax_clip():
-    """The generic sharded step clips as ``jnp.clip`` does: half the
-    cotangent at exactly 0 and 1 (where colors of 0 leave whole regions at
-    exactly 0), all of it inside, none outside."""
-    from gaussianimage_tpu_torch.parallel.fit import _clip01
-    x = np.array([-0.5, 0.0, 0.25, 1.0, 1.5], np.float32)
-    t = torch.tensor(x, requires_grad=True)
-    _clip01(t).sum().backward()
-    j = jax.grad(lambda v: jnp.clip(v, 0.0, 1.0).sum())(jnp.asarray(x))
-    np.testing.assert_array_equal(t.grad.numpy(), np.asarray(j))
-    np.testing.assert_array_equal(_clip01(torch.tensor(x)).numpy(),
-                                  np.clip(x, 0.0, 1.0))
+    """The sharded render clips as ``jnp.clip`` does, through the shared
+    ``core.clip01``: on the one-rank mesh (no process group) at tile 16,
+    with every red color exactly 0 so that the red channel renders exactly
+    0, ``sum(render * G)`` and its gradients equal ``jax.value_and_grad``
+    of the JAX model's render (which clips with ``jnp.clip``) from the
+    same parameters, at tests/test_torch_grad.py's tolerance (value rtol
+    1e-5, gradients rtol 5e-3 / atol 1e-3 x the largest). A clip that
+    passed the whole cotangent at 0 would double every red gradient."""
+    from gaussianimage_tpu_torch.models import make_model
+    from gaussianimage_tpu_torch.ops import RasterizeConfig
+    from gaussianimage_tpu_torch.parallel import make_mesh
+    from gaussianimage_tpu_torch.parallel.fit import sharded_render
+    from gaussianimage_tpu_torch.utils.checkpoint import params_from_numpy
+    n = 96
+    rng = np.random.default_rng(SEED)
+    colors = rng.uniform(0.05, 0.6, (n, 3)).astype(np.float32)
+    colors[:, 0] = 0.0
+    params = {"_xyz": rng.uniform(-1.2, 1.2, (n, 2)),
+              "_cholesky": np.stack([rng.uniform(0.5, 2.5, n),
+                                     rng.uniform(-0.5, 0.5, n),
+                                     rng.uniform(0.5, 2.5, n)], 1),
+              "_features_dc": colors}
+    params = {k: np.asarray(v, np.float32) for k, v in params.items()}
+    G = rng.uniform(-1, 1, (3, H, W)).astype(np.float32)
+
+    model = make_model("GaussianImage_Cholesky", device="cpu", num_points=n,
+                       H=H, W=W, raster=RasterizeConfig(tile_px=16))
+    model.load_state_dict(params_from_numpy(params), strict=False)
+    img, _ = sharded_render(model, make_mesh({"data": 1, "gauss": 1,
+                                              "tile": 1}))
+    assert bool((img[..., 0] == 0).all())
+    val = (img.permute(2, 0, 1) * torch.from_numpy(G)).sum()
+    val.backward()
+
+    jm = j_make_model("GaussianImage_Cholesky", num_points=n, H=H, W=W,
+                      raster=JCfg(tile_px=16))
+    j_val, j_grads = jax.jit(jax.value_and_grad(
+        lambda p: (jm.render(p)["render"][0] * jnp.asarray(G)).sum()))(
+        {k: jnp.asarray(v) for k, v in params.items()})
+    np.testing.assert_allclose(float(val.detach()), float(j_val), rtol=1e-5)
+    for name in params:
+        got = getattr(model, name).grad.numpy().astype(np.float64)
+        want = np.asarray(j_grads[name], np.float64)
+        np.testing.assert_allclose(got, want, rtol=5e-3,
+                                   atol=1e-3 * np.abs(want).max(),
+                                   err_msg=name)
 
 
 def test_scaling_bench_on_one_rank(capsys):
@@ -355,4 +404,6 @@ if __name__ == "__main__":
     ap.add_argument("--out")
     ap.add_argument("--n", type=int)
     ap.add_argument("--shard_opt", action="store_true")
+    ap.add_argument("--max_instances", type=int, default=None)
+    ap.add_argument("--max_tiles_per_gauss", type=int, default=None)
     _worker(ap.parse_args())

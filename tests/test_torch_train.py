@@ -32,6 +32,7 @@ from gaussianimage_tpu_torch.core import init as p_init  # noqa: E402
 from gaussianimage_tpu_torch.core.reseed import (  # noqa: E402
     default_schedule, reseed_state)
 from gaussianimage_tpu_torch.models import make_model  # noqa: E402
+from gaussianimage_tpu_torch.ops import RasterizeConfig  # noqa: E402
 from gaussianimage_tpu_torch.opt import Adan, step_lr  # noqa: E402
 from gaussianimage_tpu_torch.train import SimpleTrainer2d  # noqa: E402
 from gaussianimage_tpu_torch.utils.checkpoint import (  # noqa: E402
@@ -155,6 +156,46 @@ def test_golden_fit():
     psnr = float(m["psnr"])
     assert psnr > 30.4, psnr
     assert abs(psnr - j_psnr) < 0.1, (psnr, j_psnr)
+
+
+@pytest.mark.parametrize("model_name", ["GaussianImage_Cholesky",
+                                        "GaussianImage_Cholesky_wMask"])
+def test_train_chunk_is_train_step_n_times(model_name):
+    """``train_chunk`` (JAX: ``GaussianModelBase.train_chunk``) over 8 steps
+    from iteration 5 equals 8 calls of ``train_step`` at iterations 5..12
+    bit for bit: the per-step loss, PSNR and step metrics (wMask's
+    sparsities, its Gumbel noise drawn from the same generator), the
+    parameters and Adan's moments; its ``n_dropped_max`` is the steps'
+    largest overflow, under a 768-instance cap that drops 189-196
+    instances a step."""
+    gt = torch.from_numpy(synthetic_image(H, W, seed=0))
+
+    def fresh():
+        m = make_model(model_name, device="cpu", num_points=N, H=H, W=W,
+                       raster=RasterizeConfig(max_instances=768))
+        m.init_params(torch.Generator().manual_seed(1))
+        return m, m.make_optimizer(), torch.Generator().manual_seed(2)
+
+    chunked, opt_c, gen_c = fresh()
+    stepped, opt_s, gen_s = fresh()
+    out = chunked.train_chunk(opt_c, gt, 5, 8, gen_c)
+    steps = [stepped.train_step(opt_s, gt, iteration=5 + i, generator=gen_s)
+             for i in range(8)]
+    assert sorted(out) == sorted(
+        [k for k in steps[0] if k != "n_dropped"] + ["n_dropped_max"])
+    for k in out:
+        if k != "n_dropped_max":
+            assert out[k].shape == (8,), k
+            assert torch.equal(out[k], torch.stack([m[k] for m in steps])), k
+    dropped = [int(m["n_dropped"]) for m in steps]
+    assert int(out["n_dropped_max"]) == max(dropped) > 0, dropped
+    for (name, a), b in zip(chunked.named_parameters(),
+                            stepped.parameters()):
+        assert torch.equal(a, b), name
+        for key, v in opt_c.state[a].items():
+            assert torch.equal(torch.as_tensor(v),
+                               torch.as_tensor(opt_s.state[b][key])), (
+                name, key)
 
 
 # ---------------------------------------------------------------------------
